@@ -1,0 +1,158 @@
+"""CheckpointSession — the libcriu-style façade over the snapshot engine.
+
+One object owns the checkpoint lifecycle the way a ``criu_*`` session
+does: configured by a :class:`CheckpointOptions`, preflighted with
+:meth:`check`, driven with :meth:`checkpoint` / :meth:`restore`.
+
+The :meth:`frozen` context manager exposes the dump phases::
+
+    with session.frozen(step) as snap:      # ①–③ quiesce + capture done
+        ...                                 # job is frozen; inspect snap
+    # ④ on exit: write + commit + resume (abort on exception)
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, List, Optional
+
+from repro_torch.api.capabilities import CheckReport, capabilities, check
+from repro_torch.api.options import CheckpointOptions
+from repro_torch.devices import DeviceLike, resolve_device
+
+PyTree = Any
+
+
+class SnapshotWriteFailed(RuntimeError):
+    """A background snapshot write failed; step loops that poll
+    :attr:`CheckpointSession.write_error` abort with it."""
+
+
+class FrozenCheckpoint:
+    """Handle to a dump frozen between capture (①–③) and commit (④)."""
+
+    def __init__(self, engine, ctx):
+        self._engine = engine
+        self._ctx = ctx
+        self._done = False
+        self.path: Optional[str] = None
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        return self._ctx.stats
+
+    def commit(self) -> str:
+        """Phase ④: write + manifest-commit the capture, resume the job."""
+        if self._done:
+            raise RuntimeError("frozen checkpoint already finished")
+        self._done = True
+        self.path = self._engine.commit_dump(self._ctx)
+        return self.path
+
+    def abort(self) -> None:
+        """Resume the job without writing an image."""
+        if not self._done:
+            self._done = True
+            self._engine.abort_dump(self._ctx)
+
+
+class CheckpointSession:
+    """Owns engine construction + lifecycle for one run directory.
+
+    The "torch" backend captures and restores tensors on `device`:
+    ``cuda`` unless the caller passes ``device="cpu"``."""
+
+    def __init__(self, run_dir: str,
+                 options: Optional[CheckpointOptions] = None, *,
+                 device: DeviceLike = None,
+                 plugins: Optional[List[Any]] = None,
+                 backend: str = "torch"):
+        from repro_torch.core.engine import SnapshotEngine
+        self.run_dir = run_dir
+        self.options = options if options is not None else CheckpointOptions()
+        self.backend_name = backend
+        self.device = resolve_device(device) if backend == "torch" else None
+        self.engine = SnapshotEngine(run_dir, plugins=plugins,
+                                     options=self.options, backend=backend,
+                                     device=self.device)
+
+    # ------------------------------------------------------- preflight
+    def capabilities(self) -> Dict[str, Any]:
+        caps = capabilities()
+        caps["session"] = {
+            "run_dir": self.run_dir,
+            "backend": self.backend_name,
+            "device": str(self.device),
+            "options": self.options.to_dict(),
+            "plugins": [p.name for p in self.engine.registry.plugins],
+            "plugin_features": sorted(self.engine.registry.features()),
+        }
+        return caps
+
+    def check(self) -> CheckReport:
+        return check(run_dir=self.run_dir, options=self.options)
+
+    # ------------------------------------------------------- wiring
+    def attach(self, provider: Callable[[], Dict[str, PyTree]]) -> None:
+        self.engine.attach(provider)
+
+    def register_host_state(self, name: str, getter: Callable[[], Any],
+                            setter: Callable[[Any], None]) -> None:
+        self.engine.register_host_state(name, getter, setter)
+
+    # ------------------------------------------------------- lifecycle
+    def checkpoint(self, step: int) -> str:
+        return self.engine.checkpoint(step)
+
+    @contextlib.contextmanager
+    def frozen(self, step: int):
+        """Freeze, yield the in-memory capture, commit (or abort) on exit.
+        An exception in the body aborts the dump and propagates."""
+        snap = FrozenCheckpoint(self.engine, self.engine.freeze(step))
+        try:
+            yield snap
+        except BaseException:
+            snap.abort()
+            raise
+        if not snap._done:
+            snap.commit()
+
+    def restore(self, step: Optional[int] = None,
+                verify: Optional[bool] = None) -> Dict[str, Any]:
+        """`criu restore` (eager): the whole image is placed on return."""
+        return self.engine.restore(step=step, verify=verify)
+
+    def restore_into(self, template: PyTree, state: str = "train_state",
+                     step: Optional[int] = None) -> PyTree:
+        return self.engine.restore_into(template, state=state, step=step)
+
+    # ------------------------------------------------------- queries
+    @property
+    def store(self):
+        return self.engine.store
+
+    @property
+    def last_stats(self) -> Dict[str, Any]:
+        return self.engine.last_stats
+
+    @property
+    def write_error(self) -> Optional[str]:
+        """repr of the most recent async write failure, or None."""
+        return self.engine.write_error
+
+    @property
+    def last_commit_step(self) -> Optional[int]:
+        """Step of the newest image committed by this session."""
+        return self.engine.last_commit_step
+
+    def latest_step(self) -> Optional[int]:
+        return self.engine.latest_step()
+
+    def wait_pending(self, timeout_s: Optional[float] = None) -> None:
+        """Drain the async background writer."""
+        self.engine.wait_pending(timeout_s)
+
+    def __enter__(self) -> "CheckpointSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.wait_pending()

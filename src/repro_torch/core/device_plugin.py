@@ -1,0 +1,259 @@
+"""Device plugin: transparent capture/restore of torch device state.
+
+The cuda-checkpoint analogue for tensors (the reference's
+``core/device_plugin.py`` does it for ``jax.Array``s):
+
+  PAUSE_DEVICES        quiesce: drain the device's streams (DeviceLock),
+                       and report device memory outside the registered
+                       roots (the NVML-leftover analogue, paper §4.4) as a
+                       warning;
+  CHECKPOINT_DEVICES   device -> host: every CUDA leaf's copy is issued,
+                       non-blocking, into a freshly allocated pinned buffer
+                       on a side stream before any is waited on; the copies
+                       finish before the dump unlocks, because torch code
+                       (the decode loop's KV cache) updates tensors in
+                       place where JAX rebinds them.  CPU leaves are copied
+                       for the same reason;
+  RESUME_DEVICES_LATE  host -> device: each entry is rebuilt and placed on
+                       the backend's device.
+
+Entries keep the reference's layout (``kind``/``shape``/``dtype``/
+``sharding``/``shards``), one whole shard per tensor, so either package
+restores the other's images.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.lock import DeviceLock
+from repro_torch.core.plugins import PLUGIN_API_VERSION, HookContext, Plugin
+from repro_torch.core.topology import (compatibility, mesh_fingerprint,
+                                       sharding_descriptor)
+from repro_torch.serialization.pack import (dtype_from_str, host_numpy,
+                                            numpy_to_tensor, tensor_dtype_str)
+
+PyTree = Any
+
+#: Feature flags of the "torch" backend.
+TORCH_BACKEND_FEATURES = frozenset({
+    "device_arrays", "pinned_capture", "parallel_restore", "chunked_packs",
+    "pipelined_io"})
+
+
+# ---------------------------------------------------------------- paths
+def flatten_with_paths(tree: PyTree, prefix: str = "") -> Dict[str, Any]:
+    """'a/b/c' -> leaf, dict keys in sorted order (the order of JAX's
+    pytree flattening); None is an empty subtree, as in JAX."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flatten_with_paths(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_with_paths(v, f"{prefix}{i}/"))
+    elif tree is not None:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def unflatten_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """'a/b/c' -> nested dicts (CRIU-image-style raw view of the tree)."""
+    out: Dict[str, Any] = {}
+    for key, val in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return out
+
+
+# ---------------------------------------------------------------- entries
+def tensor_entry(t: torch.Tensor, host: torch.Tensor) -> Dict[str, Any]:
+    """Image entry for `t`, whose bytes are already in host tensor `host`."""
+    return {
+        "kind": "device_array",
+        "shape": [int(s) for s in t.shape],
+        "dtype": tensor_dtype_str(t),
+        "sharding": sharding_descriptor(t),
+        "shards": [{"index": [[0, int(s)] for s in t.shape],
+                    "data": host_numpy(host)}],
+    }
+
+
+def leaf_entry(leaf: Any) -> Dict[str, Any]:
+    if isinstance(leaf, np.ndarray):
+        return {"kind": "np", "data": leaf.copy()}
+    return {"kind": "host", "value": leaf}
+
+
+def capture_tree(roots: Dict[str, PyTree]) -> Dict[str, Dict[str, Any]]:
+    """name -> {path -> entry}.  Every CUDA leaf's D2H copy is issued on a
+    side stream into its own pinned buffer before the first wait, so the
+    copies overlap each other; the side stream is drained before return."""
+    flat = {name: flatten_with_paths(tree) for name, tree in roots.items()}
+    hosts: Dict[int, torch.Tensor] = {}
+    streams: Dict[torch.device, torch.cuda.Stream] = {}
+    for leaves in flat.values():
+        for leaf in leaves.values():
+            if not isinstance(leaf, torch.Tensor) or id(leaf) in hosts:
+                continue
+            if leaf.is_cuda:
+                side = streams.get(leaf.device)
+                if side is None:
+                    side = streams[leaf.device] = torch.cuda.Stream(
+                        leaf.device)
+                    side.wait_stream(torch.cuda.current_stream(leaf.device))
+                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                  pin_memory=True)
+                with torch.cuda.stream(side):
+                    buf.copy_(leaf.detach(), non_blocking=True)
+                hosts[id(leaf)] = buf
+            else:
+                hosts[id(leaf)] = leaf.detach().to(
+                    "cpu", copy=True).contiguous()
+    for side in streams.values():
+        side.synchronize()                 # capture complete before unlock
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, leaves in flat.items():
+        out[name] = {
+            path: (tensor_entry(leaf, hosts[id(leaf)])
+                   if isinstance(leaf, torch.Tensor) else leaf_entry(leaf))
+            for path, leaf in leaves.items()}
+    return out
+
+
+def assemble_global(entry: Dict[str, Any]) -> np.ndarray:
+    """The full logical array from saved shards (storage dtype: bf16 as
+    uint16 bits)."""
+    shape = tuple(entry["shape"])
+    shards = entry["shards"]
+    if len(shards) == 1 and [tuple(i) for i in shards[0]["index"]] == \
+            [(0, s) for s in shape]:
+        return np.asarray(shards[0]["data"]).reshape(shape)
+    out = np.empty(shape, dtype=dtype_from_str(entry["dtype"]))
+    for sh in shards:
+        idx = tuple(slice(a, b) for a, b in sh["index"])
+        piece = tuple(s.stop - s.start for s in idx)
+        out[idx] = np.asarray(sh["data"]).reshape(piece)
+    return out
+
+
+def _entry_value(entry: Dict[str, Any], device: Optional[torch.device]):
+    if entry["kind"] == "device_array":
+        arr = assemble_global(entry)
+        if device is None:
+            return arr
+        return numpy_to_tensor(arr, entry["dtype"]).to(device)
+    if entry["kind"] == "np":
+        return entry["data"]
+    return entry["value"]
+
+
+# ---------------------------------------------------------------- plugins
+class StreamBoundary:
+    """The CRAC-style capture boundary: every pause drains the injectable
+    fake streams (``repro_torch.core.streams``) and fails fast with
+    ``UnsafeOpInFlight`` on an op that cannot be quiesced."""
+
+    streams = None            # Optional[repro_torch.core.streams.StreamSet]
+
+    def attach_streams(self, streams) -> None:
+        self.streams = streams
+
+    def drain_streams(self) -> None:
+        if self.streams is None:
+            return
+        from repro_torch.core.streams import UnsafeOpInFlight
+        stuck = self.streams.drain()
+        if stuck:
+            raise UnsafeOpInFlight(stuck)
+
+
+class TorchBackend(StreamBoundary, Plugin):
+    """The "torch" device backend: tensors on `device` (CUDA or CPU)."""
+
+    name = "device"
+    api_version = PLUGIN_API_VERSION
+    features = TORCH_BACKEND_FEATURES
+
+    def __init__(self, lock_timeout_s: float = 10.0,
+                 restore_threads: int = 0,
+                 device: Optional[torch.device] = None):
+        self.device = torch.device(device) if device is not None else None
+        self.lock = DeviceLock(lock_timeout_s, self.device)
+        self.restore_threads = restore_threads
+
+    # --- dump ---
+    def pause_devices(self, ctx: HookContext) -> None:
+        ctx.stats["lock_s"] = self.lock.lock()
+        self.drain_streams()       # CRAC boundary: may raise UnsafeOp
+        if self.device is None or self.device.type != "cuda":
+            return
+        seen: set = set()
+        root_bytes = 0
+        for tree in getattr(ctx, "roots", {}).values():
+            for leaf in flatten_with_paths(tree).values():
+                if (isinstance(leaf, torch.Tensor) and leaf.is_cuda
+                        and leaf.untyped_storage().data_ptr() not in seen):
+                    seen.add(leaf.untyped_storage().data_ptr())
+                    root_bytes += leaf.untyped_storage().nbytes()
+        leftover = torch.cuda.memory_allocated(self.device) - root_bytes
+        ctx.stats["leftover_device_bytes"] = float(max(leftover, 0))
+        if leftover > 0:
+            ctx.warnings.append(
+                f"{leftover} bytes of device memory outside the registered "
+                f"roots (temporaries, caches); these are re-creatable and "
+                f"excluded from the image")
+
+    def checkpoint_devices(self, ctx: HookContext) -> None:
+        t0 = time.perf_counter()
+        dev_bytes = 0
+        for name, cap in capture_tree(getattr(ctx, "roots", {})).items():
+            ctx.device_snapshot[name] = cap
+            for e in cap.values():
+                if e["kind"] == "device_array":
+                    dev_bytes += sum(s["data"].nbytes for s in e["shards"])
+        ctx.stats["device_to_host_s"] = time.perf_counter() - t0
+        ctx.stats["capture_s"] = ctx.stats["device_to_host_s"]
+        ctx.stats["device_bytes"] = float(dev_bytes)
+
+    # --- restore ---
+    def update_topology_map(self, ctx: HookContext) -> None:
+        saved = ctx.manifest.get("topology", {})
+        target = mesh_fingerprint(None, self.device)
+        ctx.topology_map["mode"] = compatibility(saved, target)
+        ctx.topology_map["target"] = target
+
+    def _target(self) -> Optional[torch.device]:
+        """Where restored arrays go (None: stay numpy)."""
+        return self.device
+
+    def resume_devices_late(self, ctx: HookContext) -> None:
+        """host -> device restore; with restore_threads > 1 worker threads
+        read pack entries while the main thread places them."""
+        t0 = time.perf_counter()
+        reader = ctx.reader
+        threads = getattr(ctx, "restore_threads", 0) or self.restore_threads
+        place_s = 0.0
+        for name in reader.state_names():
+            keys = reader.entry_names(name)
+            if threads > 1 and len(keys) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(max_workers=threads) as ex:
+                    entries: List[Dict[str, Any]] = list(ex.map(
+                        lambda k: reader.load_entry(name, k), keys))
+            else:
+                entries = [reader.load_entry(name, k) for k in keys]
+            t_place = time.perf_counter()
+            restored = {key: _entry_value(entry, self._target())
+                        for key, entry in zip(keys, entries)}
+            place_s += time.perf_counter() - t_place
+            ctx.restored[name] = unflatten_paths(restored)
+        self.lock.unlock()
+        ctx.stats["host_to_device_s"] = time.perf_counter() - t0
+        ctx.stats["place_s"] = place_s

@@ -1,0 +1,35 @@
+"""Device choice for the port's entry points.
+
+Entry points run on CUDA unless the caller asks for the CPU: with no card
+and no explicit ``device="cpu"`` they raise, and never move to the CPU
+quietly.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a card); else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           f"available")
+    return dev
+
+
+def device_kind(device: Optional[torch.device]) -> str:
+    """Human-readable device kind: the CUDA device name, or 'cpu'."""
+    if device is not None and device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels for the workload hot spots.
+
+  flash_attention  CUDA C++ (``csrc/flash_attention.cu``), online-softmax
+                   attention forward (causal / sliding window / GQA)
+  rmsnorm          Triton, fused normalisation in one pass over x
+
+Each module keeps a plain PyTorch version of its kernel and a launch
+counter.  ``ops`` dispatches by device (CPU -> plain, CUDA -> kernel);
+``ref`` holds the naive oracles; ``build`` compiles the CUDA sources.
+"""
+from repro_torch.kernels import ops, ref  # noqa: F401

@@ -1,0 +1,279 @@
+"""Core layers of the dense decoder, in PyTorch.
+
+Port of the JAX package's ``models/layers.py`` for the serving path:
+
+  * params are plain nested dicts of tensors (f32 masters), declared
+    through ``ParamSpec``s with the same paths and shapes as the reference,
+    so snapshot images of either package name the same entries;
+  * compute runs in the activations' dtype; masters are cast per use;
+  * attention is query-chunked above ``CHUNK_THRESHOLD``, so a long
+    prefill never materialises an (S x S) score tensor.
+
+Sharding constraints of the reference have no counterpart on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+CHUNK_THRESHOLD = 8192     # chunk queries when S >= this
+QUERY_CHUNK = 1024
+
+
+# ======================================================================
+# Param declaration
+# ======================================================================
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]          # logical axis names
+    init: str = "normal"                     # normal | zeros | ones
+    scale: Optional[float] = None            # stddev for "normal"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _leaf_paths(tree: PyTree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _stable_hash(s: str) -> int:
+    """Process-independent string hash (Python's hash() is salted)."""
+    return zlib.crc32(s.encode()) & 0x7FFFFFFF
+
+
+def _set_path(out: Dict[str, Any], path, value) -> None:
+    node = out
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def init_params(specs: PyTree, seed: int, dtype=torch.float32,
+                device="cpu") -> PyTree:
+    """Materialise a param tree from ParamSpecs, deterministic per path:
+    each leaf draws from its own ``torch.Generator`` seeded by (seed,
+    path).  The numbers differ from ``jax.random``'s; weights cross
+    between the packages as numpy (``models.convert``) or in an image."""
+    out: Dict[str, Any] = {}
+    for path, spec in _leaf_paths(specs):
+        if spec.init == "zeros":
+            t = torch.zeros(spec.shape, dtype=dtype, device=device)
+        elif spec.init == "ones":
+            t = torch.ones(spec.shape, dtype=dtype, device=device)
+        else:
+            leaf_seed = seed
+            for p in path:
+                leaf_seed = (leaf_seed * 1000003 + _stable_hash(p)) % (1 << 63)
+            gen = torch.Generator(device=device).manual_seed(leaf_seed)
+            scale = spec.scale
+            if scale is None:
+                fan_in = spec.shape[0] if len(spec.shape) >= 1 else 1
+                scale = 1.0 / math.sqrt(max(1, fan_in))
+            t = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                            device=device).mul_(scale).to(dtype)
+        _set_path(out, path, t)
+    return out
+
+
+def abstract_params(specs: PyTree, dtype=torch.float32) -> PyTree:
+    """Shape/dtype-only tree on the ``meta`` device (no allocation)."""
+    out: Dict[str, Any] = {}
+    for path, spec in _leaf_paths(specs):
+        _set_path(out, path, torch.empty(spec.shape, dtype=dtype,
+                                         device="meta"))
+    return out
+
+
+def stack_specs(specs: PyTree, n: int) -> PyTree:
+    """Add a leading ("layers") dim of size n to every ParamSpec."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v, n) for k, v in specs.items()}
+    return ParamSpec((n,) + specs.shape, ("layers",) + specs.axes,
+                     specs.init, specs.scale)
+
+
+# ======================================================================
+# Normalisation
+# ======================================================================
+def rmsnorm_spec(d: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), ("d_model",), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
+            use_kernels: bool = False) -> torch.Tensor:
+    """The block norm; with ``use_kernels`` through the RMSNorm kernel,
+    which computes the same function (``ops.rmsnorm``)."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        return ops.rmsnorm(x, params["scale"], eps=eps)
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ======================================================================
+# Rotary embeddings
+# ======================================================================
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    """Inverse frequencies in f64, made on `device` (no host->device copy,
+    which would stall the launch queue on every call)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float64, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S).  (M-RoPE is not ported.)"""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device).float()              # (half,)
+    angles = positions.float()[..., None] * freqs                # (B,S,half)
+    cos = torch.cos(angles)[:, :, None, :]                       # (B,S,1,half)
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ======================================================================
+# Attention
+# ======================================================================
+def attention_specs(cfg) -> Dict[str, ParamSpec]:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s: Dict[str, ParamSpec] = {
+        "wq": ParamSpec((d, H * hd), ("d_model", "heads")),
+        "wk": ParamSpec((d, KV * hd), ("d_model", "kv_heads")),
+        "wv": ParamSpec((d, KV * hd), ("d_model", "kv_heads")),
+        "wo": ParamSpec((H * hd, d), ("heads", "d_model")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H * hd,), ("heads",), init="zeros")
+        s["bk"] = ParamSpec((KV * hd,), ("kv_heads",), init="zeros")
+        s["bv"] = ParamSpec((KV * hd,), ("kv_heads",), init="zeros")
+    return s
+
+
+def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
+         rope: bool = True):
+    """Project to q (B,S,H,hd), k/v (B,S,KV,hd) with RoPE applied.
+    (The reference's Qwen3 q/k norm and M-RoPE are not ported yet.)"""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_block(q, k, v, mask, scale):
+    """q (B,Q,KV,rep,hd), k/v (B,Sk,KV,hd), mask (Q,Sk) bool or None."""
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q, k) * scale
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int = 0,
+                   q_offset: int = 0) -> torch.Tensor:
+    """Exact chunked attention.  q (B,Sq,H,hd), k/v (B,Sk,KV,hd).
+
+    Query chunking keeps the live score block at (Cq x Sk) instead of
+    (Sq x Sk); with SWA the key block is additionally sliced to
+    (window + Cq).
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    dev = q.device
+
+    def mask_for(qpos, kpos):
+        m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                       device=dev)
+        if causal:
+            m &= kpos[None, :] <= qpos[:, None]
+        if window:
+            m &= kpos[None, :] > qpos[:, None] - window
+        return m
+
+    if Sq < CHUNK_THRESHOLD or Sq % QUERY_CHUNK != 0:
+        qpos = torch.arange(Sq, device=dev) + q_offset
+        kpos = torch.arange(Sk, device=dev)
+        mask = mask_for(qpos, kpos) if (causal or window) else None
+        return _sdpa_block(qg, k, v, mask, scale).reshape(B, Sq, H, hd)
+
+    # ---- chunked path (S >= CHUNK_THRESHOLD) ----
+    use_window = window and window + QUERY_CHUNK < Sk
+    outs = []
+    for c in range(Sq // QUERY_CHUNK):
+        q_chunk = qg[:, c * QUERY_CHUNK:(c + 1) * QUERY_CHUNK]
+        qpos = c * QUERY_CHUNK + torch.arange(QUERY_CHUNK, device=dev) + q_offset
+        if use_window:
+            blk = window + QUERY_CHUNK
+            start = min(max(c * QUERY_CHUNK + q_offset - window, 0), Sk - blk)
+            kb, vb = k[:, start:start + blk], v[:, start:start + blk]
+            kpos = start + torch.arange(blk, device=dev)
+        else:
+            kb, vb = k, v
+            kpos = torch.arange(Sk, device=dev)
+        m = mask_for(qpos, kpos) if (causal or window) else None
+        outs.append(_sdpa_block(q_chunk, kb, vb, m, scale))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+def mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """-1e30 out the vocab-padding columns (see ModelConfig.padded_vocab)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    out = logits.clone()
+    out[..., cfg.vocab_size:] = -1e30
+    return out
+
+
+# ======================================================================
+# MLP (SwiGLU)
+# ======================================================================
+def mlp_specs(d: int, ff: int) -> Dict[str, ParamSpec]:
+    return {
+        "w_gate": ParamSpec((d, ff), ("d_model", "d_ff")),
+        "w_up": ParamSpec((d, ff), ("d_model", "d_ff")),
+        "w_down": ParamSpec((ff, d), ("d_ff", "d_model")),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    return (F.silu(g) * u) @ params["w_down"].to(dt)

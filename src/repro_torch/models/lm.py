@@ -1,0 +1,215 @@
+"""Dense decoder LM: prefill and decode over a stacked-layer param tree.
+
+Port of the serving half of the JAX package's ``models/lm.py`` for models
+whose every layer is a dense ``"attn"`` block (qwen1.5, phi3, deepseek):
+param specs with the reference's paths (``blocks/pos0/attn/wq`` with a
+leading stacked-layer dim), ``prefill``, ``decode_step`` and the KV cache
+``pos0/{k,v}`` of shape (L, B, S, KV, hd).  Layers run as a Python loop
+over the stacked dim where the reference scans.
+
+``use_kernels`` routes prefill attention through the flash-attention
+kernel and the block and final norms through the RMSNorm kernel
+(``repro_torch.kernels.ops``); those compute the same functions as the
+plain layers.  Decode attention reads the whole cache for one query per
+sequence and stays plain ``torch`` math, as in the reference.
+
+Unlike the reference, ``decode_step`` writes the new K/V into the cache in
+place (no second (L, B, S, KV, hd) buffer per token) and returns the same
+cache object.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+
+
+# ======================================================================
+# specs
+# ======================================================================
+def _layer_specs(cfg: ModelConfig, pos: int) -> Dict[str, Any]:
+    return {
+        "pre_mixer_norm": L.rmsnorm_spec(cfg.d_model),
+        "pre_mlp_norm": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_specs(cfg),
+        "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    P = len(cfg.layer_pattern)
+    if cfg.num_layers % P:
+        raise ValueError(f"num_layers {cfg.num_layers} is not a multiple of "
+                         f"the pattern length {P}")
+    n_sb = cfg.num_layers // P
+    specs: Dict[str, Any] = {
+        "embed": {"tok": L.ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                     ("vocab", "d_model"), scale=0.02)},
+        "blocks": {f"pos{j}": L.stack_specs(_layer_specs(cfg, j), n_sb)
+                   for j in range(P)},
+        "final_norm": L.rmsnorm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = L.ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                       ("d_model", "vocab"))
+    return specs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port covers dense attention-only decoders so far."""
+    kinds = set(cfg.layer_pattern)
+    if kinds != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)}; only dense 'attn' "
+            f"layers are ported (SWA, Mamba and hybrids come later)")
+    if cfg.moe_num_experts or cfg.encoder_layers or cfg.mrope \
+            or cfg.vision_stub or cfg.qk_norm or cfg.d_ff <= 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, encoder-decoder, VLM, q/k-norm and FFN-less "
+            f"configs are not ported yet")
+
+
+def _layer(tree: PyTree, i: int) -> PyTree:
+    """Slice index `i` of the stacked-layer dim from every leaf."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ======================================================================
+# model
+# ======================================================================
+class LM:
+    def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                 param_dtype=torch.float32, use_kernels: bool = False,
+                 device: DeviceLike = None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.param_dtype = param_dtype
+        self.use_kernels = use_kernels
+        self.device = resolve_device(device)
+        self._specs = lm_param_specs(cfg)
+        self._P = len(cfg.layer_pattern)
+        self._n_sb = cfg.num_layers // self._P
+
+    # ---------------- params ----------------
+    def init(self, seed: int = 0) -> PyTree:
+        return L.init_params(self._specs, seed, self.param_dtype, self.device)
+
+    def init_abstract(self) -> PyTree:
+        return L.abstract_params(self._specs, self.param_dtype)
+
+    # ---------------- embedding / head ----------------
+    def _norm(self, params, x):
+        return L.rmsnorm(params, x, self.cfg.norm_eps, self.use_kernels)
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        # gather, then cast: the same values as casting the whole table
+        return params["embed"]["tok"][tokens].to(self.compute_dtype)
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            w = params["embed"]["tok"].to(x.dtype).T
+        else:
+            w = params["lm_head"].to(x.dtype)
+        return L.mask_padded_vocab(x @ w, self.cfg)
+
+    def _ffn(self, lp, x):
+        return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x))
+
+    # ---------------- KV cache ----------------
+    def _cache(self, batch: int, max_seq: int, device) -> PyTree:
+        cfg = self.cfg
+        shp = (self._n_sb, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {f"pos{j}": {
+            "k": torch.zeros(shp, dtype=self.compute_dtype, device=device),
+            "v": torch.zeros(shp, dtype=self.compute_dtype, device=device)}
+            for j in range(self._P)}
+
+    def init_cache(self, batch: int, max_seq: int) -> PyTree:
+        return self._cache(batch, max_seq, self.device)
+
+    def cache_abstract(self, batch: int, max_seq: int) -> PyTree:
+        return self._cache(batch, max_seq, "meta")
+
+    # ---------------- prefill (build cache + logits) ----------------
+    @torch.no_grad()
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, PyTree]:
+        """Forward over a prompt, returning last-position logits (B, V)
+        and the populated KV cache (cache length == prompt length)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+        ks: Dict[str, list] = {f"pos{j}": [] for j in range(self._P)}
+        vs: Dict[str, list] = {f"pos{j}": [] for j in range(self._P)}
+        for i in range(self._n_sb):
+            for j in range(self._P):
+                lp = _layer(params["blocks"][f"pos{j}"], i)
+                h = self._norm(lp["pre_mixer_norm"], x)
+                q, k, v = L._qkv(lp["attn"], cfg, h, positions)
+                if self.use_kernels:
+                    from repro_torch.kernels import ops
+                    o = ops.attention(q, k, v, causal=True)
+                else:
+                    o = L.self_attention(q, k, v, causal=True)
+                o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
+                x = x + o @ lp["attn"]["wo"].to(x.dtype)
+                x = self._ffn(lp, x)
+                ks[f"pos{j}"].append(k)
+                vs[f"pos{j}"].append(v)
+        x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
+        logits = self._head(params, x)[:, 0, :]
+        cache = {p: {"k": torch.stack(ks[p]), "v": torch.stack(vs[p])}
+                 for p in ks}
+        return logits, cache
+
+    # ---------------- decode ----------------
+    def _decode_attn(self, lp, x, k_cache, v_cache, pos: int):
+        """x (B, d); k/v_cache (B, S_c, KV, hd), updated in place at pos."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        S_c = k_cache.shape[1]
+        posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = L._qkv(lp["attn"], cfg, x[:, None, :], posv)
+        k_cache[:, pos] = k_new[:, 0]
+        v_cache[:, pos] = v_new[:, 0]
+
+        qg = q.reshape(B, 1, KV, H // KV, hd)
+        scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache) / math.sqrt(hd)
+        scores = scores.float()
+        valid = torch.arange(S_c, device=x.device) <= pos
+        scores = torch.where(valid, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache)
+        return o.reshape(B, H * hd) @ lp["attn"]["wo"].to(x.dtype)
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, PyTree]:
+        """One serving step: tokens (B,) int, pos the write position."""
+        if not 0 <= pos < cache["pos0"]["k"].shape[2]:
+            raise ValueError(f"decode position {pos} outside the cache "
+                             f"(length {cache['pos0']['k'].shape[2]})")
+        x = self._embed(params, tokens)                      # (B, d)
+        for i in range(self._n_sb):
+            for j in range(self._P):
+                lp = _layer(params["blocks"][f"pos{j}"], i)
+                lc = cache[f"pos{j}"]
+                h = self._norm(lp["pre_mixer_norm"], x)
+                x = x + self._decode_attn(lp, h, lc["k"][i], lc["v"][i], pos)
+                x = self._ffn(lp, x)
+        x = self._norm(params["final_norm"], x)
+        return self._head(params, x), cache

@@ -1,0 +1,164 @@
+"""Batched decode server with transparent serving-state snapshots.
+
+Port of the reference's ``runtime/server.py``.  Serving state (params + KV
+cache + generated tokens + position) is device state like any other: the
+engine checkpoints a half-finished generation and a fresh server resumes
+it token-exact — the paper's inference-side story (snapshotting serving
+processes for fast cold start).  Images match the reference's: state
+``serve_state/{params,cache}`` and host state ``decode_cursor``, so a
+server of either package resumes the other's generation.
+
+Runs on ``cuda`` unless the caller passes ``device="cpu"``.  Lazy restore
+is not ported yet (``restore_mode="lazy"`` is rejected by the options).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.api import CheckpointOptions, CheckpointSession
+from repro_torch.api.session import SnapshotWriteFailed
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
+
+
+class DecodeServer:
+    def __init__(self, cfg: ModelConfig, run_dir: str, max_seq: int = 256,
+                 compute_dtype=torch.float32,
+                 options: Optional[CheckpointOptions] = None,
+                 device: DeviceLike = None,
+                 model: Optional[LM] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # `model=` lets servers share one model (e.g. one built with
+        # use_kernels=True)
+        self.model = model if model is not None else LM(
+            cfg, compute_dtype=compute_dtype, device=self.device)
+        self.max_seq = max_seq
+        self.params = None
+        self.cache = None
+        self.tokens: Optional[np.ndarray] = None       # generated so far
+        self.pos = 0
+        self.session = CheckpointSession(run_dir, options,
+                                         device=self.device)
+        self.session.attach(lambda: {"serve_state": {
+            "params": self.params, "cache": self.cache}})
+        self.session.register_host_state(
+            "decode_cursor",
+            lambda: {"pos": self.pos, "tokens": self.tokens},
+            self._restore_cursor)
+
+    def _restore_cursor(self, st) -> None:
+        self.pos = int(st["pos"])
+        self.tokens = st["tokens"]
+
+    def load(self, params) -> None:
+        self.params = params
+
+    # ------------------------------------------------------------- serving
+    def start(self, batch: Dict[str, Any]) -> None:
+        """Prefill a batch of prompts; the cache is padded to max_seq."""
+        prompt = np.asarray(batch["tokens"], np.int32)
+        B, S = prompt.shape
+        if S >= self.max_seq:
+            raise ValueError(f"prompt length {S} leaves no room in "
+                             f"max_seq={self.max_seq}")
+        logits, cache = self.model.prefill(
+            self.params,
+            {"tokens": torch.as_tensor(prompt, dtype=torch.long,
+                                       device=self.device)})
+        self.cache = self._pad_cache(cache, self.max_seq)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        self.tokens = np.concatenate([prompt, nxt[:, None]], axis=1)
+        self.pos = S
+
+    @staticmethod
+    def _pad_cache(cache, max_seq: int):
+        """Pad the KV seq dim (axis 2 of (L, B, S, KV, hd)) to max_seq."""
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            if node.dim() == 5 and node.shape[2] < max_seq:
+                return F.pad(node, (0, 0, 0, 0, 0, max_seq - node.shape[2]))
+            return node
+        return walk(cache)
+
+    def decode_until(self, target_pos: int,
+                     preempt: Optional[Callable[[], bool]] = None
+                     ) -> Dict[str, Any]:
+        """Decode to `target_pos`; resumable and preemptible.  `preempt`
+        is polled between tokens and triggers a checkpoint-on-signal at
+        the current position; a failed async snapshot write aborts the
+        generation with :class:`SnapshotWriteFailed`."""
+        t0 = time.perf_counter()
+        executed = 0
+        preempted = False
+        ckpt_path = None
+        while self.pos < target_pos:
+            if self.session.write_error is not None:
+                raise SnapshotWriteFailed(
+                    f"async snapshot write failed at pos {self.pos}: "
+                    f"{self.session.write_error}")
+            if preempt is not None and preempt():
+                with self.session.frozen(self.pos) as snap:
+                    pass                               # dump-and-yield
+                ckpt_path = snap.path
+                preempted = True
+                break
+            last = torch.as_tensor(self.tokens[:, -1], dtype=torch.long,
+                                   device=self.device)
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, last, self.pos)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            self.tokens = np.concatenate([self.tokens, nxt[:, None]], axis=1)
+            self.pos += 1
+            executed += 1
+        return {"steps": executed, "pos": self.pos, "preempted": preempted,
+                "ckpt_path": ckpt_path,
+                "wall_s": time.perf_counter() - t0}
+
+    def decode(self, n_tokens: int) -> np.ndarray:
+        self.decode_until(self.pos + n_tokens)
+        return self.tokens
+
+    # ------------------------------------------------------------- ckpt
+    def checkpoint(self, tag: int = 0) -> str:
+        return self.session.checkpoint(tag)
+
+    def _boot_template(self, template):
+        """Fill missing template subtrees with abstract (meta) skeletons;
+        the restored decode cursor sizes the cache."""
+        if template["params"] is None:
+            template = dict(template, params=self.model.init_abstract())
+        if template["cache"] is None:
+            if self.tokens is None:
+                raise RuntimeError(
+                    "cold restore needs the decode_cursor host state in "
+                    "the image to size the cache skeleton")
+            template = dict(template, cache=self.model.cache_abstract(
+                int(self.tokens.shape[0]), self.max_seq))
+        return template
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Resume a generation from its image — warm or cold.  A cold
+        server (nothing loaded, never started) takes its tree structure
+        from the model once the image's host state has replayed the
+        decode cursor: no prefill re-execution."""
+        template = {"params": self.params, "cache": self.cache}
+        engine = self.session.engine
+        if template["params"] is None or template["cache"] is None:
+            raw = self.session.restore(step=step)["serve_state"]
+            template = self._boot_template(template)
+            self.params = engine.retree(template["params"], raw["params"])
+            self.cache = engine.retree(template["cache"], raw["cache"])
+            return self.pos
+        restored = self.session.restore_into(template, state="serve_state",
+                                             step=step)
+        self.params = restored["params"]
+        self.cache = restored["cache"]
+        return self.pos

@@ -1,0 +1,561 @@
+"""Pack formats for snapshot payloads, byte-compatible with the JAX package.
+
+v1 — single file:  [8-byte magic "RPRPACK1"][8-byte LE index offset]
+[blob...][msgpack index].  Read here (images written by older code);
+the port writes v2 only.
+
+v2 — chunked + striped:  an entry's raw bytes are split into fixed-size
+chunks; each chunk carries its own CRC and codec and is appended to one of
+N stripe files (``<base>.0 .. <base>.N-1``, round-robin).  Stripe 0's
+footer holds the full logical index::
+
+    {"format": 2, "stripes": N, "chunk_bytes": C,
+     "entries": {name: {dtype, shape, meta, raw_nbytes, crc32,
+                        chunks: [{stripe, offset, nbytes, raw_nbytes,
+                                  crc32, raw_crc32, codec, ref?}, ...]}}}
+
+A chunk with a ``ref`` lives in an earlier image's pack (an incremental
+image of the JAX package); the reader follows it.  :class:`PackWriterV2`
+runs a bounded pipeline (caller thread chunks + hashes -> compress/CRC
+workers -> one appender thread per stripe), so compression overlaps file
+I/O.
+
+Differences from the reference: indexes go through the port's own
+``msgpack_lite`` (the same bytes); the codec is zlib only, and a
+zstd-compressed image raises a clear error; bf16 arrays travel as their
+``uint16`` bit pattern under the dtype name ``"bfloat16"`` — the name the
+reference writes for ``ml_dtypes.bfloat16`` — so no ``ml_dtypes`` is needed.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import struct
+import threading
+import time
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.chaos import hooks as chaos_hooks
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serialization import msgpack_lite
+from repro_torch.serialization.integrity import crc32
+
+MAGIC = b"RPRPACK1"
+MAGIC2 = b"RPRPACK2"
+DEFAULT_CHUNK_BYTES = 4 << 20
+BF16 = "bfloat16"
+
+
+# ----------------------------------------------------------------- dtypes
+def dtype_to_str(dt) -> str:
+    """numpy dtype -> image dtype string (``.str``, e.g. ``"<f4"``)."""
+    dt = np.dtype(dt)
+    return dt.name if dt.kind == "V" else dt.str
+
+
+def dtype_from_str(s: str) -> np.dtype:
+    """Image dtype string -> the numpy dtype its bytes are read as.
+    ``"bfloat16"`` reads as its ``uint16`` bit pattern."""
+    if s == BF16:
+        return np.dtype(np.uint16)
+    try:
+        return np.dtype(s)
+    except TypeError:
+        raise ValueError(f"image dtype {s!r} is not supported by the port "
+                         f"(bfloat16 and numpy dtypes are)") from None
+
+
+def tensor_dtype_str(t: torch.Tensor) -> str:
+    if t.dtype == torch.bfloat16:
+        return BF16
+    return dtype_to_str(torch.empty((), dtype=t.dtype).numpy().dtype)
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's storage as numpy (shared, not copied); bf16 as its
+    uint16 bit pattern."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def numpy_to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """Inverse of :func:`host_numpy` (shares memory with `arr`)."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+# ------------------------------------------------------------------ codec
+def _compress_chunk(raw, level: int) -> Tuple[bytes, str]:
+    return zlib.compress(raw, min(level, 9)), "zlib"
+
+
+def _decompress_blob(raw: bytes, codec: str) -> bytes:
+    if codec == "zlib":
+        return zlib.decompress(raw)
+    if codec == "raw":
+        return raw
+    raise IOError(f"codec {codec!r} is not supported by the port: write the "
+                  f"image uncompressed or with zlib (the JAX package "
+                  f"compresses with zstd when zstandard is installed)")
+
+
+# ------------------------------------------------------------------ files
+def stripe_path(base: str, stripe: int) -> str:
+    return f"{base}.{stripe}"
+
+
+def _remove_stale_layout(base: str, stripes: int) -> None:
+    """After committing a v2 pack, remove a stale v1 single file and
+    surplus stripes left by an earlier write of the same step."""
+    try:
+        os.remove(base)
+    except OSError:
+        pass
+    k = stripes
+    while True:
+        try:
+            os.remove(stripe_path(base, k))
+        except OSError:
+            return
+        k += 1
+
+
+class PackReader:
+    """v1 single-file reader (one OS file handle; not thread-safe)."""
+
+    format = 1
+
+    def __init__(self, path: str, verify: bool = True):
+        self.path = path
+        self._f = open(path, "rb")
+        magic = self._f.read(8)
+        if magic != MAGIC:
+            self._f.close()
+            raise ValueError(f"{path}: bad magic {magic!r}")
+        (idx_off,) = struct.unpack("<Q", self._f.read(8))
+        self._f.seek(idx_off)
+        self.index: Dict[str, Dict[str, Any]] = msgpack_lite.unpackb(
+            self._f.read())
+        self._verify = verify
+
+    def read_bytes(self, name: str) -> bytes:
+        e = self.index[name]
+        self._f.seek(e["offset"])
+        raw = self._f.read(e["nbytes"])
+        if self._verify and crc32(raw) != e["crc32"]:
+            raise IOError(f"{self.path}:{name}: CRC mismatch (torn write?)")
+        return _decompress_blob(raw, e["codec"])
+
+    def read_array(self, name: str) -> np.ndarray:
+        e = self.index[name]
+        return np.frombuffer(self.read_bytes(name),
+                             dtype=dtype_from_str(e["dtype"])
+                             ).reshape(e["shape"]).copy()
+
+    def io_stats(self) -> Dict[str, float]:
+        return {}
+
+    def close(self):
+        self._f.close()
+
+
+# ------------------------------------------------------------------ v2
+_DONE = object()          # queue sentinel
+
+
+class PackWriterV2:
+    """Chunked, striped, pipelined pack writer.
+
+    The caller thread (``add``/``add_bytes``) slices entries into chunks,
+    CRCs the raw bytes, and feeds a bounded queue.  `workers` compress+CRC
+    threads drain it and route finished chunks to per-stripe appender
+    threads.  ``close()`` drains the pipeline, writes the logical index
+    into stripe 0's footer, fsyncs, and renames every stripe into place,
+    stripe 0 last (a crash mid-write leaves only ``*.tmp`` litter).
+    """
+
+    def __init__(self, base_path: str, compress: bool = False,
+                 level: int = 4, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 stripes: int = 2, workers: int = 2):
+        if chunk_bytes < 1:
+            raise ValueError(f"chunk_bytes must be >= 1, got {chunk_bytes}")
+        if stripes < 1:
+            raise ValueError(f"stripes must be >= 1, got {stripes}")
+        self.base = base_path
+        self.chunk_bytes = chunk_bytes
+        self.stripes = stripes
+        self._compress = compress
+        self._level = level
+        self._entries: Dict[str, Dict[str, Any]] = {}
+        self._closed = False
+        self._errors: List[BaseException] = []
+        self._rr = 0                                  # round-robin stripe
+        self.compress_s = 0.0
+        self.io_s = 0.0
+        self._stats_lock = threading.Lock()
+
+        workers = max(1, workers)
+        self._comp_q: "queue.Queue" = queue.Queue(maxsize=workers * 4)
+        self._stripe_qs: List["queue.Queue"] = [
+            queue.Queue(maxsize=4) for _ in range(stripes)]
+        self._files = [open(stripe_path(base_path, k) + ".tmp", "wb")
+                       for k in range(stripes)]
+        for f in self._files:
+            f.write(MAGIC2)
+            f.write(struct.pack("<Q", 0))            # index placeholder
+        self._obs_ctx = obs_trace.current_context()
+        self._comp_threads = [
+            threading.Thread(target=self._compress_loop, daemon=True,
+                             name=f"repro-pack-compress-{i}")
+            for i in range(workers)]
+        self._stripe_threads = [
+            threading.Thread(target=self._stripe_loop, args=(k,),
+                             daemon=True, name=f"repro-pack-stripe-{k}")
+            for k in range(stripes)]
+        for t in self._comp_threads + self._stripe_threads:
+            t.start()
+
+    # ----------------------------------------------------------- pipeline
+    def _put(self, q: "queue.Queue", item) -> None:
+        """Bounded put that aborts instead of deadlocking if a downstream
+        thread has died with an error."""
+        while True:
+            if self._errors:
+                raise self._errors[0]
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _compress_one(self, part) -> Tuple[Any, str]:
+        data, codec = part, "raw"
+        if self._compress:
+            t0 = time.perf_counter()
+            comp, cname = _compress_chunk(part, self._level)
+            if len(comp) < len(part) * 0.9:
+                data, codec = comp, cname
+            with self._stats_lock:
+                self.compress_s += time.perf_counter() - t0
+        return data, codec
+
+    def _compress_loop(self) -> None:
+        try:
+            with obs_trace.context(**self._obs_ctx):
+                while True:
+                    item = self._comp_q.get()
+                    if item is _DONE:
+                        return
+                    rec, j, part, stripe, rcrc = item
+                    if self._errors:
+                        continue                       # drain without work
+                    data, codec = self._compress_one(part)
+                    self._put(self._stripe_qs[stripe],
+                              (rec, j, data, len(part), crc32(data), rcrc,
+                               codec))
+        except BaseException as e:                     # pragma: no cover
+            self._errors.append(e)
+
+    def _stripe_loop(self, k: int) -> None:
+        try:
+            with obs_trace.context(**self._obs_ctx):
+                f = self._files[k]
+                while True:
+                    item = self._stripe_qs[k].get()
+                    if item is _DONE:
+                        return
+                    rec, j, data, raw_n, scrc, rcrc, codec = item
+                    if self._errors:
+                        continue
+                    t0 = time.perf_counter()
+                    off = f.tell()
+                    f.write(data)
+                    if chaos_hooks.INJECTOR is not None:
+                        # chaos: torn-write site (the handler must restore
+                        # the file position)
+                        chaos_hooks.fire("pack.chunk", file=f, offset=off,
+                                         data=data, dtype=rec["dtype"],
+                                         stripe=k, base=self.base)
+                    with self._stats_lock:
+                        self.io_s += time.perf_counter() - t0
+                    rec["chunks"][j] = {
+                        "stripe": k, "offset": off, "nbytes": len(data),
+                        "raw_nbytes": raw_n, "crc32": scrc,
+                        "raw_crc32": rcrc, "codec": codec,
+                    }
+                    obs_metrics.counter_add("pack.chunks")
+        except BaseException as e:                     # pragma: no cover
+            self._errors.append(e)
+
+    # ---------------------------------------------------------------- add
+    def _add_blob(self, name: str, raw, dtype: Optional[str],
+                  shape: Optional[list]) -> None:
+        if self._closed:
+            raise RuntimeError(f"{self.base}: pack already closed")
+        if self._errors:
+            raise self._errors[0]
+        mv = memoryview(raw).cast("B")
+        n = len(mv)
+        C = self.chunk_bytes
+        nchunks = (n + C - 1) // C
+        rec: Dict[str, Any] = {
+            "dtype": dtype, "shape": shape, "meta": {},
+            "raw_nbytes": n, "crc32": 0, "chunks": [None] * nchunks,
+        }
+        self._entries[name] = rec
+        running = 0
+        for j in range(nchunks):
+            part = mv[j * C:(j + 1) * C]
+            rcrc = crc32(part)
+            running = crc32(part, running)
+            stripe = self._rr
+            self._rr = (self._rr + 1) % self.stripes
+            self._put(self._comp_q, (rec, j, part, stripe, rcrc))
+        rec["crc32"] = running            # == crc32 of the full raw bytes
+
+    def add(self, name: str, array: np.ndarray,
+            dtype: Optional[str] = None) -> None:
+        """Append one array; `dtype` overrides the stored dtype name (a
+        bf16 tensor arrives as uint16 bits with dtype ``"bfloat16"``).
+        The array's buffer is read by the pipeline threads until
+        ``close()``: the caller must not change it before then."""
+        arr = np.asarray(array, order="C")   # (keeps a 0-d array 0-d)
+        self._add_blob(name, arr.reshape(-1).view(np.uint8) if arr.size
+                       else b"", dtype or dtype_to_str(arr.dtype),
+                       list(arr.shape))
+
+    def add_bytes(self, name: str, raw: bytes) -> None:
+        self._add_blob(name, raw, None, None)
+
+    def entry_crc(self, name: str) -> int:
+        return self._entries[name]["crc32"]
+
+    # -------------------------------------------------------------- close
+    def _post_done(self, q: "queue.Queue") -> None:
+        """Deliver a sentinel even if the consumer died with the queue
+        full (blocking put() would deadlock close()/abort())."""
+        while True:
+            try:
+                q.put(_DONE, timeout=0.1)
+                return
+            except queue.Full:
+                if self._errors:
+                    try:
+                        q.get_nowait()           # make room ourselves
+                    except queue.Empty:
+                        pass
+
+    def _drain(self) -> None:
+        for _ in self._comp_threads:
+            self._post_done(self._comp_q)
+        for t in self._comp_threads:
+            t.join()
+        for q in self._stripe_qs:
+            self._post_done(q)
+        for t in self._stripe_threads:
+            t.join()
+
+    def close(self) -> Dict[str, Any]:
+        if self._closed:
+            raise RuntimeError(f"{self.base}: pack already closed")
+        self._drain()
+        if self._errors:
+            self._abort_files()
+            raise self._errors[0]
+        for rec in self._entries.values():
+            if any(c is None for c in rec["chunks"]):   # pragma: no cover
+                self._abort_files()
+                raise IOError(f"{self.base}: pipeline lost a chunk")
+        footer0 = {"format": 2, "stripes": self.stripes,
+                   "chunk_bytes": self.chunk_bytes,
+                   "entries": self._entries}
+        for k, f in enumerate(self._files):
+            idx = msgpack_lite.packb(
+                footer0 if k == 0 else {"format": 2, "stripe": k})
+            idx_off = f.tell()
+            f.write(idx)
+            f.seek(len(MAGIC2))
+            f.write(struct.pack("<Q", idx_off))
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+        # stripe 0 (holding the index) renamed last: readers only see a
+        # complete stripe set once the index is durable
+        for k in range(self.stripes - 1, -1, -1):
+            p = stripe_path(self.base, k)
+            os.rename(p + ".tmp", p)
+        _remove_stale_layout(self.base, self.stripes)
+        self._closed = True
+        return self._entries
+
+    def _abort_files(self) -> None:
+        self._closed = True
+        for f in self._files:
+            f.close()
+        for k in range(self.stripes):
+            try:
+                os.remove(stripe_path(self.base, k) + ".tmp")
+            except OSError:
+                pass
+
+    def abort(self) -> None:
+        if self._closed:
+            return
+        self._errors.append(RuntimeError("aborted"))
+        try:
+            self._drain()
+        finally:
+            self._errors.clear()
+            self._abort_files()
+
+
+class PackReaderV2:
+    """Chunked/striped pack reader with parallel chunk placement.
+
+    Thread-safe: every thread gets its own file handle per stripe.  With
+    an `executor`, the chunks of one entry are read + CRC'd + decoded in
+    parallel, each landing in its slice of one preallocated buffer.
+    """
+
+    format = 2
+
+    def __init__(self, base: str, verify: bool = True, executor=None):
+        self.base = base
+        # refs point at packs of other steps, relative to snapshots/
+        self.root = os.path.dirname(os.path.dirname(os.path.abspath(base)))
+        self._verify = verify
+        self._executor = executor
+        self._tls = threading.local()
+        self._all_handles: List[Any] = []
+        self._handles_lock = threading.Lock()
+        self._stats = {"read_s": 0.0, "decompress_s": 0.0,
+                       "read_bytes": 0.0}
+        with open(stripe_path(base, 0), "rb") as f:
+            magic = f.read(8)
+            if magic != MAGIC2:
+                raise ValueError(f"{base}.0: bad magic {magic!r}")
+            (idx_off,) = struct.unpack("<Q", f.read(8))
+            f.seek(idx_off)
+            footer = msgpack_lite.unpackb(f.read())
+        self.index: Dict[str, Dict[str, Any]] = footer["entries"]
+        self.stripes: int = footer["stripes"]
+        self.chunk_bytes: int = footer["chunk_bytes"]
+
+    def _chunk_file(self, c: Dict[str, Any]) -> str:
+        ref = c.get("ref")
+        if ref:
+            return stripe_path(os.path.join(self.root, ref), c["stripe"])
+        return stripe_path(self.base, c["stripe"])
+
+    def _handle(self, path: str):
+        handles = getattr(self._tls, "handles", None)
+        if handles is None:
+            handles = self._tls.handles = {}
+        f = handles.get(path)
+        if f is None:
+            f = handles[path] = open(path, "rb")
+            with self._handles_lock:
+                self._all_handles.append(f)
+        return f
+
+    def _read_stored(self, name: str, c: Dict[str, Any]) -> bytes:
+        """One chunk's stored bytes, length- and CRC-checked."""
+        path = self._chunk_file(c)
+        t0 = time.perf_counter()
+        try:
+            f = self._handle(path)
+        except FileNotFoundError:
+            raise IOError(
+                f"{self.base}:{name}: chunk file missing ({path}) — "
+                f"referenced pack was deleted (broken incremental chain?)")
+        f.seek(c["offset"])
+        data = f.read(c["nbytes"])
+        with self._handles_lock:
+            self._stats["read_s"] += time.perf_counter() - t0
+            self._stats["read_bytes"] += c["nbytes"]
+        if len(data) != c["nbytes"]:
+            raise IOError(
+                f"{path}:{name}: chunk truncated at offset {c['offset']} "
+                f"(got {len(data)} of {c['nbytes']} bytes)")
+        if self._verify and crc32(data) != c["crc32"]:
+            raise IOError(
+                f"{path}:{name}: chunk CRC mismatch at offset "
+                f"{c['offset']} (torn write?)")
+        return data
+
+    def _read_chunk_into(self, name: str, c: Dict[str, Any],
+                         out: np.ndarray, raw_off: int) -> None:
+        data = self._read_stored(name, c)
+        t1 = time.perf_counter()
+        if c["codec"] != "raw":
+            data = _decompress_blob(data, c["codec"])
+        with self._handles_lock:
+            self._stats["decompress_s"] += time.perf_counter() - t1
+        if len(data) != c["raw_nbytes"]:
+            raise IOError(f"{self.base}:{name}: chunk decoded to "
+                          f"{len(data)} bytes, expected {c['raw_nbytes']}")
+        out[raw_off:raw_off + len(data)] = np.frombuffer(data, np.uint8)
+
+    def _for_chunks(self, fn, name: str, chunks, *args) -> None:
+        if self._executor is not None and len(chunks) > 1:
+            futs = [self._executor.submit(fn, name, c, *a)
+                    for c, *a in zip(chunks, *args)]
+            for fu in futs:
+                fu.result()
+        else:
+            for c, *a in zip(chunks, *args):
+                fn(name, c, *a)
+
+    def _read_raw(self, name: str) -> np.ndarray:
+        rec = self.index[name]
+        out = np.empty(rec["raw_nbytes"], np.uint8)
+        offs = np.cumsum([0] + [c["raw_nbytes"] for c in rec["chunks"]])
+        if offs[-1] != rec["raw_nbytes"]:
+            raise IOError(f"{self.base}:{name}: chunk sizes sum to "
+                          f"{offs[-1]}, index says {rec['raw_nbytes']}")
+        self._for_chunks(self._read_chunk_into, name, rec["chunks"],
+                         [out] * len(rec["chunks"]),
+                         [int(o) for o in offs[:-1]])
+        return out
+
+    def read_bytes(self, name: str) -> bytes:
+        return self._read_raw(name).tobytes()
+
+    def read_array(self, name: str) -> np.ndarray:
+        rec = self.index[name]
+        buf = self._read_raw(name)
+        return buf.view(dtype_from_str(rec["dtype"])).reshape(rec["shape"])
+
+    def verify_entry(self, name: str) -> None:
+        """Integrity-check one entry without decoding it (chunk CRCs
+        cover the stored bytes)."""
+        self._for_chunks(self._read_stored, name,
+                         self.index[name]["chunks"])
+
+    def io_stats(self) -> Dict[str, float]:
+        with self._handles_lock:
+            return dict(self._stats)
+
+    def close(self):
+        with self._handles_lock:
+            for f in self._all_handles:
+                f.close()
+            self._all_handles.clear()
+
+
+def open_pack(base: str, verify: bool = True, executor=None):
+    """Open the pack at `base`, sniffing v1 (single file) vs v2 (stripe
+    set)."""
+    if os.path.exists(base):
+        return PackReader(base, verify=verify)
+    if os.path.exists(stripe_path(base, 0)):
+        return PackReaderV2(base, verify=verify, executor=executor)
+    raise FileNotFoundError(f"no pack at {base} (nor {base}.0)")

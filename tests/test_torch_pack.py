@@ -1,0 +1,190 @@
+"""Images the two packages share: codec bytes, packs and manifests.
+
+``msgpack_lite`` must produce the bytes of ``msgpack.packb(...,
+use_bin_type=True)``; an image the port writes must pass the JAX
+package's reader and ``repro verify``; an image the JAX package writes must
+restore in the port; bf16 crosses both ways bit-exact.
+"""
+import os
+
+import jax.numpy as jnp
+import msgpack
+import numpy as np
+import pytest
+import torch
+
+from repro import cli as repro_cli
+from repro.api import CheckpointOptions as JaxOptions
+from repro.api import CheckpointSession as JaxSession
+from repro.core.snapshot_io import SnapshotStore as JaxStore
+from repro.core.snapshot_io import pack_host_blob as jax_pack_host_blob
+from repro_torch.api import CheckpointOptions, CheckpointSession
+from repro_torch.core.snapshot_io import pack_host_blob, unpack_host_blob
+from repro_torch.serialization import msgpack_lite
+
+OBJECTS = [
+    None, True, False, 0, 127, 128, 255, 256, 65535, 65536, 2 ** 32,
+    2 ** 64 - 1, -1, -32, -33, -129, -32769, -2 ** 31 - 1, -2 ** 63,
+    1.5, -0.0, float("inf"), "", "a" * 31, "a" * 32, "é" * 200,
+    "x" * 70000, b"", b"y" * 255, b"z" * 70000, list(range(15)),
+    list(range(16)), list(range(70000)), (1, (2, [3])),
+    {str(i): i for i in range(15)}, {str(i): [i] for i in range(16)},
+    {1: "int key", -5: None},
+]
+
+
+@pytest.mark.parametrize("obj", OBJECTS, ids=lambda o: repr(o)[:24])
+def test_msgpack_lite_bytes_equal_msgpack(obj):
+    raw = msgpack.packb(obj, use_bin_type=True)
+    assert msgpack_lite.packb(obj) == raw
+    assert msgpack_lite.unpackb(raw) == msgpack.unpackb(
+        raw, raw=False, strict_map_key=False)
+
+
+def test_host_blob_with_numpy_bytes_equal_reference():
+    blob = {"pos": 15, "tokens": np.arange(24, dtype=np.int32).reshape(2, 12),
+            "scale": np.float32(0.5), "n": np.int64(3),
+            "nested": {"h": np.ones((2, 3), np.float64)}}
+    raw = pack_host_blob(blob)
+    assert raw == jax_pack_host_blob(blob)
+    back = unpack_host_blob(raw)
+    np.testing.assert_array_equal(back["tokens"], blob["tokens"])
+    assert back["tokens"].dtype == np.int32 and back["pos"] == 15
+
+
+def _port_state():
+    g = torch.Generator().manual_seed(0)
+    return {"w": torch.randn(3, 5, generator=g),
+            "b16": torch.randn(4, 6, generator=g).to(torch.bfloat16),
+            "i": torch.arange(7, dtype=torch.int32),
+            "scalar": torch.tensor(2.5),
+            "np": np.arange(5, dtype=np.int16),
+            "meta": {"name": "x", "k": 3}}
+
+
+def test_port_image_passes_reference_reader_and_verify(tmp_path, capsys):
+    run = str(tmp_path / "run")
+    state = _port_state()
+    s = CheckpointSession(run, CheckpointOptions(chunk_mb=1, stripes=3),
+                          device="cpu")
+    s.attach(lambda: {"st": state})
+    s.register_host_state("cursor", lambda: {"pos": 7}, lambda v: None)
+    s.checkpoint(4)
+
+    assert repro_cli.main(["verify", run]) == 0
+    assert "step 4: OK" in capsys.readouterr().out
+    reader = JaxStore(run).reader(4)
+    try:
+        reader.verify_all()
+        assert reader.host_state() == {"cursor": {"pos": 7}}
+        for path in ("w", "i", "scalar"):
+            data = reader.load_entry("st", path)["shards"][0]["data"]
+            np.testing.assert_array_equal(data, state[path].numpy())
+        b16 = reader.load_entry("st", "b16")
+        assert b16["dtype"] == "bfloat16"
+        np.testing.assert_array_equal(
+            np.asarray(b16["shards"][0]["data"]).view(np.uint16),
+            state["b16"].view(torch.int16).numpy().view(np.uint16))
+        np.testing.assert_array_equal(
+            reader.load_entry("st", "np")["data"], state["np"])
+        assert reader.load_entry("st", "meta/name")["value"] == "x"
+    finally:
+        reader.close()
+
+
+def test_reference_image_restores_in_port(tmp_path):
+    run = str(tmp_path / "run")
+    x = jnp.arange(12, dtype=jnp.float32).reshape(3, 4) / 7
+    b = (jnp.arange(10, dtype=jnp.float32) / 3).astype(jnp.bfloat16)
+    js = JaxSession(run, JaxOptions(stripes=2, chunk_mb=1))
+    js.attach(lambda: {"st": {"x": x, "b": b, "np": np.ones(3, np.int8)}})
+    js.register_host_state("cursor", lambda: {"pos": 3}, lambda v: None)
+    js.checkpoint(2)
+
+    got = {}
+    s = CheckpointSession(run, device="cpu")
+    s.register_host_state("cursor", lambda: None, got.update)
+    out = s.restore()["st"]
+    assert got == {"pos": 3}
+    np.testing.assert_array_equal(out["x"].numpy(), np.asarray(x))
+    assert out["b"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        out["b"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(b).view(np.uint16))
+    np.testing.assert_array_equal(out["np"], np.ones(3, np.int8))
+
+
+def test_bf16_round_trips_through_both_packages(tmp_path):
+    """port -> image -> JAX -> image -> port, bit-exact."""
+    t = torch.randn(5, 7).to(torch.bfloat16)
+    run1, run2 = str(tmp_path / "a"), str(tmp_path / "b")
+    s1 = CheckpointSession(run1, device="cpu")
+    s1.attach(lambda: {"st": {"t": t}})
+    s1.checkpoint(0)
+    arr = JaxSession(run1, backend="host").restore()["st"]["t"]
+    assert arr.dtype == jnp.bfloat16
+    js = JaxSession(run2)
+    js.attach(lambda: {"st": {"t": jnp.asarray(arr)}})
+    js.checkpoint(0)
+    back = CheckpointSession(run2, device="cpu").restore()["st"]["t"]
+    assert torch.equal(back.view(torch.int16), t.view(torch.int16))
+
+
+def test_torn_latest_image_falls_back(tmp_path):
+    run = str(tmp_path / "run")
+    state = {"w": torch.zeros(64)}
+    s = CheckpointSession(run, device="cpu")
+    s.attach(lambda: {"st": state})
+    s.checkpoint(1)
+    state["w"] = torch.ones(64)
+    s.checkpoint(2)
+    stripe = os.path.join(run, "snapshots", "step_00000002",
+                          "host0000.pack.0")
+    with open(stripe, "r+b") as f:
+        f.seek(20)
+        f.write(b"\xff\xff\xff\xff")
+    assert repro_cli.main(["verify", run]) == 1
+    out = s.restore()["st"]["w"]
+    assert torch.equal(out, torch.zeros(64))       # step 2 rejected
+    with pytest.raises(IOError, match="CRC"):
+        s.restore(step=2)
+
+
+def test_zstd_image_raises_clear_error(tmp_path):
+    pytest.importorskip("zstandard")
+    run = str(tmp_path / "run")
+    js = JaxSession(run, JaxOptions(compress=True))
+    js.attach(lambda: {"st": {"x": jnp.zeros((256, 256), jnp.float32)}})
+    js.checkpoint(0)
+    with pytest.raises(IOError, match="zstd"):
+        CheckpointSession(run, device="cpu").restore(step=0, verify=False)
+
+
+def test_reference_v1_and_incremental_images_restore_in_port(tmp_path):
+    """Older single-file (v1) packs and delta images whose entries live in
+    an earlier step's pack both restore."""
+    x = jnp.arange(4096, dtype=jnp.float32)
+    for name, opts in (("v1", JaxOptions(pack_format=1)),
+                       ("inc", JaxOptions(incremental=True, chunk_mb=1))):
+        run = str(tmp_path / name)
+        state = {"x": x, "y": jnp.zeros(8)}
+        js = JaxSession(run, opts)
+        js.attach(lambda: {"st": dict(state)})
+        js.checkpoint(0)
+        state["y"] = jnp.ones(8)
+        js.checkpoint(1)
+        if name == "inc":        # x was not rewritten: it lives in step 0
+            loc = JaxStore(run).manifest(1)["locations"]["st::x::s0"]
+            assert loc.startswith("step_00000000/")
+        out = CheckpointSession(run, device="cpu").restore()["st"]
+        np.testing.assert_array_equal(out["x"].numpy(), np.asarray(x))
+        np.testing.assert_array_equal(out["y"].numpy(), np.ones(8))
+
+
+def test_keep_gcs_old_images(tmp_path):
+    run = str(tmp_path / "run")
+    s = CheckpointSession(run, CheckpointOptions(keep=2), device="cpu")
+    s.attach(lambda: {"st": {"w": torch.zeros(3)}})
+    for step in range(4):
+        s.checkpoint(step)
+    assert s.store.list_steps() == [2, 3]
