@@ -4,21 +4,29 @@
     python3 chip_smoke.py [--seed N]      # needs one card
 
 Phase 1 builds the hand-written kernels from the sources in this checkout
-(CUDA C++ flash attention through nvcc, Triton RMSNorm) and holds each one
-against its plain PyTorch version on the card, at the JAX package's test
-cases and at the shapes of the serving path, with the tolerances of
-``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2).  It times the kernel, the
-plain version and one PyTorch library call computing the same function
-(a yardstick only; the port never calls it) and works out each kernel's
-bound: the larger of (bytes moved / 3.35 TB/s) and (operations / peak rate
-for their type: 989 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM data sheet.
+(CUDA C++ flash attention and SSD scan through nvcc, one process per
+source, Triton RMSNorm) and holds each one against its plain PyTorch
+version on the card, at the JAX package's test cases and at the shapes of
+the serving paths, with the tolerances of ``tests/test_kernels.py`` (f32
+2e-5, bf16 2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4).  It times the
+kernel, the plain version and, where one exists, one PyTorch library call
+computing the same function (a yardstick only; the port never calls it)
+and works out each kernel's bound: the larger of (bytes moved / 3.35 TB/s)
+and (operations / peak rate for their type: 989 TFLOP/s bf16, 67 TFLOP/s
+f32), H100 SXM data sheet.  On a small input (each path's smoke config,
+f32) the card's kernel path must match the CPU plain path to 1e-3.
 
-Phase 2 serves qwen1.5-0.5b at full published width with random weights
-from ``--seed`` (bf16 compute over f32 masters, kernels on): prefill of a
-batch of prompts, greedy decode, a sync and an async snapshot
-mid-generation, and a fresh server cold-restoring each image and carrying
-on token-exact.  The kernels' launch counters are zeroed just before the
-serving run and read just after it.
+Phase 2 serves each path at full published width with random weights
+from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
+(KV cache; flash attention + RMSNorm) with a sync and an async snapshot,
+then mamba2-2.7b (SSM cache; SSD scan + RMSNorm) with a sync snapshot.
+Each prefills a batch of prompts, decodes greedily, snapshots
+mid-generation, and a fresh server cold-restores the image and carries on
+token-exact; each image is deleted once checked.  The kernels' launch
+counters are zeroed just before each path's serving run and read just
+after it.  Each path's bf16 kernel logits are then held against its f32
+plain path (mamba2's over its first 4 layers), and one prefill and a few
+decode steps are profiled.
 
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
@@ -31,7 +39,9 @@ import os
 os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import argparse
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -55,7 +65,23 @@ ATTN_CASES = [
 ]
 ATTN_SLICE = (4, 512, 512, 16, 16, 64, True, 0)   # qwen1.5-0.5b prefill
 NORM_SLICE = (2048, 1024)                          # prefill rows x d_model
-NORM_CASES = [(2048, 1024), (4, 1024), (21, 96), (1, 384), (130, 384)]
+# qwen1.5 block norms (prefill, decode), odd widths, then mamba2's block
+# norms (d_model 2560) and gated norms (d_inner 5120)
+NORM_CASES = [(2048, 1024), (4, 1024), (21, 96), (1, 384), (130, 384),
+              (2048, 2560), (4, 2560), (2048, 5120), (4, 5120)]
+# (B, S, nh, P, N, chunk): tests/test_kernels.py:70-74, then the mamba2
+# smoke config's prefill (a partial last chunk) and jamba's (P, N)
+SSD_CASES = [
+    (1, 64, 2, 16, 32, 16),
+    (2, 100, 3, 32, 64, 32),
+    (1, 128, 1, 64, 128, 128),
+    (2, 12, 8, 16, 16, 8),
+    (1, 40, 2, 64, 16, 128),
+]
+SSD_SLICE = (4, 512, 80, 64, 128, 128)             # mamba2-2.7b prefill
+SSD_INVARIANCE = ((1, 96, 2, 16, 32), 96, (16, 32, 48))   # :92-107
+SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
+SSD_H_TOL = 1e-4
 
 
 def log(*a):
@@ -145,8 +171,9 @@ def rmsnorm_case(shape, dtype, gen):
     torch.cuda.synchronize()
     want = rn.rmsnorm_plain(x, s)
     err = (out.float() - want.float()).abs().max().item()
-    ok = (bool(torch.isfinite(out.float()).all()) and out.dtype == x.dtype
-          and err <= TOL[str(dtype)])
+    # the criterion of tests/test_kernels.py:14-16 (rtol = atol): at
+    # d = 5120, |y| reaches ~20, where one bf16 step is 0.125
+    ok = out.dtype == x.dtype and _close(out, want, TOL[str(dtype)])
     nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
     b_ms, b_by = bound(nbytes, 4.0 * x.numel(), torch.float32)
     sx = s.to(dtype)
@@ -159,8 +186,83 @@ def rmsnorm_case(shape, dtype, gen):
     }
 
 
+def _close(got, want, tol: float) -> bool:
+    """Finite, and |got - want| <= tol + tol·|want| everywhere (the
+    tests' assert_allclose with rtol = atol = tol)."""
+    import torch
+    got, want = got.float(), want.float()
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def ssd_inputs(shape, dtype, gen):
+    import torch
+    import torch.nn.functional as F
+    B, S, nh, P, N = shape
+    dev = "cuda"
+    x = torch.randn(B, S, nh, P, generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn(B, S, nh, generator=gen, device=dev))
+    A = -torch.exp(0.3 * torch.randn(nh, generator=gen, device=dev))
+    Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dtype)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_flops(B, S, nh, P, N) -> float:
+    """Operations SSD needs on this input, whatever tile a kernel uses:
+    the fewer of the per-step recurrence (h·decay + dt·x⊗B, then C·h:
+    5·N·P per head) and the chunked form at the chunk length T that
+    minimises it.  Per step of a T-step chunk, causal halves only: C·Bᵀ
+    (T+1)·N, shared by the heads, and per head G·x (T+1)·P, C·hᵀ and
+    xᵀ·W 2·N·P each, and the state's decay N·P/T."""
+    chunked = min((T + 1) * N + nh * ((T + 1) * P + 4 * N * P + N * P / T)
+                  for T in range(1, S + 1))
+    return float(B * S * min(chunked, 5 * nh * N * P))
+
+
+def ssd_case(case, dtype, gen):
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, nh, P, N, chunk = case
+    args = ssd_inputs((B, S, nh, P, N), dtype, gen)
+    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_p, h_p = ssd.ssd_plain(*args, chunk=chunk)
+    ok = (y.dtype == dtype and h.dtype == torch.float32
+          and _close(y, y_p, SSD_TOL[str(dtype)]) and _close(h, h_p, SSD_H_TOL))
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
+    b_ms, b_by = bound(nbytes, ssd_flops(B, S, nh, P, N), torch.float32)
+    return {
+        "ok": ok, "max_abs_err": (y.float() - y_p.float()).abs().max().item(),
+        "h_max_abs_err": (h - h_p).abs().max().item(),
+        "y_max_abs": y_p.float().abs().max().item(),
+        "ms": cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
+        "plain_ms": cuda_ms(lambda: ssd.ssd_plain(*args, chunk=chunk)),
+        "library_ms": None,          # no single PyTorch call computes SSD
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def ssd_chunk_invariance(gen) -> list:
+    """The kernel at several chunks against the plain version at one."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    shape, ref_chunk, chunks = SSD_INVARIANCE
+    args = ssd_inputs(shape, torch.float32, gen)
+    y0, h0 = ssd.ssd_plain(*args, chunk=ref_chunk)
+    failed = []
+    for c in chunks:
+        y, h = ssd.ssd_scan(*args, chunk=c)
+        ok = _close(y, y0, 2e-4) and _close(h, h0, 2e-4)
+        log(f"[kernels] ssd_scan chunk {c} vs plain chunk {ref_chunk} "
+            f"{shape}: ok={ok} err={(y - y0).abs().max().item():.3g}")
+        if not ok:
+            failed.append(("ssd_scan", "chunk", c))
+    return failed
+
+
 def phase_kernels(seed: int) -> dict:
-    """Build, check and time both kernels; returns the slice-shape rows."""
+    """Build, check and time the kernels; returns the slice-shape rows."""
     import torch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -197,31 +299,60 @@ def phase_kernels(seed: int) -> dict:
                 failed.append(("rmsnorm", shape, str(dtype)))
             if shape == NORM_SLICE and dtype == torch.bfloat16:
                 rows["rmsnorm"] = r
+        for case in SSD_CASES + [SSD_SLICE]:
+            r = ssd_case(case, dtype, gen)
+            tag = "slice" if case == SSD_SLICE else "case"
+            log(f"[kernels] ssd_scan {tag} {case} {dtype}: ok={r['ok']} "
+                f"y err {r['max_abs_err']:.3g} (|y| max "
+                f"{r['y_max_abs']:.3g}) h err {r['h_max_abs_err']:.3g} "
+                f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+            if not r["ok"]:
+                failed.append(("ssd_scan", case, str(dtype)))
+            if case == SSD_SLICE and dtype == torch.bfloat16:
+                rows["ssd_scan"] = r
+    failed += ssd_chunk_invariance(gen)
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return rows
 
 
 # ----------------------------------------------------------------- phase 2
-SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_B, SERVE_S, SERVE_MAX = 4, 512, 1024
 SERVE_TOKENS = 16
+# each serving path: its config, its snapshot modes, the kernels it must
+# launch, and the depth of its logit check (None: every layer)
+SERVE_PATHS = (
+    ("qwen1.5-0.5b", ("sync", "async"), ("flash_attention", "rmsnorm"),
+     None),
+    ("mamba2-2.7b", ("sync",), ("ssd_scan", "rmsnorm"), 4),
+)
 # At full width the bf16 kernel path and the bf16 plain path round at
 # different places (the kernels keep attention scores and probabilities in
-# f32), and 24 random layers amplify that: both are held against the f32
+# f32), and many random layers amplify that: both are held against the f32
 # plain path, and the kernel path must be no further from it than
-# LOGIT_SLACK times the plain bf16 path's own distance.
+# LOGIT_SLACK times the plain bf16 path's own distance.  Mamba2's 64
+# random layers carry both bf16 paths O(1) logits away from f32, where a
+# wrong SSD kernel would not show, so its check runs the first 4 layers of
+# the full-width params.
 LOGIT_SLACK = 1.5
 
 
-def check_small_reference(seed: int) -> None:
+def _counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ssd}
+
+
+def check_small_reference(arch: str, seed: int) -> None:
     """The card's kernel path agrees with the CPU plain path on a small
     input (the smoke config, f32, the same params): logits to 1e-3."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.lm import LM
-    cfg = get_smoke_config(SERVE_ARCH)
+    cfg = get_smoke_config(arch)
     cpu = LM(cfg, compute_dtype=torch.float32, device="cpu")
     gpu = LM(cfg, compute_dtype=torch.float32, use_kernels=True,
              device="cuda")
@@ -229,37 +360,38 @@ def check_small_reference(seed: int) -> None:
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (2, 24)))
     want, _ = cpu.prefill(params, {"tokens": toks})
-    got, _ = gpu.prefill(_to(params, "cuda"), {"tokens": toks.cuda()})
+    got, _ = gpu.prefill(_map(lambda t: t.cuda(), params),
+                         {"tokens": toks.cuda()})
     err = (got.cpu() - want).abs()[:, :cfg.vocab_size].max().item()
-    log(f"[reference] smoke config, card kernels vs CPU plain: max logit "
+    log(f"[reference] {cfg.name}, card kernels vs CPU plain: max logit "
         f"err {err:.3g} (tol 1e-3)")
     if not err <= 1e-3:
-        raise SystemExit("card path disagrees with the CPU reference")
+        raise SystemExit(f"{arch}: card path disagrees with the CPU "
+                         f"reference")
 
 
-def _to(tree, device):
+def _map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _image_bytes(path: str) -> int:
     return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
 
 
-def phase_serving(seed: int, workdir: str) -> dict:
-    """Serve at full width with snapshots; returns the kernels' launches
-    on the serving path."""
+def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
+                  workdir: str) -> dict:
+    """Serve `arch` at full width with snapshots; returns the kernels'
+    launches on this serving path."""
     import numpy as np
     import torch
     from repro_torch.api import CheckpointOptions
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models.lm import LM
     from repro_torch.runtime.server import DecodeServer
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     dev = torch.device("cuda")
     model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
                device=dev)
@@ -273,9 +405,10 @@ def phase_serving(seed: int, workdir: str) -> dict:
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
 
-    fa.launches = 0          # the serving path's launches start here
-    rn.launches = 0
-    for mode in ("sync", "async"):
+    counters = _counters()
+    for mod in counters.values():     # this path's launches start here
+        mod.launches = 0
+    for mode in modes:
         run = os.path.join(workdir, mode)
         opts = CheckpointOptions(mode=mode)
         srv = DecodeServer(cfg, run, max_seq=SERVE_MAX, options=opts,
@@ -309,45 +442,58 @@ def phase_serving(seed: int, workdir: str) -> dict:
         got = fresh.decode(SERVE_TOKENS)
         same = fresh.pos == srv.pos and np.array_equal(got, expected)
         freeze_ms = (st["lock_s"] + st["frozen_s"]) * 1e3
-        log(f"[serve] {mode}: prefill {prefill_ms:.1f} ms "
+        log(f"[serve] {cfg.name} {mode}: prefill {prefill_ms:.1f} ms "
             f"(B={SERVE_B}, S={SERVE_S}); decode {decode_ms:.2f} ms/token; "
             f"snapshot at pos {step}: freeze (lock + D2H) {freeze_ms:.1f} ms, "
             f"dump call {dump_s:.2f} s, write {write_s:.2f} s, image "
             f"{image} bytes; cold restore {restore_s:.2f} s; "
             f"continuation token-exact: {same}")
         if not same:
-            raise SystemExit(f"{mode}: cold-restored server diverged")
+            raise SystemExit(f"{cfg.name} {mode}: cold-restored server "
+                             f"diverged")
         del srv, fresh
+        shutil.rmtree(run)            # one image on the disk at a time
         torch.cuda.empty_cache()
-    launches = {"flash_attention": fa.launches, "rmsnorm": rn.launches}
-    log(f"[serve] kernel launches on the serving path: {launches}")
-    if not all(launches.values()):
-        raise SystemExit(f"a kernel was not launched while serving: "
-                         f"{launches}")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    log(f"[serve] {cfg.name}: kernel launches on the serving path: "
+        f"{launches}")
+    if not all(launches[k] for k in kernels):
+        raise SystemExit(f"{cfg.name}: a kernel of the path was not "
+                         f"launched while serving: {launches}")
 
     # kernel path against the plain path at full width (not counted)
+    ccfg, cparams = cfg, params
+    if check_layers:
+        ccfg = dataclasses.replace(cfg, num_layers=check_layers)
+        n_sb = check_layers // len(cfg.layer_pattern)
+        cparams = dict(params, blocks=_map(lambda t: t[:n_sb],
+                                           params["blocks"]))
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
                                        device=dev)}
     out = {}
-    for name, m in (("kernels", model),
-                    ("plain", LM(cfg, compute_dtype=torch.bfloat16,
+    for name, m in (("kernels", LM(ccfg, compute_dtype=torch.bfloat16,
+                                   use_kernels=True, device=dev)),
+                    ("plain", LM(ccfg, compute_dtype=torch.bfloat16,
                                  device=dev)),
-                    ("f32", LM(cfg, compute_dtype=torch.float32,
+                    ("f32", LM(ccfg, compute_dtype=torch.float32,
                                device=dev))):
-        out[name] = m.prefill(params, batch)[0][:, :cfg.vocab_size].float()
+        out[name] = m.prefill(cparams, batch)[0][:, :cfg.vocab_size].float()
     ref = out["f32"]
     err = {k: (out[k] - ref).abs().max().item() for k in ("kernels", "plain")}
     agree = {k: (out[k].argmax(-1) == ref.argmax(-1)).float().mean().item()
              for k in ("kernels", "plain")}
-    log(f"[serve] prefill logits {tuple(ref.shape)} (|logit| max "
-        f"{ref.abs().max().item():.3g}) against the f32 plain path: "
-        f"bf16 kernels max err {err['kernels']:.3g}, argmax agreement "
-        f"{agree['kernels']:.2f}; bf16 plain max err {err['plain']:.3g}, "
-        f"argmax agreement {agree['plain']:.2f}")
+    log(f"[serve] {cfg.name} ({ccfg.num_layers} layers) prefill logits "
+        f"{tuple(ref.shape)} (|logit| max {ref.abs().max().item():.3g}) "
+        f"against the f32 plain path: bf16 kernels max err "
+        f"{err['kernels']:.3g}, argmax agreement {agree['kernels']:.2f}; "
+        f"bf16 plain max err {err['plain']:.3g}, argmax agreement "
+        f"{agree['plain']:.2f}; bf16 kernels vs bf16 plain max diff "
+        f"{(out['kernels'] - out['plain']).abs().max().item():.3g}")
     if not (torch.isfinite(out["kernels"]).all()
             and err["kernels"] <= LOGIT_SLACK * err["plain"]):
-        raise SystemExit("full-width kernel path is further from the f32 "
-                         "reference than the plain bf16 path")
+        raise SystemExit(f"{cfg.name}: full-width kernel path is further "
+                         f"from the f32 reference than the plain bf16 path")
+    del out, ref, cparams
     profile_serving(model, params, prompts, dev)
     return launches
 
@@ -375,17 +521,22 @@ def profile_serving(model, params, prompts, dev) -> None:
                 fn(i)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        # device rows only (kernels, copies): a CPU op's self device time
+        # is the kernels it launched, which have rows of their own
         rows = [e for e in prof.key_averages()
-                if e.self_device_time_total > 0]
+                if e.device_type != torch.autograd.DeviceType.CPU
+                and e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
         n_ops = sum(e.count for e in rows) // steps
-        log(f"[profile] {name} (profiled): wall {wall_ms:.2f} ms/step, "
-            f"device busy {busy_ms:.2f} ms/step ({busy_ms / wall_ms:.0%}), "
-            f"{n_ops} device ops/step")
+        log(f"[profile] {model.cfg.name} {name} (profiled): wall "
+            f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
+            f"({busy_ms / wall_ms:.0%}), {n_ops} device kernels and "
+            f"copies/step")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"[profile]   {e.key[:60]}: "
                 f"{e.self_device_time_total / steps / 1e3:.3f} ms/step "
                 f"x{e.count // steps}")
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -396,6 +547,16 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------------- main
+KERNEL_ROWS = (
+    ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:29"),
+    ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+     "src/repro/kernels/rmsnorm.py:19"),
+    ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:31"),
+)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -423,22 +584,23 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; {card}")
     rows = phase_kernels(args.seed)
-    check_small_reference(args.seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = phase_serving(args.seed, workdir)
-    kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:29",
-             **rows["flash_attention"]),
-        dict(name="rmsnorm", route="triton",
-             source="src/repro_torch/kernels/rmsnorm.py",
-             replaces="src/repro/kernels/rmsnorm.py:19", **rows["rmsnorm"]),
-    ]
-    for k in kernels:
-        k.pop("ok")
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"kernels": kernels}))
+    for arch, *_ in SERVE_PATHS:
+        check_small_reference(arch, args.seed)
+    by_path = {}
+    for arch, modes, kernels, check_layers in SERVE_PATHS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
+                                          args.seed, workdir)
+        torch.cuda.empty_cache()
+    out = []
+    for name, route, source, replaces in KERNEL_ROWS:
+        row = dict(name=name, route=route, source=source, replaces=replaces,
+                   **rows[name])
+        row.pop("ok")
+        row["launches"] = sum(p[name] for p in by_path.values())
+        row["launches_by_path"] = {a: p[name] for a, p in by_path.items()}
+        out.append(row)
+    print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

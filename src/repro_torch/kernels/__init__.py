@@ -2,6 +2,8 @@
 
   flash_attention  CUDA C++ (``csrc/flash_attention.cu``), online-softmax
                    attention forward (causal / sliding window / GQA)
+  ssd_scan         CUDA C++ (``csrc/ssd_scan.cu``), Mamba2 SSD chunked
+                   scan carrying the SSM state across the sequence
   rmsnorm          Triton, fused normalisation in one pass over x
 
 Each module keeps a plain PyTorch version of its kernel and a launch

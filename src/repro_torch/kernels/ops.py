@@ -11,10 +11,13 @@ counterparts come with training.)
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,6 +26,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _fa.attention_plain(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.  x (B,S,nh,P), dt (B,S,nh), A (nh,), Bm/Cm
+    (B,S,N) -> y (B,S,nh,P), h_final (B,nh,P,N) f32."""
+    if x.device.type == "cpu":
+        return _ssd.ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,

@@ -39,5 +39,6 @@ def params_from_numpy(tree: PyTree, device,
     return tensor_from_numpy(tree, device, dtype)
 
 
-#: a KV cache is the same kind of tree: ``pos0/{k,v}`` of (L, B, S, KV, hd)
+#: a cache is the same kind of tree: ``pos0/{k,v}`` of (L, B, S, KV, hd),
+#: or ``pos0/{h,conv_x,conv_B,conv_C}`` for Mamba layers (dtypes kept)
 cache_from_numpy = params_from_numpy

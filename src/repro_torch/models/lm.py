@@ -1,21 +1,26 @@
-"""Dense decoder LM: prefill and decode over a stacked-layer param tree.
+"""Decoder LM: prefill and decode over a stacked-layer param tree.
 
 Port of the serving half of the JAX package's ``models/lm.py`` for models
-whose every layer is a dense ``"attn"`` block (qwen1.5, phi3, deepseek):
-param specs with the reference's paths (``blocks/pos0/attn/wq`` with a
-leading stacked-layer dim), ``prefill``, ``decode_step`` and the KV cache
-``pos0/{k,v}`` of shape (L, B, S, KV, hd).  Layers run as a Python loop
-over the stacked dim where the reference scans.
+whose every layer is a dense ``"attn"`` block (qwen1.5, phi3, deepseek) or
+whose every layer is a ``"mamba"`` block (mamba2): param specs with the
+reference's paths (``blocks/pos0/attn/wq``, ``blocks/pos0/mamba/w_x``,
+with a leading stacked-layer dim), ``prefill``, ``decode_step`` and the
+cache per layer kind: ``pos0/{k,v}`` of (L, B, S, KV, hd) for attention,
+``pos0/{h,conv_x,conv_B,conv_C}`` for Mamba (h (L, B, nh, P, N) in f32,
+the conv tails (L, B, W-1, ·) in the compute dtype).  Layers run as a
+Python loop over the stacked dim where the reference scans.
 
 ``use_kernels`` routes prefill attention through the flash-attention
-kernel and the block and final norms through the RMSNorm kernel
+kernel, prefill's SSD scan through the SSD-scan kernel, and the block,
+final and gated norms through the RMSNorm kernel
 (``repro_torch.kernels.ops``); those compute the same functions as the
 plain layers.  Decode attention reads the whole cache for one query per
-sequence and stays plain ``torch`` math, as in the reference.
+sequence, and the decode SSM step is one recurrence step: both stay plain
+``torch`` math, as in the reference.
 
-Unlike the reference, ``decode_step`` writes the new K/V into the cache in
-place (no second (L, B, S, KV, hd) buffer per token) and returns the same
-cache object.
+Unlike the reference, ``decode_step`` writes the new K/V, SSM state and
+conv tails into the cache in place (no second cache per token) and
+returns the same cache object.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
@@ -35,12 +41,19 @@ PyTree = Any
 # specs
 # ======================================================================
 def _layer_specs(cfg: ModelConfig, pos: int) -> Dict[str, Any]:
-    return {
+    # pre_mlp_norm is declared even without an FFN, as in the reference,
+    # so images of both packages name the same entries
+    s: Dict[str, Any] = {
         "pre_mixer_norm": L.rmsnorm_spec(cfg.d_model),
         "pre_mlp_norm": L.rmsnorm_spec(cfg.d_model),
-        "attn": L.attention_specs(cfg),
-        "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff),
     }
+    if cfg.layer_kind(pos) == "attn":
+        s["attn"] = L.attention_specs(cfg)
+    else:
+        s["mamba"] = M.mamba_specs(cfg)
+    if cfg.d_ff > 0:
+        s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
+    return s
 
 
 def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -63,17 +76,18 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers dense attention-only decoders so far."""
+    """The port covers dense attention-only and pure-Mamba decoders so
+    far."""
     kinds = set(cfg.layer_pattern)
-    if kinds != {"attn"}:
+    if kinds not in ({"attn"}, {"mamba"}):
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}; only dense 'attn' "
-            f"layers are ported (SWA, Mamba and hybrids come later)")
+            f"{cfg.name}: layer kinds {sorted(kinds)}; only all-'attn' or "
+            f"all-'mamba' patterns are ported (SWA and hybrids come later)")
     if cfg.moe_num_experts or cfg.encoder_layers or cfg.mrope \
-            or cfg.vision_stub or cfg.qk_norm or cfg.d_ff <= 0:
+            or cfg.vision_stub or cfg.qk_norm:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, encoder-decoder, VLM, q/k-norm and FFN-less "
-            f"configs are not ported yet")
+            f"{cfg.name}: MoE, encoder-decoder, VLM and q/k-norm configs "
+            f"are not ported yet")
 
 
 def _layer(tree: PyTree, i: int) -> PyTree:
@@ -123,16 +137,27 @@ class LM:
         return L.mask_padded_vocab(x @ w, self.cfg)
 
     def _ffn(self, lp, x):
+        if "mlp" not in lp:
+            return x                        # pure-SSM archs: no FFN
         return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x))
 
-    # ---------------- KV cache ----------------
+    # ---------------- KV / SSM cache ----------------
     def _cache(self, batch: int, max_seq: int, device) -> PyTree:
         cfg = self.cfg
-        shp = (self._n_sb, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        return {f"pos{j}": {
-            "k": torch.zeros(shp, dtype=self.compute_dtype, device=device),
-            "v": torch.zeros(shp, dtype=self.compute_dtype, device=device)}
-            for j in range(self._P)}
+        out = {}
+        for j in range(self._P):
+            if cfg.layer_kind(j) == "attn":
+                shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+                leaf = {k: torch.empty(shp, dtype=self.compute_dtype,
+                                       device="meta") for k in ("k", "v")}
+            else:
+                leaf = M.mamba_cache_init(cfg, batch, self.compute_dtype,
+                                          "meta")
+            out[f"pos{j}"] = {
+                k: torch.zeros((self._n_sb,) + t.shape, dtype=t.dtype,
+                               device=device)
+                for k, t in leaf.items()}
+        return out
 
     def init_cache(self, batch: int, max_seq: int) -> PyTree:
         return self._cache(batch, max_seq, self.device)
@@ -144,7 +169,7 @@ class LM:
     @torch.no_grad()
     def prefill(self, params, batch) -> Tuple[torch.Tensor, PyTree]:
         """Forward over a prompt, returning last-position logits (B, V)
-        and the populated KV cache (cache length == prompt length)."""
+        and the populated KV/SSM cache (KV length == prompt length)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -152,28 +177,38 @@ class LM:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-        ks: Dict[str, list] = {f"pos{j}": [] for j in range(self._P)}
-        vs: Dict[str, list] = {f"pos{j}": [] for j in range(self._P)}
+        layers: Dict[str, Dict[str, list]] = {
+            f"pos{j}": {} for j in range(self._P)}
         for i in range(self._n_sb):
             for j in range(self._P):
                 lp = _layer(params["blocks"][f"pos{j}"], i)
                 h = self._norm(lp["pre_mixer_norm"], x)
-                q, k, v = L._qkv(lp["attn"], cfg, h, positions)
-                if self.use_kernels:
-                    from repro_torch.kernels import ops
-                    o = ops.attention(q, k, v, causal=True)
+                if cfg.layer_kind(j) == "attn":
+                    o, nc = self._prefill_attn(lp, h, positions)
                 else:
-                    o = L.self_attention(q, k, v, causal=True)
-                o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-                x = x + o @ lp["attn"]["wo"].to(x.dtype)
-                x = self._ffn(lp, x)
-                ks[f"pos{j}"].append(k)
-                vs[f"pos{j}"].append(v)
+                    o, hfin, nc = M.mamba_prefill(lp["mamba"], cfg, h,
+                                                  self.use_kernels)
+                    nc = {"h": hfin, **nc}
+                x = self._ffn(lp, x + o)
+                for k, t in nc.items():
+                    layers[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
         logits = self._head(params, x)[:, 0, :]
-        cache = {p: {"k": torch.stack(ks[p]), "v": torch.stack(vs[p])}
-                 for p in ks}
+        cache = {p: {k: torch.stack(ts) for k, ts in leaves.items()}
+                 for p, leaves in layers.items()}
         return logits, cache
+
+    def _prefill_attn(self, lp, h, positions):
+        cfg = self.cfg
+        B, S = h.shape[:2]
+        q, k, v = L._qkv(lp["attn"], cfg, h, positions)
+        if self.use_kernels:
+            from repro_torch.kernels import ops
+            o = ops.attention(q, k, v, causal=True)
+        else:
+            o = L.self_attention(q, k, v, causal=True)
+        o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
+        return o @ lp["attn"]["wo"].to(h.dtype), {"k": k, "v": v}
 
     # ---------------- decode ----------------
     def _decode_attn(self, lp, x, k_cache, v_cache, pos: int):
@@ -199,17 +234,25 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
                     ) -> Tuple[torch.Tensor, PyTree]:
-        """One serving step: tokens (B,) int, pos the write position."""
-        if not 0 <= pos < cache["pos0"]["k"].shape[2]:
-            raise ValueError(f"decode position {pos} outside the cache "
-                             f"(length {cache['pos0']['k'].shape[2]})")
+        """One serving step: tokens (B,) int, pos the write position (it
+        bounds only attention caches: an SSM state has no length)."""
+        for j in range(self._P):
+            if self.cfg.layer_kind(j) == "attn":
+                S_c = cache[f"pos{j}"]["k"].shape[2]
+                if not 0 <= pos < S_c:
+                    raise ValueError(f"decode position {pos} outside the "
+                                     f"cache (length {S_c})")
         x = self._embed(params, tokens)                      # (B, d)
         for i in range(self._n_sb):
             for j in range(self._P):
                 lp = _layer(params["blocks"][f"pos{j}"], i)
-                lc = cache[f"pos{j}"]
+                lc = _layer(cache[f"pos{j}"], i)
                 h = self._norm(lp["pre_mixer_norm"], x)
-                x = x + self._decode_attn(lp, h, lc["k"][i], lc["v"][i], pos)
-                x = self._ffn(lp, x)
+                if self.cfg.layer_kind(j) == "attn":
+                    o = self._decode_attn(lp, h, lc["k"], lc["v"], pos)
+                else:
+                    o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
+                                       self.use_kernels)
+                x = self._ffn(lp, x + o)
         x = self._norm(params["final_norm"], x)
         return self._head(params, x), cache

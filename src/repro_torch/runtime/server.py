@@ -1,9 +1,9 @@
 """Batched decode server with transparent serving-state snapshots.
 
-Port of the reference's ``runtime/server.py``.  Serving state (params + KV
-cache + generated tokens + position) is device state like any other: the
-engine checkpoints a half-finished generation and a fresh server resumes
-it token-exact — the paper's inference-side story (snapshotting serving
+Port of the reference's ``runtime/server.py``.  Serving state (params +
+KV or SSM cache + generated tokens + position) is device state like any
+other: the engine checkpoints a half-finished generation and a fresh
+server resumes it token-exact — the paper's inference-side story (snapshotting serving
 processes for fast cold start).  Images match the reference's: state
 ``serve_state/{params,cache}`` and host state ``decode_cursor``, so a
 server of either package resumes the other's generation.
@@ -79,12 +79,19 @@ class DecodeServer:
 
     @staticmethod
     def _pad_cache(cache, max_seq: int):
-        """Pad the KV seq dim (axis 2 of (L, B, S, KV, hd)) to max_seq."""
+        """Pad the *attention* KV seq dim (axis 2 of (L, B, S, KV, hd)) to
+        max_seq.  Keyed by leaf name, as in the reference: an SSM state h
+        (L, B, nh, P, N) is 5-D too and must not be touched."""
+        def pad(leaf):
+            if leaf.dim() == 5 and leaf.shape[2] < max_seq:
+                return F.pad(leaf, (0, 0, 0, 0, 0, max_seq - leaf.shape[2]))
+            return leaf
+
         def walk(node):
             if isinstance(node, dict):
-                return {k: walk(v) for k, v in node.items()}
-            if node.dim() == 5 and node.shape[2] < max_seq:
-                return F.pad(node, (0, 0, 0, 0, 0, max_seq - node.shape[2]))
+                return {k: (pad(v) if k in ("k", "v", "self_k", "self_v")
+                            and isinstance(v, torch.Tensor) else walk(v))
+                        for k, v in node.items()}
             return node
         return walk(cache)
 

@@ -3,7 +3,7 @@
 On the CPU the port runs each kernel's plain PyTorch version; here it is
 compared with the JAX kernel in interpret mode on the same numpy inputs,
 over the cases and tolerances of tests/test_kernels.py (f32 2e-5, bf16
-2e-2).  The CUDA kernels themselves run only on the card: those tests carry
+2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4).  The CUDA kernels themselves run only on the card: those tests carry
 the ``cuda`` marker and skip elsewhere (``python3 chip_smoke.py`` drives
 them at the serving path's shapes).
 """
@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -30,6 +33,15 @@ ATTN_CASES = [
     (1, 100, 100, 2, 1, 16, True, 0),      # ragged (padding path)
 ]
 NORM_SHAPES = [(8, 64), (3, 7, 96), (1, 384), (130, 256)]
+# (B, S, nh, P, N, chunk): tests/test_kernels.py:70-74
+SSD_CASES = [
+    (1, 64, 2, 16, 32, 16),
+    (2, 100, 3, 32, 64, 32),     # ragged: S % chunk != 0
+    (1, 128, 1, 64, 128, 128),   # single chunk
+]
+SSD_TOL = {"f32": dict(rtol=2e-4, atol=2e-4),
+           "bf16": dict(rtol=5e-2, atol=5e-2)}
+SSD_H_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _pair(arr: np.ndarray, dt: str):
@@ -100,6 +112,75 @@ def test_rmsnorm_plain_matches_jax_kernel(shape, dt):
                                _np32(want), **TOL[dt])
 
 
+def _ssd_inputs(B, S, nh, P, N, seed=3):
+    """x, dt (post-softplus), A (negative), Bm, Cm as f32 numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, nh, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(nh) * 0.3)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,P,N,chunk", SSD_CASES)
+def test_ssd_plain_matches_jax_kernel(B, S, nh, P, N, chunk, dt):
+    xn, dtn, An, Bn, Cn = _ssd_inputs(B, S, nh, P, N)
+    (xj, xt), (bj, bt), (cj, ct) = _pair(xn, dt), _pair(Bn, dt), _pair(Cn, dt)
+    dtt, At = torch.from_numpy(dtn), torch.from_numpy(An)
+    yj, hj = jax_ssd(xj, jnp.asarray(dtn), jnp.asarray(An), bj, cj,
+                     chunk=chunk, interpret=True)
+    y, h = ssd.ssd_plain(xt, dtt, At, bt, ct, chunk=chunk)
+    assert y.dtype == xt.dtype and y.shape == xt.shape
+    assert h.dtype == torch.float32 and h.shape == (B, nh, P, N)
+    np.testing.assert_allclose(_np32(y), _np32(yj), **SSD_TOL[dt])
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **SSD_H_TOL)
+    # the naive token-by-token oracle agrees too
+    y_r, h_r = ref.ssd_ref(xt, dtt, At, bt, ct)
+    assert y_r.dtype == xt.dtype
+    np.testing.assert_allclose(_np32(y_r), _np32(yj), **SSD_TOL[dt])
+    np.testing.assert_allclose(h_r.numpy(), np.asarray(hj), **SSD_H_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 48, 8, 128])
+def test_ssd_plain_chunk_invariance(chunk):
+    """tests/test_kernels.py:92-107: the result does not depend on the
+    chunk (8: a partial last chunk; 128 > S: one chunk of S steps)."""
+    xn, dtn, An, Bn, Cn = (torch.from_numpy(a) for a in
+                           _ssd_inputs(1, 96, 2, 16, 32, seed=4))
+    y0, h0 = ssd.ssd_plain(xn, dtn, An, Bn, Cn, chunk=96)
+    y, h = ssd.ssd_plain(xn, dtn, An, Bn, Cn, chunk=chunk)
+    torch.testing.assert_close(y, y0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_initial_state_matches_jax_ref():
+    """h0 carries into both the plain version and the oracle as into the
+    reference's ``ref.ssd_ref``."""
+    xn, dtn, An, Bn, Cn = _ssd_inputs(2, 21, 2, 16, 16, seed=6)
+    h0 = np.random.default_rng(7).standard_normal(
+        (2, 2, 16, 16)).astype(np.float32)
+    yj, hj = jax_ref.ssd_ref(*(jnp.asarray(a) for a in
+                               (xn, dtn, An, Bn, Cn)), h0=jnp.asarray(h0))
+    args = [torch.from_numpy(a) for a in (xn, dtn, An, Bn, Cn)]
+    for y, h in (ssd.ssd_plain(*args, chunk=8, h0=torch.from_numpy(h0)),
+                 ref.ssd_ref(*args, h0=torch.from_numpy(h0))):
+        np.testing.assert_allclose(y.numpy(), np.asarray(yj), **SSD_TOL["f32"])
+        np.testing.assert_allclose(h.numpy(), np.asarray(hj), **SSD_H_TOL)
+
+
+def test_ssd_plain_upper_triangle_never_overflows():
+    """Large dt·|A| makes cum_i - cum_j huge above the diagonal; masking
+    before the exp keeps inf (and inf·0 = NaN) out."""
+    xn, dtn, An, Bn, Cn = (torch.from_numpy(a) for a in
+                           _ssd_inputs(1, 64, 2, 16, 16, seed=8))
+    y, h = ssd.ssd_plain(xn, dtn * 40.0, An * 3.0, Bn, Cn, chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    y_r, h_r = ref.ssd_ref(xn, dtn * 40.0, An * 3.0, Bn, Cn)
+    torch.testing.assert_close(y, y_r, rtol=2e-4, atol=2e-4)
+
+
 def test_ops_on_cpu_take_the_plain_path(monkeypatch):
     """CPU tensors go to the plain versions; no kernel launch is counted."""
     monkeypatch.setattr(fa, "launches", 0)
@@ -114,7 +195,12 @@ def test_ops_on_cpu_take_the_plain_path(monkeypatch):
     s = torch.full((128,), 1.5)
     torch.testing.assert_close(ops.rmsnorm(x, s), rn.rmsnorm_plain(x, s),
                                rtol=0, atol=0)
-    assert fa.launches == 0 and rn.launches == 0
+    monkeypatch.setattr(ssd, "launches", 0)
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 16, 16)]
+    for got, want in zip(ops.ssd(*args, chunk=8),
+                         ssd.ssd_plain(*args, chunk=8)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert fa.launches == 0 and rn.launches == 0 and ssd.launches == 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -124,6 +210,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         rn.rmsnorm(torch.randn(2, 8), torch.ones(8))
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 16, 16)]
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(*args)
+
+
+def test_ssd_scan_rejects_unsupported_head_dim_and_state():
+    for P, N in ((48, 16), (16, 256), (128, 128)):
+        args = [torch.from_numpy(a) for a in _ssd_inputs(1, 4, 1, P, N)]
+        with pytest.raises(ValueError, match="P in"):
+            ssd.ssd_scan(*args)
 
 
 @pytest.mark.cuda
@@ -152,3 +248,33 @@ def test_rmsnorm_kernel_matches_plain_on_card(shape, dt, cuda_device):
     assert got.dtype == x.dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),
                                **TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,P,N,chunk", SSD_CASES + [
+    (2, 12, 8, 16, 16, 8),       # the mamba2 smoke config's prefill
+    (1, 40, 2, 64, 16, 128),     # jamba's (P, N)
+])
+def test_ssd_kernel_matches_plain_on_card(B, S, nh, P, N, chunk, dt,
+                                          cuda_device):
+    tdt = DTYPES[dt][1]
+    xn, dtn, An, Bn, Cn = (torch.from_numpy(a).to(cuda_device)
+                           for a in _ssd_inputs(B, S, nh, P, N))
+    x, Bm, Cm = xn.to(tdt), Bn.to(tdt), Cn.to(tdt)
+    y, h = ssd.ssd_scan(x, dtn, An, Bm, Cm, chunk=chunk)
+    y_p, h_p = ssd.ssd_plain(x, dtn, An, Bm, Cm, chunk=chunk)
+    assert y.dtype == tdt and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL[dt])
+    torch.testing.assert_close(h, h_p, **SSD_H_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 32, 48, 96])
+def test_ssd_kernel_chunk_invariance_on_card(chunk, cuda_device):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _ssd_inputs(1, 96, 2, 16, 32, seed=4)]
+    y0, h0 = ssd.ssd_plain(*args, chunk=96)
+    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    torch.testing.assert_close(y, y0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)

@@ -4,7 +4,8 @@ Ports tests/test_server.py to ``repro_torch`` on the CPU (warm and cold
 restore, sync and async dumps) and crosses the packages: a generation
 snapshotted by the JAX server resumes in the port with the JAX
 continuation's tokens, and the other way round; with the same numpy params
-both packages pick the same greedy tokens in f32.
+both packages pick the same greedy tokens in f32.  Each runs for the dense
+(qwen1.5, KV cache) and the pure-SSM (mamba2, SSM cache) smoke configs.
 """
 import jax
 import jax.numpy as jnp
@@ -22,13 +23,14 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.server import DecodeServer
 
 ARCH = "qwen1.5-0.5b"
+ARCHS = ["qwen1.5-0.5b", "mamba2-2.7b"]
 POLICY = get_policy("baseline")
 MAX_SEQ = 64
 
 
-def _np_params(seed=0):
+def _np_params(seed=0, arch=ARCH):
     """Params as numpy, drawn once for both packages."""
-    jm = build_model(jax_smoke_config(ARCH), POLICY, None,
+    jm = build_model(jax_smoke_config(arch), POLICY, None,
                      compute_dtype=jnp.float32, remat=False)
     rng = np.random.default_rng(seed)
     return jax.tree.map(
@@ -36,34 +38,35 @@ def _np_params(seed=0):
         jm.init_abstract())
 
 
-def _prompt(B=2, S=12):
+def _prompt(B=2, S=12, arch=ARCH):
     from repro.data import TokenPipeline
-    return TokenPipeline(jax_smoke_config(ARCH), B, S, seed=9).next()
+    return TokenPipeline(jax_smoke_config(arch), B, S, seed=9).next()
 
 
-def _server(run_dir, params=None, mode="sync"):
-    srv = DecodeServer(get_smoke_config(ARCH), run_dir, max_seq=MAX_SEQ,
+def _server(run_dir, params=None, mode="sync", arch=ARCH):
+    srv = DecodeServer(get_smoke_config(arch), run_dir, max_seq=MAX_SEQ,
                        options=CheckpointOptions(mode=mode), device="cpu")
     if params is not None:
         srv.load(params_from_numpy(params, "cpu"))
     return srv
 
 
-def _jax_server(run_dir, mesh, params=None):
-    srv = JaxDecodeServer(jax_smoke_config(ARCH), POLICY, mesh, run_dir,
+def _jax_server(run_dir, mesh, params=None, arch=ARCH):
+    srv = JaxDecodeServer(jax_smoke_config(arch), POLICY, mesh, run_dir,
                           max_seq=MAX_SEQ)
     if params is not None:
         srv.load(jax.tree.map(jnp.asarray, params))
     return srv
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode", ["sync", "async"])
 @pytest.mark.parametrize("boot", ["warm", "cold"])
-def test_snapshot_mid_generation_token_exact(boot, mode, tmp_path):
+def test_snapshot_mid_generation_token_exact(boot, mode, arch, tmp_path):
     run = str(tmp_path / "srv")
-    params = _np_params()
-    srv = _server(run, params, mode)
-    batch = _prompt()
+    params = _np_params(arch=arch)
+    srv = _server(run, params, mode, arch)
+    batch = _prompt(arch=arch)
     srv.start(batch)
     srv.decode(3)
     srv.checkpoint(0)
@@ -72,10 +75,10 @@ def test_snapshot_mid_generation_token_exact(boot, mode, tmp_path):
     assert srv.session.last_commit_step == 0
 
     if boot == "warm":
-        srv2 = _server(run, params)
+        srv2 = _server(run, params, arch=arch)
         srv2.start(batch)                    # live structures, then restore
     else:
-        srv2 = _server(run)                  # nothing loaded, never started
+        srv2 = _server(run, arch=arch)       # nothing loaded, never started
     srv2.restore()
     assert srv2.pos == srv.pos - 4
     np.testing.assert_array_equal(srv2.decode(4), expected)
@@ -94,41 +97,63 @@ def test_preempt_checkpoints_and_yields(tmp_path):
     np.testing.assert_array_equal(srv2.decode(3), expected)
 
 
-def test_greedy_tokens_match_jax(tmp_path, mesh1):
-    params = _np_params()
-    batch = _prompt()
-    js = _jax_server(str(tmp_path / "jax"), mesh1, params)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_tokens_match_jax(arch, tmp_path, mesh1):
+    params = _np_params(arch=arch)
+    batch = _prompt(arch=arch)
+    js = _jax_server(str(tmp_path / "jax"), mesh1, params, arch)
     js.start(batch)
     want = js.decode(5)
-    ts = _server(str(tmp_path / "torch"), params)
+    ts = _server(str(tmp_path / "torch"), params, arch=arch)
     ts.start(batch)
     np.testing.assert_array_equal(ts.decode(5), want)
 
 
-def test_jax_image_cold_boots_in_port(tmp_path, mesh1):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jax_image_cold_boots_in_port(arch, tmp_path, mesh1):
     run = str(tmp_path / "srv")
-    js = _jax_server(run, mesh1, _np_params())
-    js.start(_prompt())
+    js = _jax_server(run, mesh1, _np_params(arch=arch), arch)
+    js.start(_prompt(arch=arch))
     js.decode(3)
     js.checkpoint(0)
     expected = js.decode(4).copy()
-    ts = _server(run)                        # the port's cold server
+    ts = _server(run, arch=arch)             # the port's cold server
     ts.restore()
     assert ts.pos == js.pos - 4
     np.testing.assert_array_equal(ts.decode(4), expected)
 
 
-def test_port_image_cold_boots_in_jax(tmp_path, mesh1):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_image_cold_boots_in_jax(arch, tmp_path, mesh1):
     run = str(tmp_path / "srv")
-    ts = _server(run, _np_params())
-    ts.start(_prompt())
+    ts = _server(run, _np_params(arch=arch), arch=arch)
+    ts.start(_prompt(arch=arch))
     ts.decode(3)
     ts.checkpoint(0)
     expected = ts.decode(4).copy()
-    js = _jax_server(run, mesh1)
+    js = _jax_server(run, mesh1, arch=arch)
     js.restore()
     assert js.pos == ts.pos - 4
     np.testing.assert_array_equal(js.decode(4), expected)
+
+
+def test_pad_cache_pads_only_attention_kv():
+    """The KV seq dim is padded to max_seq; an SSM state h (L,B,nh,P,N) is
+    5-D too, with nh below max_seq, and stays as it is (keyed by leaf name,
+    as in src/repro/runtime/server.py:88-106)."""
+    L, B, S, max_seq = 2, 3, 5, 16
+    kv = torch.randn(L, B, S, 2, 8)
+    h = torch.randn(L, B, 4, 16, 32)                 # nh=4 < max_seq
+    conv = torch.randn(L, B, 3, 64)
+    out = DecodeServer._pad_cache(
+        {"pos0": {"k": kv, "v": kv.clone()},
+         "pos1": {"h": h, "conv_x": conv}}, max_seq)
+    for name in ("k", "v"):
+        assert out["pos0"][name].shape == (L, B, max_seq, 2, 8)
+        torch.testing.assert_close(out["pos0"][name][:, :, :S], kv)
+        assert not out["pos0"][name][:, :, S:].any()
+    assert out["pos1"]["h"] is h
+    assert out["pos1"]["conv_x"] is conv
 
 
 def test_unported_options_are_rejected(tmp_path):
