@@ -4,17 +4,20 @@
     python3 chip_smoke.py [--seed N]      # needs one card
 
 Phase 1 builds the hand-written kernels from the sources in this checkout
-(CUDA C++ flash attention and SSD scan through nvcc, one process per
-source, Triton RMSNorm) and holds each one against its plain PyTorch
-version on the card, at the JAX package's test cases and at the shapes of
-the serving paths, with the tolerances of ``tests/test_kernels.py`` (f32
-2e-5, bf16 2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4).  It times the
-kernel, the plain version and, where one exists, one PyTorch library call
-computing the same function (a yardstick only; the port never calls it)
-and works out each kernel's bound: the larger of (bytes moved / 3.35 TB/s)
-and (operations / peak rate for their type: 989 TFLOP/s bf16, 67 TFLOP/s
-f32), H100 SXM data sheet.  On a small input (each path's smoke config,
-f32) the card's kernel path must match the CPU plain path to 1e-3.
+(CUDA C++ flash attention, tensor-core bf16 and CUDA-core f32, and SSD
+scan through nvcc, one process per source, Triton RMSNorm) and holds each
+one against its plain PyTorch version on the card, at the JAX package's
+test cases, at the zoo's head dims and at the shapes of the serving
+paths, with the tolerances of ``tests/test_kernels.py`` (f32 2e-5, bf16
+2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4).  It times the kernel, the
+plain version and, where one exists, one PyTorch library call computing
+the same function (a yardstick only; the port never calls it) and works
+out each kernel's bound: the larger of (bytes moved / 3.35 TB/s) and
+(operations / peak rate for their type: 989 TFLOP/s bf16, 67 TFLOP/s
+f32), H100 SXM data sheet.  Two timings only: flash attention at a long
+prompt, where operations bound it, and both RMSNorm designs at
+2048 x 2560 and 2048 x 5120, in turns.  On a small input (each path's smoke config, f32)
+the card's kernel path must match the CPU plain path to 1e-3.
 
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
@@ -62,9 +65,17 @@ ATTN_CASES = [
     (1, 192, 192, 4, 2, 32, True, 64),
     (2, 64, 160, 4, 4, 64, False, 0),
     (1, 100, 100, 2, 1, 16, True, 0),
+    (2, 256, 256, 40, 10, 128, True, 0),     # phi3-medium's heads, hd 128
+    (1, 192, 192, 32, 8, 80, True, 64),      # h2o-danube's hd 80, window
 ]
 ATTN_SLICE = (4, 512, 512, 16, 16, 64, True, 0)   # qwen1.5-0.5b prefill
+# timing only: phi3-medium's attention at a 4096-token prompt, bounded by
+# operations (172 GFLOP against 105 MB)
+ATTN_LONG = (1, 4096, 4096, 40, 10, 128, True, 0)
 NORM_SLICE = (2048, 1024)                          # prefill rows x d_model
+NORM_DESIGN_SHAPE = (2048, 5120)                   # mamba2's gated norm
+# both RMSNorm designs, timed in turns: mamba2's block and gated norms
+NORM_DESIGN_SHAPES = [(2048, 2560), NORM_DESIGN_SHAPE]
 # qwen1.5 block norms (prefill, decode), odd widths, then mamba2's block
 # norms (d_model 2560) and gated norms (d_inner 5120)
 NORM_CASES = [(2048, 1024), (4, 1024), (21, 96), (1, 384), (130, 384),
@@ -124,7 +135,7 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 
 # ----------------------------------------------------------------- phase 1
-def attention_case(case, dtype, gen):
+def attention_case(case, dtype, gen, timing_only: bool = False):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -133,31 +144,71 @@ def attention_case(case, dtype, gen):
     q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    run = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                     window=window)
+    out = run()
     torch.cuda.synchronize()
-    want = fa.attention_plain(q, k, v, causal=causal, window=window)
-    err = (out.float() - want.float()).abs().max().item()
-    ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[str(dtype)]
+    # one owner per output element, no atomics: bitwise the same again
+    ok = bool(torch.isfinite(out.float()).all()) and torch.equal(out, run())
     visible = int(fa._visible(Sq, Sk, causal, window, dev).sum())
+    flops = 4.0 * B * H * hd * visible
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-    b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * visible, dtype)
+    b_ms, b_by = bound(nbytes, flops, dtype)
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window or (causal and Sq != Sk):
         mask = fa._visible(Sq, Sk, causal, window, dev)
-    lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=H != KV)
+
+    def lib():
+        # the yardstick at its fastest: deterministic mode (which the
+        # serving phase needs) steers SDPA to a slower backend
+        torch.use_deterministic_algorithms(False)
+        try:
+            return sdpa()
+        finally:
+            torch.use_deterministic_algorithms(True)
+    if timing_only:     # the plain version would not fit: SDPA instead
+        want, plain_ms = lib().transpose(1, 2), None
+    else:
+        want = fa.attention_plain(q, k, v, causal=causal, window=window)
+        plain_ms = cuda_ms(lambda: fa.attention_plain(
+            q, k, v, causal=causal, window=window))
+        ok = ok and (out.float() - want.float()).abs().max().item() <= \
+            TOL[str(dtype)]
+    ms = cuda_ms(run)
     return {
-        "ok": ok, "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                 window=window)),
-        "plain_ms": cuda_ms(lambda: fa.attention_plain(
-            q, k, v, causal=causal, window=window)),
-        "library_ms": cuda_ms(lib),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "ok": ok, "variant": fa.variant(dtype, hd),
+        "max_abs_err": (out.float() - want.float()).abs().max().item(),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": cuda_ms(lib),
+        "bound_ms": b_ms, "bound_by": b_by, "tflops": flops / ms / 1e9,
     }
+
+
+def rmsnorm_designs(gen) -> dict:
+    """Both RMSNorm designs at NORM_DESIGN_SHAPES (bf16), timed in turns;
+    {shape: {design: {"ms": [first, second], "ok": bool}}}."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    out = {}
+    for rows, d in NORM_DESIGN_SHAPES:
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        s = torch.randn(d, generator=gen, device="cuda")
+        want = rn.rmsnorm_plain(x, s)
+        times = {name: [] for name in rn.DESIGNS}
+        for name in rn.DESIGNS + rn.DESIGNS[::-1]:
+            times[name].append(cuda_ms(lambda: rn.rmsnorm(x, s,
+                                                          design=name)))
+        res = out[f"{rows}x{d}"] = {}
+        for name in rn.DESIGNS:
+            got = rn.rmsnorm(x, s, design=name)
+            res[name] = {"ms": times[name], "ok": got.dtype == x.dtype
+                         and _close(got, want, 2e-2)}
+    return out
 
 
 def rmsnorm_case(shape, dtype, gen):
@@ -261,6 +312,15 @@ def ssd_chunk_invariance(gen) -> list:
     return failed
 
 
+def tensor_core_instructions(library) -> int:
+    """HGMMA (wgmma) instructions in a built library's SASS."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def phase_kernels(seed: int) -> dict:
     """Build, check and time the kernels; returns the slice-shape rows."""
     import torch
@@ -273,22 +333,25 @@ def phase_kernels(seed: int) -> dict:
             if "registers" in line or "error" in line or (
                     "spill" in line and " 0 bytes spill stores" not in line):
                 log(f"[kernels] {name}: {line.strip()}")
+    hgmma = tensor_core_instructions(build.library_path("flash_attention_tc"))
+    log(f"[kernels] flash_attention_tc: {hgmma} HGMMA instructions in its "
+        f"SASS")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    failed = []
+    failed = [] if hgmma else [("flash_attention_tc", "no HGMMA in SASS")]
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in ATTN_CASES + [ATTN_SLICE]:
             r = attention_case(case, dtype, gen)
             tag = "slice" if case == ATTN_SLICE else "case"
-            log(f"[kernels] flash_attention {tag} {case} {dtype}: "
-                f"ok={r['ok']} err={r['max_abs_err']:.3g} "
-                f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-                f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} "
-                f"({r['bound_by']})")
+            log(f"[kernels] flash_attention ({r['variant']}) {tag} {case} "
+                f"{dtype}: ok={r['ok']} err={r['max_abs_err']:.3g} "
+                f"ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
+                f"sdpa={r['library_ms']:.5f} bound={r['bound_ms']:.5f} "
+                f"({r['bound_by']}) {r['tflops']:.1f} TFLOP/s")
             if not r["ok"]:
                 failed.append(("flash_attention", case, str(dtype)))
-            if case == ATTN_SLICE and dtype == torch.bfloat16:
-                rows["flash_attention"] = r
+            if case == ATTN_SLICE:
+                rows[f"flash_attention/{r['variant']}"] = r
         for shape in NORM_CASES:
             r = rmsnorm_case(shape, dtype, gen)
             log(f"[kernels] rmsnorm {shape} {dtype}: ok={r['ok']} "
@@ -297,8 +360,9 @@ def phase_kernels(seed: int) -> dict:
                 f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
             if not r["ok"]:
                 failed.append(("rmsnorm", shape, str(dtype)))
-            if shape == NORM_SLICE and dtype == torch.bfloat16:
-                rows["rmsnorm"] = r
+            if dtype == torch.bfloat16 and shape in (
+                    NORM_SLICE, NORM_DESIGN_SHAPE):
+                rows[f"rmsnorm/{shape[1]}"] = r
         for case in SSD_CASES + [SSD_SLICE]:
             r = ssd_case(case, dtype, gen)
             tag = "slice" if case == SSD_SLICE else "case"
@@ -312,6 +376,24 @@ def phase_kernels(seed: int) -> dict:
             if case == SSD_SLICE and dtype == torch.bfloat16:
                 rows["ssd_scan"] = r
     failed += ssd_chunk_invariance(gen)
+    r = attention_case(ATTN_LONG, torch.bfloat16, gen, timing_only=True)
+    log(f"[kernels] flash_attention ({r['variant']}) long {ATTN_LONG} "
+        f"bf16, timing only: ms={r['ms']:.5f} sdpa={r['library_ms']:.5f} "
+        f"bound={r['bound_ms']:.5f} ({r['bound_by']}), "
+        f"{r['tflops']:.1f} TFLOP/s; max diff from SDPA "
+        f"{r['max_abs_err']:.3g}; deterministic {r['ok']}")
+    if not r["ok"]:
+        failed.append(("flash_attention", ATTN_LONG, "bf16"))
+    rows["flash_attention/long"] = r
+    designs = rmsnorm_designs(gen)
+    for shape, res in designs.items():
+        log(f"[kernels] rmsnorm designs at {shape} bf16, in turns: "
+            + "; ".join(f"{k} {v['ms']} ms ok={v['ok']}"
+                        for k, v in res.items()))
+        failed += [("rmsnorm", shape, k) for k, v in res.items()
+                   if not v["ok"]]
+    rows["rmsnorm/designs"] = {shape: {k: v["ms"] for k, v in res.items()}
+                               for shape, res in designs.items()}
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return rows
@@ -343,6 +425,25 @@ def _counters():
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     return {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ssd}
+
+
+def _zero_counters() -> None:
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    fa = counters["flash_attention"]
+    fa.launches_tc = fa.launches_fma = 0
+    fa.served.clear()
+
+
+def _flash_variants() -> dict:
+    """Launches of each flash-attention variant since the counters were
+    zeroed, with the (dtype, head dim) each served."""
+    fa = _counters()["flash_attention"]
+    served = {"tc": [], "fma": []}
+    for (kind, dtype, hd), n in sorted(fa.served.items()):
+        served[kind].append([dtype, hd, n])
+    return {"tc": fa.launches_tc, "fma": fa.launches_fma, "served": served}
 
 
 def check_small_reference(arch: str, seed: int) -> None:
@@ -383,7 +484,7 @@ def _image_bytes(path: str) -> int:
 def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
                   workdir: str) -> dict:
     """Serve `arch` at full width with snapshots; returns the kernels'
-    launches on this serving path."""
+    launches on this serving path, and flash attention's by variant."""
     import numpy as np
     import torch
     from repro_torch.api import CheckpointOptions
@@ -406,8 +507,7 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
 
     counters = _counters()
-    for mod in counters.values():     # this path's launches start here
-        mod.launches = 0
+    _zero_counters()                  # this path's launches start here
     for mode in modes:
         run = os.path.join(workdir, mode)
         opts = CheckpointOptions(mode=mode)
@@ -455,11 +555,17 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         shutil.rmtree(run)            # one image on the disk at a time
         torch.cuda.empty_cache()
     launches = {name: mod.launches for name, mod in counters.items()}
+    variants = _flash_variants()
     log(f"[serve] {cfg.name}: kernel launches on the serving path: "
-        f"{launches}")
+        f"{launches}; flash attention by variant: {variants}")
     if not all(launches[k] for k in kernels):
         raise SystemExit(f"{cfg.name}: a kernel of the path was not "
                          f"launched while serving: {launches}")
+    # bf16 at the zoo's head dims runs on the tensor cores, never on FMAs
+    if "flash_attention" in kernels and not (variants["tc"]
+                                             and not variants["fma"]):
+        raise SystemExit(f"{cfg.name}: bf16 prefill attention did not go "
+                         f"through the tensor-core kernel alone: {variants}")
 
     # kernel path against the plain path at full width (not counted)
     ccfg, cparams = cfg, params
@@ -495,7 +601,7 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
                          f"from the f32 reference than the plain bf16 path")
     del out, ref, cparams
     profile_serving(model, params, prompts, dev)
-    return launches
+    return launches, variants
 
 
 def profile_serving(model, params, prompts, dev) -> None:
@@ -548,13 +654,50 @@ def _leaves(tree):
 
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
-    ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+    ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
      "src/repro/kernels/flash_attention.py:29"),
     ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
      "src/repro/kernels/rmsnorm.py:19"),
     ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:31"),
 )
+# each row's numbers: the bf16 case at its slice shape
+ROW_CASE = {"flash_attention": "flash_attention/tc",
+            "rmsnorm": f"rmsnorm/{NORM_SLICE[1]}", "ssd_scan": "ssd_scan"}
+FLASH_SOURCES = {"tc": "src/repro_torch/csrc/flash_attention_tc.cu",
+                 "fma": "src/repro_torch/csrc/flash_attention.cu"}
+TIMES = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+         "bound_by")
+
+
+def kernel_rows(rows: dict, by_path: dict) -> list:
+    """The `kernels` line: one row per kernel (its slice case, its launches
+    on the serving paths), flash attention's variants (tc at the bf16
+    slice, fma at the f32 slice) and long-prompt timing, RMSNorm at
+    d = 5120 and its two designs."""
+    out = []
+    for name, route, source, replaces in KERNEL_ROWS:
+        row = dict(name=name, route=route, source=source, replaces=replaces,
+                   **{k: rows[ROW_CASE[name]][k] for k in TIMES})
+        row["launches"] = sum(p[name] for p, _ in by_path.values())
+        row["launches_by_path"] = {a: p[name] for a, (p, _) in
+                                   by_path.items()}
+        out.append(row)
+    fa_row, rn_row = out[0], out[1]
+    fa_row["variants"] = [dict(
+        variant=kind, source=FLASH_SOURCES[kind],
+        launches=sum(v[kind] for _, v in by_path.values()),
+        served=[s for _, v in by_path.values() for s in v["served"][kind]],
+        timed_dtype="bfloat16" if kind == "tc" else "float32",
+        **{k: rows[f"flash_attention/{kind}"][k] for k in TIMES})
+        for kind in ("tc", "fma")]
+    long = rows["flash_attention/long"]
+    fa_row["long"] = dict(case=list(ATTN_LONG), tflops=long["tflops"],
+                          **{k: long[k] for k in TIMES if k != "plain_ms"})
+    rn_row["wide"] = dict(shape=list(NORM_DESIGN_SHAPE), **{
+        k: rows[f"rmsnorm/{NORM_DESIGN_SHAPE[1]}"][k] for k in TIMES})
+    rn_row["designs_ms"] = rows["rmsnorm/designs"]
+    return out
 
 
 def main() -> int:
@@ -592,15 +735,7 @@ def main() -> int:
             by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
                                           args.seed, workdir)
         torch.cuda.empty_cache()
-    out = []
-    for name, route, source, replaces in KERNEL_ROWS:
-        row = dict(name=name, route=route, source=source, replaces=replaces,
-                   **rows[name])
-        row.pop("ok")
-        row["launches"] = sum(p[name] for p in by_path.values())
-        row["launches_by_path"] = {a: p[name] for a, p in by_path.items()}
-        out.append(row)
-    print(json.dumps({"kernels": out}))
+    print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

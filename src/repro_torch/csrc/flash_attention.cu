@@ -11,13 +11,20 @@
 // Layout as in the JAX package: q (B, Sq, H, hd), k/v (B, Sk, KV, hd),
 // o (B, Sq, H, hd), all contiguous.
 //
-// Design (first, simple version): one thread block per (64-query tile, h, b);
-// four threads share a query row, each owning every fourth head-dim element
-// of q and acc in registers, so a score is four partial dot products joined
-// by two warp shuffles.  K and V tiles of 32 keys are staged through shared
-// memory as f32.  Products run as FMAs on the CUDA cores: at the prefill
-// shapes of the serving path this work is bounded by operations, and
-// tensor cores (mma.sync / wgmma) with TMA loads are the next step.
+// Design: one thread block per (64-query tile, h, b); four threads share a
+// query row, each owning every fourth head-dim element of q and acc in
+// registers, so a score is four partial dot products joined by two warp
+// shuffles.  K and V tiles of 32 keys are staged through shared memory as
+// f32.  Products run as FMAs on the CUDA cores.  This kernel serves f32
+// (tensor cores in f32 mean TF32, which misses the f32 tolerance) and the
+// bf16 head dims that the tensor-core kernel (flash_attention_tc.cu) does
+// not take; bf16 at the zoo's head dims runs there.
+//
+// What bounds it: at the serving path's prefill shape (B=4, S=512, H=16,
+// hd=64, causal) the bytes do at the card's peak rates (16.8 MB in bf16,
+// 5.0 us at 3.35 TB/s, against 2.2 us for 2.15 GFLOP at 989 TFLOP/s; in f32
+// 33.6 MB, 10.0 us, against 32 us at 67 TFLOP/s, so there the operations
+// do).  On the CUDA cores its f32 FMAs, not either bound, set its time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

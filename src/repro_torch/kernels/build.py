@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("flash_attention", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,22 +1,34 @@
 """Flash-attention forward on Hopper (CUDA C++), with its plain version.
 
 Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention`` of
-``src/repro/kernels/flash_attention.py``.  The kernel
-(``repro_torch/csrc/flash_attention.cu``) keeps the online-softmax state
-(m, l, acc) in f32 registers and streams K/V tiles through shared memory,
-so the (Sq x Sk) score matrix never reaches device memory.  On the H100
-the work is bounded by operations (4·B·H·Sq·Sk·hd FLOPs, halved under the
-causal mask, against q/k/v/o bytes read or written once); this first
-version does its products as FMAs on the CUDA cores rather than on the
-tensor cores, so it stays well above that bound (``PERF.md``).
+``src/repro/kernels/flash_attention.py``.  Two kernels keep the
+online-softmax state (m, l, acc) in f32 registers and stream K/V tiles
+through shared memory, so the (Sq x Sk) score matrix never reaches device
+memory:
+
+- ``csrc/flash_attention_tc.cu`` ("tc"): bf16 on the tensor cores (wgmma,
+  TMA loads through a 2-stage ring, one producer warp, two consumer
+  warpgroups of 64 query rows), head dims ``TC_HEAD_DIMS``;
+- ``csrc/flash_attention.cu`` ("fma"): FMAs on the CUDA cores, for f32
+  (TF32 tensor cores would miss the f32 tolerance of 2e-5) and for bf16
+  head dims the tensor-core kernel does not take.
+
+``variant(dtype, hd)`` picks one; nothing falls back from one to the other.
+The work is 4·B·H·hd·(visible pairs) operations against q/k/v/o crossing
+device memory once.  At the serving path's prefill (B=4, S=512, H=16,
+hd=64, causal, bf16) the bytes bound it (16.8 MB: 5.0 us at 3.35 TB/s,
+against 2.2 us for the 2.15 GFLOP at 989 TFLOP/s); at long prompts the
+operations do (phi3-medium at S=4096: 172 GFLOP against 105 MB).  Times
+against both bounds are in ``PERF.md``.
 
 ``attention_plain`` is the same function in plain PyTorch: the CPU path,
-and what ``chip_smoke.py`` holds the kernel against on the card.  Unlike
+and what ``chip_smoke.py`` holds the kernels against on the card.  Unlike
 ``ref.attention_ref`` (NaN), a row with no visible key gives 0 here, as in
-the kernel.
+the kernels.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -24,11 +36,32 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the CUDA kernel (plain-version calls are not counted)
+#: launches of each CUDA kernel, and their sum (plain-version calls are
+#: not counted); ``served`` counts them by (variant, dtype, head dim)
+launches_tc = 0
+launches_fma = 0
 launches = 0
+served = collections.Counter()
 
-_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: head dims of the CUDA-core kernel (f32, bf16) and of the tensor-core
+#: kernel (bf16 only)
+FMA_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+TC_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that serves (dtype, hd): "tc" (tensor cores, bf16) or
+    "fma" (CUDA cores).  Raises on what neither takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {dtype}; want one of "
+                         f"{_DTYPES}")
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tc"
+    if hd in FMA_HEAD_DIMS:
+        return "fma"
+    raise ValueError(f"flash_attention: head dim {hd} not in "
+                     f"{FMA_HEAD_DIMS}")
 
 
 def _visible(Sq: int, Sk: int, causal: bool, window: int,
@@ -57,22 +90,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    fn = lib.repro_flash_attention_fwd
+# (library, C entry, whether it takes the is_bf16 flag) of each variant
+_ENTRIES = {"tc": ("flash_attention_tc", "repro_flash_attention_tc_fwd",
+                   False),
+            "fma": ("flash_attention", "repro_flash_attention_fwd", True)}
+
+
+def _entry(kind: str):
+    name, symbol, has_dtype = _ENTRIES[kind]
+    fn = getattr(build.load(name), symbol)
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: untyped, ctypes would pass
         # each Python int as a 32-bit C int and cut it
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * (9 if has_dtype else 8)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel.  CUDA tensors only: no fallback."""
-    global launches
+    """Launch the kernel that ``variant`` picks.  CUDA tensors only: no
+    fallback."""
+    global launches, launches_tc, launches_fma
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,Sq,H,hd), k/v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -86,27 +127,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              f"the kernel runs on CUDA tensors only")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}; want "
-                             f"one of {_DTYPES}, the same for q, k, v")
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k, "
+                             f"v must share one dtype")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
         if t.device != q.device:
             raise ValueError("flash_attention: q, k, v on different devices")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
-                         f"{_HEAD_DIMS}")
+    kind = variant(q.dtype, hd)
+    if kind == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: TMA reads q, k, v from 16-byte "
+                         "aligned addresses only")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, H, KV, hd, int(causal), int(window)]
+    if kind == "fma":
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, KV, hd, int(causal), int(window),
-            int(q.dtype == torch.bfloat16), stream)
+        rc = _entry(kind)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
+        raise RuntimeError(f"flash_attention ({kind}) kernel launch failed "
                            f"(code {rc})")
+    if kind == "tc":
+        launches_tc += 1
+    else:
+        launches_fma += 1
     launches += 1
+    served[kind, str(q.dtype).replace("torch.", ""), hd] += 1
     return out

@@ -31,6 +31,8 @@ ATTN_CASES = [
     (1, 192, 192, 4, 2, 32, True, 64),     # sliding window (+pad)
     (2, 64, 160, 4, 4, 64, False, 0),      # cross attention, Sq != Sk
     (1, 100, 100, 2, 1, 16, True, 0),      # ragged (padding path)
+    (1, 128, 128, 8, 2, 128, True, 0),     # hd 128, GQA (phi3-medium's)
+    (1, 96, 96, 8, 2, 80, True, 32),       # hd 80 + window (h2o-danube's)
 ]
 NORM_SHAPES = [(8, 64), (3, 7, 96), (1, 384), (130, 256)]
 # (B, S, nh, P, N, chunk): tests/test_kernels.py:70-74
@@ -215,6 +217,47 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ssd.ssd_scan(*args)
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 80, "tc"), (torch.bfloat16, 16, "tc"),
+    (torch.bfloat16, 32, "tc"), (torch.bfloat16, 48, "fma"),
+    (torch.bfloat16, 112, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"),
+])
+def test_flash_variant_dispatch(dtype, hd, want):
+    """bf16 at the zoo's head dims runs on the tensor cores; f32 (which
+    TF32 tensor cores could not hold to 2e-5) and other head dims on the
+    CUDA cores, chosen before any launch."""
+    assert fa.variant(dtype, hd) == want
+    assert hd in (fa.TC_HEAD_DIMS if want == "tc" else fa.FMA_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 24), (torch.bfloat16, 256), (torch.float32, 8),
+    (torch.float16, 64),
+])
+def test_flash_variant_rejects_what_no_kernel_takes(dtype, hd):
+    with pytest.raises(ValueError):
+        fa.variant(dtype, hd)
+
+
+@pytest.mark.parametrize("d", [1, 7, 64, 96, 384, 1000, 1024, 2560, 2816,
+                               5120])
+def test_rmsnorm_split_blocks_cover_the_row(d):
+    """The "split" design's two power-of-two blocks cover d exactly once,
+    the first unmasked; at the serving widths no lane is masked.  With
+    one row per program the row is one power-of-two block."""
+    a, b = rn.split_blocks(d)
+    assert a & (a - 1) == 0 and a <= d < 2 * a
+    assert (b == 0) == (a == d)
+    if b:
+        assert b & (b - 1) == 0 and b >= d - a > b // 2
+    if d in (1024, 2560, 5120):
+        assert a + b == d
+    a, b = rn.split_blocks(d, one_row=True)
+    assert b == 0 and a & (a - 1) == 0 and a >= d > a // 2
+
+
 def test_ssd_scan_rejects_unsupported_head_dim_and_state():
     for P, N in ((48, 16), (16, 256), (128, 128)):
         args = [torch.from_numpy(a) for a in _ssd_inputs(1, 4, 1, P, N)]
@@ -238,13 +281,44 @@ def test_flash_kernel_matches_plain_on_card(B, Sq, Sk, H, KV, hd, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (2, 256, 256, 40, 10, 128, True, 0),
+    (1, 192, 192, 32, 8, 80, True, 64),
+    (4, 512, 512, 16, 16, 64, True, 0),
+])
+def test_flash_tc_kernel_at_the_zoo_shapes_on_card(B, Sq, Sk, H, KV, hd,
+                                                   causal, window,
+                                                   cuda_device,
+                                                   monkeypatch):
+    """bf16 at hd 128 (GQA 40/10), hd 80 with a window and qwen1.5's
+    prefill go through the tensor-core kernel, match the plain version and
+    give the same bits twice."""
+    monkeypatch.setattr(fa, "launches_tc", 0)
+    monkeypatch.setattr(fa, "launches_fma", 0)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).bfloat16()
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches_tc == 1 and fa.launches_fma == 0
+    torch.testing.assert_close(
+        got.float(), fa.attention_plain(q, k, v, causal=causal,
+                                        window=window).float(),
+        **TOL["bf16"])
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["split", "chunked"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", NORM_SHAPES + [(2048, 1024), (4, 1024)])
-def test_rmsnorm_kernel_matches_plain_on_card(shape, dt, cuda_device):
+@pytest.mark.parametrize("shape", NORM_SHAPES + [
+    (2048, 1024), (4, 1024), (2048, 5120), (4, 2560)])
+def test_rmsnorm_kernel_matches_plain_on_card(shape, dt, design,
+                                              cuda_device):
     tdt = DTYPES[dt][1]
     x = torch.randn(shape, device=cuda_device).to(tdt)
     s = torch.randn(shape[-1], device=cuda_device)
-    got = rn.rmsnorm(x, s)
+    got = rn.rmsnorm(x, s, design=design)
     assert got.dtype == x.dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),
                                **TOL[dt])
