@@ -4,19 +4,20 @@
     python3 chip_smoke.py [--seed N]      # needs one card
 
 Phase 1 builds the hand-written kernels from the sources in this checkout
-(CUDA C++ flash attention, tensor-core bf16 and CUDA-core f32, and SSD
-scan through nvcc, one process per source, Triton RMSNorm) and holds each
-one against its plain PyTorch version on the card, at the JAX package's
-test cases, at the zoo's head dims and at the shapes of the serving
-paths, with the tolerances of ``tests/test_kernels.py`` (f32 2e-5, bf16
-2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4).  It times the kernel, the
+(CUDA C++ flash attention and SSD scan, each a tensor-core bf16 source and
+a CUDA-core source, through nvcc, one process per source, Triton RMSNorm)
+and holds each one against its plain PyTorch version on the card, at the
+JAX package's test cases, at the zoo's head dims and at the shapes of the
+serving paths, with the tolerances of ``tests/test_kernels.py`` (f32
+2e-5, bf16 2e-2; SSD y 2e-4 f32 / 5e-2 bf16, h 1e-4); the tensor-core
+kernels must hold HGMMA instructions and repeat bit for bit.  It times the kernel, the
 plain version and, where one exists, one PyTorch library call computing
 the same function (a yardstick only; the port never calls it) and works
 out each kernel's bound: the larger of (bytes moved / 3.35 TB/s) and
 (operations / peak rate for their type: 989 TFLOP/s bf16, 67 TFLOP/s
-f32), H100 SXM data sheet.  Two timings only: flash attention at a long
-prompt, where operations bound it, and both RMSNorm designs at
-2048 x 2560 and 2048 x 5120, in turns.  On a small input (each path's smoke config, f32)
+f32), H100 SXM data sheet.  Timings only: flash attention and the SSD
+scan at long prompts, both RMSNorm designs at 2048 x 2560 and 2048 x 5120
+in turns, and both SSD kernels at mamba2's prefill shape in turns.  On a small input (each path's smoke config, f32)
 the card's kernel path must match the CPU plain path to 1e-3.
 
 Phase 2 serves each path at full published width with random weights
@@ -44,6 +45,7 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 import argparse
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -90,7 +92,13 @@ SSD_CASES = [
     (1, 40, 2, 64, 16, 128),
 ]
 SSD_SLICE = (4, 512, 80, 64, 128, 128)             # mamba2-2.7b prefill
-SSD_INVARIANCE = ((1, 96, 2, 16, 32), 96, (16, 32, 48))   # :92-107
+# timing only: mamba2's scan at a 4096-token prompt (32 chunks)
+SSD_LONG = (1, 4096, 80, 64, 128, 128)
+# (shape, plain chunk, kernel chunks): tests/test_kernels.py:92-107 on the
+# CUDA-core kernel (f32), then the tensor-core kernel's tiles 64 and 128
+SSD_INVARIANCE = [((1, 96, 2, 16, 32), 96, (16, 32, 48), "torch.float32"),
+                  ((1, 160, 2, 64, 32), 160, (32, 64, 128),
+                   "torch.bfloat16")]
 SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
 SSD_H_TOL = 1e-4
 
@@ -271,44 +279,94 @@ def ssd_flops(B, S, nh, P, N) -> float:
     return float(B * S * min(chunked, 5 * nh * N * P))
 
 
-def ssd_case(case, dtype, gen):
+def ssd_case(case, dtype, gen, timing_only: bool = False):
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     B, S, nh, P, N, chunk = case
     args = ssd_inputs((B, S, nh, P, N), dtype, gen)
     y, h = ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
+    y2, h2 = ssd.ssd_scan(*args, chunk=chunk)
     y_p, h_p = ssd.ssd_plain(*args, chunk=chunk)
-    ok = (y.dtype == dtype and h.dtype == torch.float32
-          and _close(y, y_p, SSD_TOL[str(dtype)]) and _close(h, h_p, SSD_H_TOL))
+    # one owner per output element and state, no atomics: the same bits
+    ok = torch.equal(y, y2) and torch.equal(h, h2)
+    if not timing_only:
+        ok = ok and (y.dtype == dtype and h.dtype == torch.float32
+                     and _close(y, y_p, SSD_TOL[str(dtype)])
+                     and _close(h, h_p, SSD_H_TOL))
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
-    b_ms, b_by = bound(nbytes, ssd_flops(B, S, nh, P, N), torch.float32)
+    flops = ssd_flops(B, S, nh, P, N)
+    b_ms, b_by = bound(nbytes, flops, dtype)
     return {
-        "ok": ok, "max_abs_err": (y.float() - y_p.float()).abs().max().item(),
+        "ok": ok, "variant": ssd.variant(dtype, P, N),
+        "max_abs_err": (y.float() - y_p.float()).abs().max().item(),
         "h_max_abs_err": (h - h_p).abs().max().item(),
         "y_max_abs": y_p.float().abs().max().item(),
         "ms": cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
         "plain_ms": cuda_ms(lambda: ssd.ssd_plain(*args, chunk=chunk)),
         "library_ms": None,          # no single PyTorch call computes SSD
         "bound_ms": b_ms, "bound_by": b_by,
+        # the same work at the f32 peak, the bound of the f32 FMA kernel
+        "bound_f32_peak_ms": bound(nbytes, flops, torch.float32)[0],
     }
 
 
-def ssd_chunk_invariance(gen) -> list:
-    """The kernel at several chunks against the plain version at one."""
+def ssd_passes(gen) -> dict:
+    """torch.profiler over a few SSD calls at mamba2's prefill shape (bf16,
+    the tensor-core kernel): device ms of each of its launches."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
-    shape, ref_chunk, chunks = SSD_INVARIANCE
-    args = ssd_inputs(shape, torch.float32, gen)
-    y0, h0 = ssd.ssd_plain(*args, chunk=ref_chunk)
+    B, S, nh, P, N, chunk = SSD_SLICE
+    args = ssd_inputs((B, S, nh, P, N), torch.bfloat16, gen)
+    ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            m = re.search(r"::(\w+(<[^>]*>)?)", e.key)
+            out[m.group(1) if m else e.key[:60]] = (
+                e.self_device_time_total / e.count / 1e3)
+    return out
+
+
+def ssd_variants_in_turns(gen) -> dict:
+    """Both SSD kernels on the same bf16 inputs at mamba2's prefill shape,
+    timed in turns (fma, tc, tc, fma); {variant: [ms, ms]}."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, nh, P, N, chunk = SSD_SLICE
+    args = ssd_inputs((B, S, nh, P, N), torch.bfloat16, gen)
+    times = {"tc": [], "fma": []}
+    for kind in ("fma", "tc", "tc", "fma"):
+        times[kind].append(cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk,
+                                                        kind=kind)))
+    return times
+
+
+def ssd_chunk_invariance(gen) -> list:
+    """Each kernel at several chunks against the plain version at one."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
     failed = []
-    for c in chunks:
-        y, h = ssd.ssd_scan(*args, chunk=c)
-        ok = _close(y, y0, 2e-4) and _close(h, h0, 2e-4)
-        log(f"[kernels] ssd_scan chunk {c} vs plain chunk {ref_chunk} "
-            f"{shape}: ok={ok} err={(y - y0).abs().max().item():.3g}")
-        if not ok:
-            failed.append(("ssd_scan", "chunk", c))
+    for shape, ref_chunk, chunks, dtype in SSD_INVARIANCE:
+        args = ssd_inputs(shape, getattr(torch, dtype[6:]), gen)
+        y0, h0 = ssd.ssd_plain(*args, chunk=ref_chunk)
+        tol = 2e-4 if dtype == "torch.float32" else SSD_TOL[dtype]
+        h_tol = 2e-4 if dtype == "torch.float32" else SSD_H_TOL
+        kind = ssd.variant(args[0].dtype, shape[3], shape[4])
+        for c in chunks:
+            y, h = ssd.ssd_scan(*args, chunk=c)
+            ok = _close(y, y0, tol) and _close(h, h0, h_tol)
+            log(f"[kernels] ssd_scan ({kind}) chunk {c} vs plain chunk "
+                f"{ref_chunk} {shape} {dtype}: ok={ok} err="
+                f"{(y.float() - y0.float()).abs().max().item():.3g}")
+            if not ok:
+                failed.append(("ssd_scan", kind, "chunk", c))
     return failed
 
 
@@ -333,12 +391,15 @@ def phase_kernels(seed: int) -> dict:
             if "registers" in line or "error" in line or (
                     "spill" in line and " 0 bytes spill stores" not in line):
                 log(f"[kernels] {name}: {line.strip()}")
-    hgmma = tensor_core_instructions(build.library_path("flash_attention_tc"))
-    log(f"[kernels] flash_attention_tc: {hgmma} HGMMA instructions in its "
-        f"SASS")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    failed = [] if hgmma else [("flash_attention_tc", "no HGMMA in SASS")]
-    rows = {}
+    failed = []
+    rows = {"hgmma": {}}
+    for name in TC_SOURCES:
+        n = rows["hgmma"][name] = tensor_core_instructions(
+            build.library_path(name))
+        log(f"[kernels] {name}: {n} HGMMA instructions in its SASS")
+        if not n:
+            failed.append((name, "no HGMMA in SASS"))
     for dtype in (torch.float32, torch.bfloat16):
         for case in ATTN_CASES + [ATTN_SLICE]:
             r = attention_case(case, dtype, gen)
@@ -366,16 +427,34 @@ def phase_kernels(seed: int) -> dict:
         for case in SSD_CASES + [SSD_SLICE]:
             r = ssd_case(case, dtype, gen)
             tag = "slice" if case == SSD_SLICE else "case"
-            log(f"[kernels] ssd_scan {tag} {case} {dtype}: ok={r['ok']} "
-                f"y err {r['max_abs_err']:.3g} (|y| max "
+            log(f"[kernels] ssd_scan ({r['variant']}) {tag} {case} {dtype}: "
+                f"ok={r['ok']} y err {r['max_abs_err']:.3g} (|y| max "
                 f"{r['y_max_abs']:.3g}) h err {r['h_max_abs_err']:.3g} "
-                f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-                f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+                f"ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
+                f"bound={r['bound_ms']:.5f} ({r['bound_by']}; at the f32 "
+                f"peak {r['bound_f32_peak_ms']:.5f})")
             if not r["ok"]:
                 failed.append(("ssd_scan", case, str(dtype)))
-            if case == SSD_SLICE and dtype == torch.bfloat16:
-                rows["ssd_scan"] = r
+            if case == SSD_SLICE:
+                rows[f"ssd_scan/{r['variant']}"] = r
     failed += ssd_chunk_invariance(gen)
+    r = ssd_case(SSD_LONG, torch.bfloat16, gen, timing_only=True)
+    log(f"[kernels] ssd_scan ({r['variant']}) long {SSD_LONG} bf16, timing "
+        f"only: ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
+        f"bound={r['bound_ms']:.5f} ({r['bound_by']}); max diff from plain "
+        f"y {r['max_abs_err']:.3g} h {r['h_max_abs_err']:.3g}; "
+        f"deterministic {r['ok']}")
+    if not r["ok"]:
+        failed.append(("ssd_scan", SSD_LONG, "bf16"))
+    rows["ssd_scan/long"] = r
+    passes = rows["ssd_scan/passes"] = ssd_passes(gen)
+    log(f"[kernels] ssd_scan (tc) at {SSD_SLICE} bf16, device ms per "
+        f"launch: {passes}")
+    turns = rows["ssd_scan/turns"] = ssd_variants_in_turns(gen)
+    log(f"[kernels] ssd_scan at {SSD_SLICE} bf16, in turns (fma, tc, tc, "
+        f"fma): {turns}")
+    if not max(turns["tc"]) < min(turns["fma"]):
+        failed.append(("ssd_scan", "tc not faster than fma", turns))
     r = attention_case(ATTN_LONG, torch.bfloat16, gen, timing_only=True)
     log(f"[kernels] flash_attention ({r['variant']}) long {ATTN_LONG} "
         f"bf16, timing only: ms={r['ms']:.5f} sdpa={r['library_ms']:.5f} "
@@ -420,6 +499,10 @@ SERVE_PATHS = (
 LOGIT_SLACK = 1.5
 
 
+# the kernels with a tensor-core and a CUDA-core variant
+VARIANT_KERNELS = ("flash_attention", "ssd_scan")
+
+
 def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -431,19 +514,25 @@ def _zero_counters() -> None:
     counters = _counters()
     for mod in counters.values():
         mod.launches = 0
-    fa = counters["flash_attention"]
-    fa.launches_tc = fa.launches_fma = 0
-    fa.served.clear()
+    for name in VARIANT_KERNELS:
+        mod = counters[name]
+        mod.launches_tc = mod.launches_fma = 0
+        mod.served.clear()
 
 
-def _flash_variants() -> dict:
-    """Launches of each flash-attention variant since the counters were
-    zeroed, with the (dtype, head dim) each served."""
-    fa = _counters()["flash_attention"]
-    served = {"tc": [], "fma": []}
-    for (kind, dtype, hd), n in sorted(fa.served.items()):
-        served[kind].append([dtype, hd, n])
-    return {"tc": fa.launches_tc, "fma": fa.launches_fma, "served": served}
+def _variants() -> dict:
+    """Launches of each variant of flash attention and the SSD scan since
+    the counters were zeroed, with the shapes each served: [dtype, hd, n]
+    for flash attention, [dtype, P, N, n] for the SSD scan."""
+    out = {}
+    for name in VARIANT_KERNELS:
+        mod = _counters()[name]
+        served = {"tc": [], "fma": []}
+        for (kind, dtype, *dims), n in sorted(mod.served.items()):
+            served[kind].append([dtype, *dims, n])
+        out[name] = {"tc": mod.launches_tc, "fma": mod.launches_fma,
+                     "served": served}
+    return out
 
 
 def check_small_reference(arch: str, seed: int) -> None:
@@ -484,7 +573,8 @@ def _image_bytes(path: str) -> int:
 def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
                   workdir: str) -> dict:
     """Serve `arch` at full width with snapshots; returns the kernels'
-    launches on this serving path, and flash attention's by variant."""
+    launches on this serving path, and those of flash attention and the SSD
+    scan by variant."""
     import numpy as np
     import torch
     from repro_torch.api import CheckpointOptions
@@ -555,17 +645,18 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         shutil.rmtree(run)            # one image on the disk at a time
         torch.cuda.empty_cache()
     launches = {name: mod.launches for name, mod in counters.items()}
-    variants = _flash_variants()
+    variants = _variants()
     log(f"[serve] {cfg.name}: kernel launches on the serving path: "
-        f"{launches}; flash attention by variant: {variants}")
+        f"{launches}; by variant: {variants}")
     if not all(launches[k] for k in kernels):
         raise SystemExit(f"{cfg.name}: a kernel of the path was not "
                          f"launched while serving: {launches}")
-    # bf16 at the zoo's head dims runs on the tensor cores, never on FMAs
-    if "flash_attention" in kernels and not (variants["tc"]
-                                             and not variants["fma"]):
-        raise SystemExit(f"{cfg.name}: bf16 prefill attention did not go "
-                         f"through the tensor-core kernel alone: {variants}")
+    # bf16 at the zoo's shapes runs on the tensor cores, never on FMAs
+    for name in VARIANT_KERNELS:
+        v = variants[name]
+        if name in kernels and not (v["tc"] and not v["fma"]):
+            raise SystemExit(f"{cfg.name}: bf16 {name} did not go through "
+                             f"the tensor-core kernel alone: {v}")
 
     # kernel path against the plain path at full width (not counted)
     ccfg, cparams = cfg, params
@@ -658,23 +749,29 @@ KERNEL_ROWS = (
      "src/repro/kernels/flash_attention.py:29"),
     ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
      "src/repro/kernels/rmsnorm.py:19"),
-    ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+    ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan_tc.cu",
      "src/repro/kernels/ssd_scan.py:31"),
 )
 # each row's numbers: the bf16 case at its slice shape
 ROW_CASE = {"flash_attention": "flash_attention/tc",
-            "rmsnorm": f"rmsnorm/{NORM_SLICE[1]}", "ssd_scan": "ssd_scan"}
-FLASH_SOURCES = {"tc": "src/repro_torch/csrc/flash_attention_tc.cu",
-                 "fma": "src/repro_torch/csrc/flash_attention.cu"}
+            "rmsnorm": f"rmsnorm/{NORM_SLICE[1]}", "ssd_scan": "ssd_scan/tc"}
+# the libraries whose SASS must hold tensor-core instructions
+TC_SOURCES = ("flash_attention_tc", "ssd_scan_tc")
+VARIANT_SOURCES = {
+    "flash_attention": {"tc": "src/repro_torch/csrc/flash_attention_tc.cu",
+                        "fma": "src/repro_torch/csrc/flash_attention.cu"},
+    "ssd_scan": {"tc": "src/repro_torch/csrc/ssd_scan_tc.cu",
+                 "fma": "src/repro_torch/csrc/ssd_scan.cu"},
+}
 TIMES = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
          "bound_by")
 
 
 def kernel_rows(rows: dict, by_path: dict) -> list:
     """The `kernels` line: one row per kernel (its slice case, its launches
-    on the serving paths), flash attention's variants (tc at the bf16
-    slice, fma at the f32 slice) and long-prompt timing, RMSNorm at
-    d = 5120 and its two designs."""
+    on the serving paths); flash attention's and the SSD scan's variants
+    (tc at the bf16 slice, fma at the f32 slice) and long-prompt timings;
+    RMSNorm at d = 5120 and its two designs."""
     out = []
     for name, route, source, replaces in KERNEL_ROWS:
         row = dict(name=name, route=route, source=source, replaces=replaces,
@@ -683,17 +780,28 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
         row["launches_by_path"] = {a: p[name] for a, (p, _) in
                                    by_path.items()}
         out.append(row)
-    fa_row, rn_row = out[0], out[1]
-    fa_row["variants"] = [dict(
-        variant=kind, source=FLASH_SOURCES[kind],
-        launches=sum(v[kind] for _, v in by_path.values()),
-        served=[s for _, v in by_path.values() for s in v["served"][kind]],
-        timed_dtype="bfloat16" if kind == "tc" else "float32",
-        **{k: rows[f"flash_attention/{kind}"][k] for k in TIMES})
-        for kind in ("tc", "fma")]
+    fa_row, rn_row, ssd_row = out
+    for row in (fa_row, ssd_row):
+        name = row["name"]
+        row["variants"] = [dict(
+            variant=kind, source=VARIANT_SOURCES[name][kind],
+            launches=sum(v[name][kind] for _, v in by_path.values()),
+            served=[s for _, v in by_path.values()
+                    for s in v[name]["served"][kind]],
+            timed_dtype="bfloat16" if kind == "tc" else "float32",
+            **{k: rows[f"{name}/{kind}"][k] for k in TIMES})
+            for kind in ("tc", "fma")]
     long = rows["flash_attention/long"]
     fa_row["long"] = dict(case=list(ATTN_LONG), tflops=long["tflops"],
                           **{k: long[k] for k in TIMES if k != "plain_ms"})
+    fa_row["hgmma"] = rows["hgmma"]["flash_attention_tc"]
+    long = rows["ssd_scan/long"]
+    ssd_row["long"] = dict(case=list(SSD_LONG),
+                           **{k: long[k] for k in TIMES})
+    ssd_row["bound_f32_peak_ms"] = rows["ssd_scan/tc"]["bound_f32_peak_ms"]
+    ssd_row["in_turns_bf16_ms"] = rows["ssd_scan/turns"]
+    ssd_row["passes_ms"] = rows["ssd_scan/passes"]
+    ssd_row["hgmma"] = rows["hgmma"]["ssd_scan_tc"]
     rn_row["wide"] = dict(shape=list(NORM_DESIGN_SHAPE), **{
         k: rows[f"rmsnorm/{NORM_DESIGN_SHAPE[1]}"][k] for k in TIMES})
     rn_row["designs_ms"] = rows["rmsnorm/designs"]

@@ -4,8 +4,9 @@ Each source ``repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, which
 ``ctypes`` loads (no PyTorch headers, so a build takes seconds, not
 minutes).  Libraries land in ``repro_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  ``build_all`` starts one
+``.gitignore``), named by a hash of the source, the headers it may include
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.  ``build_all`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 """
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Dict, Iterable, Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan",
+           "ssd_scan_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,9 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def log_path(name: str) -> Path:

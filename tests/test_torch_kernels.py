@@ -41,6 +41,13 @@ SSD_CASES = [
     (2, 100, 3, 32, 64, 32),     # ragged: S % chunk != 0
     (1, 128, 1, 64, 128, 128),   # single chunk
 ]
+# the tensor-core kernel's model at the reference's cases and at P = 64
+# with N = 16 (Jamba) and N = 128 (mamba2), S ragged against its tile
+SSD_TC_CASES = SSD_CASES + [
+    (2, 150, 3, 64, 16, 128),
+    (1, 200, 2, 64, 128, 64),
+    (2, 77, 2, 64, 128, 128),
+]
 SSD_TOL = {"f32": dict(rtol=2e-4, atol=2e-4),
            "bf16": dict(rtol=5e-2, atol=5e-2)}
 SSD_H_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -265,6 +272,80 @@ def test_ssd_scan_rejects_unsupported_head_dim_and_state():
             ssd.ssd_scan(*args)
 
 
+@pytest.mark.parametrize("B,S,nh,P,N,chunk", SSD_TC_CASES)
+def test_ssd_tc_plain_matches_jax_kernel(B, S, nh, P, N, chunk):
+    """The tensor-core kernel's numerics (bf16 hi + lo splits of the state
+    factor, h_prev and G, its own tile) against the Pallas kernel, at the
+    reference's tolerances: a wrong precision design fails here."""
+    xn, dtn, An, Bn, Cn = _ssd_inputs(B, S, nh, P, N)
+    (xj, xt), (bj, bt), (cj, ct) = (_pair(a, "bf16") for a in (xn, Bn, Cn))
+    yj, hj = jax_ssd(xj, jnp.asarray(dtn), jnp.asarray(An), bj, cj,
+                     chunk=chunk, interpret=True)
+    y, h = ssd.ssd_tc_plain(xt, torch.from_numpy(dtn), torch.from_numpy(An),
+                            bt, ct, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and y.shape == xt.shape
+    assert h.dtype == torch.float32 and h.shape == (B, nh, P, N)
+    np.testing.assert_allclose(_np32(y), _np32(yj), **SSD_TOL["bf16"])
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **SSD_H_TOL)
+
+
+def test_ssd_tc_state_needs_the_hi_lo_split():
+    """With the state factor and h_prev each rounded once to bf16 the state
+    misses the 1e-4 tolerance: the split is what holds it."""
+    xn, dtn, An, Bn, Cn = _ssd_inputs(1, 128, 1, 64, 128)
+    args = (torch.from_numpy(xn).bfloat16(), torch.from_numpy(dtn),
+            torch.from_numpy(An), torch.from_numpy(Bn).bfloat16(),
+            torch.from_numpy(Cn).bfloat16())
+    _, h_want = ssd.ssd_plain(*args)
+    _, h_split = ssd.ssd_tc_plain(*args)
+    _, h_once = ssd._chunked(*args, 128, None,
+                             lambda v: (v.to(torch.bfloat16).float(),))
+    torch.testing.assert_close(h_split, h_want, **SSD_H_TOL)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(h_once, h_want, **SSD_H_TOL)
+
+
+@pytest.mark.parametrize("dtype,P,N,want", [
+    (torch.bfloat16, 64, 128, "tc"), (torch.bfloat16, 64, 16, "tc"),
+    (torch.bfloat16, 64, 32, "tc"), (torch.bfloat16, 64, 64, "tc"),
+    (torch.bfloat16, 16, 16, "fma"), (torch.bfloat16, 32, 64, "fma"),
+    (torch.float32, 64, 128, "fma"), (torch.float32, 16, 32, "fma"),
+])
+def test_ssd_variant_dispatch(dtype, P, N, want):
+    """bf16 at P = 64 (mamba2, Jamba) runs on the tensor cores; f32 and
+    P = 16 or 32 on the CUDA cores, chosen before any launch."""
+    assert ssd.variant(dtype, P, N) == want
+
+
+@pytest.mark.parametrize("dtype,P,N", [
+    (torch.bfloat16, 48, 128), (torch.bfloat16, 64, 256),
+    (torch.float32, 128, 16), (torch.float16, 64, 128),
+])
+def test_ssd_variant_rejects_what_no_kernel_takes(dtype, P, N):
+    with pytest.raises(ValueError):
+        ssd.variant(dtype, P, N)
+
+
+@pytest.mark.parametrize("chunk,tile", [(1, 64), (32, 64), (64, 64),
+                                        (65, 128), (128, 128), (256, 128)])
+def test_ssd_tc_tile(chunk, tile):
+    assert ssd.tc_tile(chunk) == tile
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_tc_plain_chunk_invariance(chunk):
+    """The tensor-core model at tiles 64 and 128 against the plain version
+    at one chunk."""
+    xn, dtn, An, Bn, Cn = _ssd_inputs(1, 160, 2, 64, 32, seed=4)
+    args = (torch.from_numpy(xn).bfloat16(), torch.from_numpy(dtn),
+            torch.from_numpy(An), torch.from_numpy(Bn).bfloat16(),
+            torch.from_numpy(Cn).bfloat16())
+    y0, h0 = ssd.ssd_plain(*args, chunk=160)
+    y, h = ssd.ssd_tc_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL["bf16"])
+    torch.testing.assert_close(h, h0, **SSD_H_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", ATTN_CASES)
@@ -352,3 +433,45 @@ def test_ssd_kernel_chunk_invariance_on_card(chunk, cuda_device):
     y, h = ssd.ssd_scan(*args, chunk=chunk)
     torch.testing.assert_close(y, y0, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)
+
+
+# every bf16 case of chip_smoke.SSD_CASES at P = 64, then mamba2-2.7b's
+# prefill (B=4, S=512, nh=80, N=128)
+SSD_TC_CARD_CASES = [
+    (1, 128, 1, 64, 128, 128),
+    (1, 40, 2, 64, 16, 128),
+    (4, 512, 80, 64, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,P,N,chunk", SSD_TC_CARD_CASES)
+def test_ssd_tc_kernel_matches_plain_on_card(B, S, nh, P, N, chunk,
+                                             cuda_device, monkeypatch):
+    """bf16 at P = 64 goes through the tensor-core kernel, matches the plain
+    version and gives the same bits twice."""
+    monkeypatch.setattr(ssd, "launches_tc", 0)
+    monkeypatch.setattr(ssd, "launches_fma", 0)
+    xn, dtn, An, Bn, Cn = (torch.from_numpy(a).to(cuda_device)
+                           for a in _ssd_inputs(B, S, nh, P, N))
+    x, Bm, Cm = xn.bfloat16(), Bn.bfloat16(), Cn.bfloat16()
+    y, h = ssd.ssd_scan(x, dtn, An, Bm, Cm, chunk=chunk)
+    assert ssd.launches_tc == 1 and ssd.launches_fma == 0
+    y_p, h_p = ssd.ssd_plain(x, dtn, An, Bm, Cm, chunk=chunk)
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL["bf16"])
+    torch.testing.assert_close(h, h_p, **SSD_H_TOL)
+    y2, h2 = ssd.ssd_scan(x, dtn, An, Bm, Cm, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_tc_kernel_chunk_invariance_on_card(chunk, cuda_device):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _ssd_inputs(1, 160, 2, 64, 32, seed=4)]
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    y0, h0 = ssd.ssd_plain(*args, chunk=160)
+    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL["bf16"])
+    torch.testing.assert_close(h, h0, **SSD_H_TOL)
