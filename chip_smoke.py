@@ -32,6 +32,33 @@ after it.  Each path's bf16 kernel logits are then held against its f32
 plain path (mamba2's over its first 4 layers), and one prefill and a few
 decode steps are profiled.
 
+Phase 1 also holds each kernel's autograd Function (kernel forward,
+oracle backward) against plain autograd through its oracle on the card,
+for the reference's sum-of-squares loss (each path's forward output feeds
+its backward): at the reference's grad cases in f32 with its tolerances,
+and at the slice shapes in bf16 and f32 (rtol 2e-2 bf16; f32 2e-4
+attention, 1e-3 SSD, 1e-5 RMSNorm; atol the same times each input's
+largest |grad|); each forward must launch its kernel once.
+
+Phase 3 trains qwen1.5-0.5b at full width (bf16 over f32 masters, kernels,
+remat, batch 4 x 512, AdamW, deterministic settings): (a) 12 steps with an
+async image every 4; (b) a run that crashes at step 7 and restores from
+its step-4 sync image must give (a)'s losses of steps 5-12 and final
+params and optimizer state bitwise; (c) fresh trainers cold-restore (a)'s
+async and (b)'s sync step-12 images, bitwise equal; (d) the loss falls:
+step 0's batch scores lower after (a) than before by more than (a)'s 12
+batches' scores spread before training (the steps' own losses, each on a
+new batch, move within that spread); (e) flash attention and RMSNorm
+launch 2 x 24 and 2 x 2 x 24 + 1 times per executed step (forward and
+remat recompute).  Phase 3b trains mamba2-2.7b at full width cut to 4 of
+its 64 layers (batch 2 x 512, 3 steps): a finite loss, 2 x 4 SSD launches
+per step, and first-step grads of the mamba leaves within MAMBA_GRAD_TOL
+of the plain bf16 path's, where a witness (the SSD kernel's rounding in
+plain torch) must fit too and two broken SSD forwards (y 2% off, no
+carry between chunks) must not.
+Step time, tokens/s, MFU, snapshot and restore times and a profile of one
+step are printed beside the card's name and power limit.
+
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
 beside it.  The last line is the device summary.
@@ -43,6 +70,7 @@ import os
 os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -245,13 +273,14 @@ def rmsnorm_case(shape, dtype, gen):
     }
 
 
-def _close(got, want, tol: float) -> bool:
-    """Finite, and |got - want| <= tol + tol·|want| everywhere (the
-    tests' assert_allclose with rtol = atol = tol)."""
+def _close(got, want, tol: float, atol: float = None) -> bool:
+    """Finite, and |got - want| <= atol + tol·|want| everywhere (the
+    tests' assert_allclose with rtol = tol, atol = tol unless given)."""
     import torch
     got, want = got.float(), want.float()
+    atol = tol if atol is None else atol
     return bool(torch.isfinite(got).all()) and bool(
-        ((got - want).abs() <= tol + tol * want.abs()).all())
+        ((got - want).abs() <= atol + tol * want.abs()).all())
 
 
 def ssd_inputs(shape, dtype, gen):
@@ -476,6 +505,102 @@ def phase_kernels(seed: int) -> dict:
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return rows
+
+
+# ------------------------------------------------- phase 1, gradients
+# tests/test_kernels.py:152-207 tolerances for f32; bf16 2e-2
+GRAD_TOL = {"attention": 2e-4, "ssd": 1e-3, "rmsnorm": 1e-5}
+# the reference's grad test cases (f32): tests/test_kernels.py:152-207
+GRAD_REF_CASES = {"attention": (1, 64, 64, 4, 2, 32, True, 0),
+                  "ssd": (1, 32, 2, 16, 16, 16),
+                  "rmsnorm": (32, 64)}
+
+
+def _grad_inputs(name, case, dtype, gen):
+    """(inputs, kwargs, the op's kernel module) of one autograd Function
+    check; `case` in the shape convention of its phase-1 cases."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
+    if name == "attention":
+        B, Sq, Sk, H, KV, hd, causal, window = case
+        ins = [torch.randn(B, s, h, hd, generator=gen, device="cuda").to(
+            dtype) for s, h in ((Sq, H), (Sk, KV), (Sk, KV))]
+        return ins, dict(causal=causal, window=window), fa
+    if name == "ssd":
+        B, S, nh, P, N, chunk = case
+        return list(ssd_inputs((B, S, nh, P, N), dtype, gen)), \
+            dict(chunk=chunk), ssd
+    rows, d = case
+    return [torch.randn(rows, d, generator=gen, device="cuda").to(dtype),
+            torch.randn(d, generator=gen, device="cuda")], {}, rn
+
+
+def grad_case(name, case, dtype, gen, scaled: bool) -> dict:
+    """The op's autograd Function (kernel forward, oracle backward)
+    against plain autograd through the oracle, on the same CUDA inputs,
+    for the reference's loss, the sum of squares of the outputs: its
+    upstream grad is twice each path's own forward output, so a wrong
+    kernel forward shows in the grads.  rtol = atol = tol, the atol
+    times each input's largest |grad| when `scaled`."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+    ins, kw, mod = _grad_inputs(name, case, dtype, gen)
+    op = {"attention": ops.attention, "ssd": ops.ssd,
+          "rmsnorm": ops.rmsnorm}[name]
+    oracle = {"attention": ref.attention_ref, "ssd": ssd.ssd_plain,
+              "rmsnorm": ref.rmsnorm_ref}[name]
+
+    def grads(fn):
+        xs = [t.detach().requires_grad_() for t in ins]
+        before = mod.launches
+        outs = fn(*xs, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() ** 2).sum() for o in outs)
+        return torch.autograd.grad(loss, xs), mod.launches - before
+
+    got, launched = grads(op)
+    want, _ = grads(oracle)
+    tol = GRAD_TOL[name] if dtype == torch.float32 else TOL[str(dtype)]
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    ok = launched == 1 and all(
+        _close(g, w, tol, atol=tol * (w.float().abs().max().item()
+                                      if scaled else 1.0))
+        for g, w in zip(got, want))
+    return {"ok": ok, "launched": launched, "tol": tol, "max_abs_err": errs,
+            "grad_max_abs": [w.float().abs().max().item() for w in want]}
+
+
+def phase_grads(seed: int) -> None:
+    """Each autograd Function on the card, at the reference's grad test
+    cases in f32 with the reference's criterion, and at the slice shapes
+    in bf16 and f32 with the atol scaled to each input's largest |grad|
+    (there the grads reach ~5e7: the two paths' forwards, which differ by
+    rounding, feed the backward, and a fixed atol would hold the small
+    grads to a bound far below the rounding of the large ones); its
+    forward must launch the kernel once."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slices = {"attention": ATTN_SLICE, "ssd": SSD_SLICE,
+              "rmsnorm": NORM_SLICE}
+    runs = [(n, c, torch.float32, False) for n, c in GRAD_REF_CASES.items()]
+    runs += [(n, c, dt, True) for n, c in slices.items()
+             for dt in (torch.bfloat16, torch.float32)]
+    failed = []
+    for name, case, dtype, scaled in runs:
+        r = grad_case(name, case, dtype, gen, scaled)
+        log(f"[grads] {name} {case} {dtype} sum(out^2): ok={r['ok']} "
+            f"kernel launches {r['launched']}; max |grad err| per input "
+            f"{[f'{e:.3g}' for e in r['max_abs_err']]} (|grad| max "
+            f"{[f'{g:.3g}' for g in r['grad_max_abs']]}; rtol = atol = "
+            f"{r['tol']}{' x |grad| max' if scaled else ''})")
+        if not r["ok"]:
+            failed.append((name, case, str(dtype)))
+    if failed:
+        raise SystemExit(f"gradient check failed: {failed}")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -743,6 +868,356 @@ def _leaves(tree):
         yield tree
 
 
+# ----------------------------------------------------------------- phase 3
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_B, TRAIN_S = 4, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 7
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 4
+# mamba2-2.7b at full width, cut to 4 of its 64 layers: its backward
+# through the SSD oracle at 64 layers is not what this phase checks
+MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 4
+MAMBA_B, MAMBA_S, MAMBA_STEPS = 2, 512, 3
+# the first step's grads, kernel path against plain bf16 path: per mamba
+# leaf max |diff| / max |grad|, worst leaf, at most this.  Set from the
+# card's readings (H100): the kernel path 0.140 and a witness whose SSD
+# forward is ssd_tc_plain, the tc kernel's rounding in plain torch,
+# 0.133 (the gap is the kernel's bf16 rounding, carried through 4 random
+# layers); an SSD forward 2% off reads 0.456 and one that drops the carry
+# between chunks 0.823
+MAMBA_GRAD_TOL = 0.25
+BF16_PEAK = 989e12
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.core.device_plugin import flatten_with_paths
+    fa_, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return fa_.keys() == fb.keys() and all(
+        torch.equal(fa_[k], fb[k]) for k in fa_)
+
+
+def _train_config(batch, seq, seed, **kw):
+    import torch
+    from repro_torch.runtime.trainer import TrainConfig
+    return TrainConfig(batch_size=batch, seq_len=seq, lr=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                       seed=seed, compute_dtype=torch.bfloat16, **kw)
+
+
+def _device_batch(batch: dict, dev) -> dict:
+    import torch
+    out = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    out["tokens"] = out["tokens"].long()
+    return out
+
+
+def _score(model, params, batch) -> float:
+    """The model's loss on `batch`, forward only."""
+    import torch
+    with torch.no_grad():
+        return float(model.loss(params, batch)[1]["loss"])
+
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Operations of one training step: 6 per param per token (forward
+    and backward of every matmul, the tied head included), plus causal
+    attention's two products, 4·B·H·hd per visible pair forward, x3 for
+    the backward.  Remat's recompute is not counted (MFU convention)."""
+    visible = S * (S + 1) // 2
+    attn = 3 * 4.0 * B * cfg.num_heads * cfg.head_dim * visible \
+        * cfg.num_layers if cfg.num_heads else 0.0
+    return 6.0 * n_params * B * S + attn
+
+
+def _snapshot_line(tag, trainer, card) -> None:
+    """Log the stats of the trainer's newest image."""
+    from repro_torch.core.snapshot_io import snapshot_dir
+    st = dict(trainer.session.last_stats)
+    step = trainer.session.last_commit_step
+    image = _image_bytes(snapshot_dir(trainer.session.run_dir, step))
+    freeze_ms = (st["lock_s"] + st["frozen_s"]) * 1e3
+    call_s = st.get("total_s", st.get("locked_total_s"))
+    log(f"[train] {tag} snapshot at step {step}: freeze (lock + D2H) "
+        f"{freeze_ms:.1f} ms, checkpoint() {call_s:.2f} s, write "
+        f"{st['write_s']:.2f} s, image {image} bytes; {card}")
+
+
+def phase_training(seed: int, workdir: str, card: str) -> dict:
+    """Train qwen1.5-0.5b at full width through the kernels: (a) 12 steps
+    with async images every 4; (b) a crash at step 7 and a restore from the
+    step-4 (sync) image, bitwise (a)'s losses of steps 5-12 and final
+    params; (c) cold restores of (a)'s async and (b)'s sync step-12 images,
+    bitwise equal; (d) a falling loss; (e) the kernels' launches per
+    executed step.  Returns the launches of this path, and those of flash
+    attention and the SSD scan by variant."""
+    import numpy as np
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, run_with_restarts
+
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)                              # remat=True
+    runs = {m: os.path.join(workdir, m) for m in ("async", "sync")}
+
+    def trainer(mode):
+        tcfg = _train_config(TRAIN_B, TRAIN_S, seed, ckpt_every=TRAIN_CKPT_EVERY,
+                             ckpt=CheckpointOptions(mode=mode, keep=1))
+        return Trainer(cfg, tcfg, runs[mode], device=dev, model=model)
+
+    counters = _counters()
+    t_a = trainer("async")
+    t_a.initialize()
+    n_params = sum(t.numel() for t in _leaves(t_a.params))
+    # (d): the run's 12 batches scored before training, step 0's again (a
+    # rescore without an update must be bitwise the same), and after it
+    batches = [_device_batch(t_a.pipeline.peek(s), dev)
+               for s in range(TRAIN_STEPS)]
+    before = [_score(model, t_a.params, b) for b in batches]
+    scores = [before[0], _score(model, t_a.params, batches[0])]
+    del batches[1:]
+    _zero_counters()                  # this path's launches start here
+    torch.cuda.reset_peak_memory_stats()
+    t_a.run(TRAIN_STEPS)                                            # (a)
+    losses = list(t_a.metrics_history["loss"])
+    step_ms = [t * 1e3 for t in t_a.straggler.times]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    _snapshot_line("(a) async", t_a, card)
+    out = run_with_restarts(lambda: trainer("sync"), TRAIN_STEPS,   # (b)
+                            {TRAIN_FAIL_AT: "crash"})
+    t_b = out["trainer"]
+    _snapshot_line("(b) sync", t_b, card)
+    executed = TRAIN_STEPS + TRAIN_FAIL_AT + (TRAIN_STEPS - TRAIN_CKPT_EVERY)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    variants = _variants()
+    scores.append(_score(model, t_a.params, batches[0]))
+    resumed = TRAIN_STEPS - TRAIN_CKPT_EVERY
+    same_losses = np.array_equal(np.float64(losses[-resumed:]),
+                                 np.float64(out["loss_history"][-resumed:]))
+    same_params = _tree_equal(t_a.params, t_b.params) and _tree_equal(
+        t_a.opt_state, t_b.opt_state)
+    restored, restore_s = {}, {}
+    for mode in ("async", "sync"):                                  # (c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer(mode)
+        r.restore()
+        torch.cuda.synchronize()
+        restore_s[mode] = time.perf_counter() - t0
+        restored[mode] = r
+    same_images = all(r.step == TRAIN_STEPS for r in restored.values()) \
+        and _tree_equal(restored["async"].params, restored["sync"].params) \
+        and _tree_equal(restored["async"].params, t_a.params)
+    spread = max(before) - min(before)                              # (d)
+    falls = scores[0] == scores[1] and scores[0] - scores[2] > spread
+    per_step = {"flash_attention": 2 * cfg.num_layers,              # (e)
+                "rmsnorm": 2 * 2 * cfg.num_layers + 1, "ssd_scan": 0}
+    want = {k: v * executed for k, v in per_step.items()}
+    # (a)'s steps after its first image overlap that image's background
+    # write; (b)'s steps after the restore overlap no write
+    med = float(np.median(step_ms[1:]))
+    step_ms_b = [t * 1e3 for t in t_b.straggler.times]
+    med_b = float(np.median(step_ms_b[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    log(f"[train] {cfg.name}: {n_params} params (f32 masters, bf16 "
+        f"compute, remat, kernels), batch {TRAIN_B} x {TRAIN_S}; losses "
+        f"(a) {[round(x, 4) for x in losses]}; restarted run's last "
+        f"{resumed} bitwise equal: {same_losses}; final params and "
+        f"optimizer state bitwise equal: {same_params}; peak device "
+        f"memory {peak_gb:.2f} GiB")
+    for tag, m, all_ms in (
+            ("(a), async images written in the background", med, step_ms),
+            ("(b) after its restore, no write running", med_b, step_ms_b)):
+        log(f"[train] {cfg.name}: step {m:.2f} ms (median but the first of "
+            f"{tag}; host clock, each step ending in the loss's read-back; "
+            f"all {[round(x, 1) for x in all_ms]}), "
+            f"{tokens / m * 1e3:.0f} tokens/s, {flops / 1e12:.3f} "
+            f"TFLOP/step (6 x {n_params} params x {tokens} tokens + causal "
+            f"attention), MFU {flops / (m * 1e-3) / BF16_PEAK:.2%} of 989 "
+            f"TFLOP/s bf16; {card}")
+    log(f"[train] {cfg.name}: cold restore (fresh Trainer -> params and "
+        f"optimizer state on the card) async image {restore_s['async']:.2f} "
+        f"s, sync image {restore_s['sync']:.2f} s; restored params bitwise "
+        f"equal: {same_images}; {card}")
+    log(f"[train] {cfg.name}: kernel launches over {executed} executed "
+        f"steps: {launches} (want {want}); by variant: {variants}")
+    log(f"[train] {cfg.name}: loss on step 0's batch before training "
+        f"{scores[0]:.5f} (rescored {scores[1]:.5f}), after (a)'s "
+        f"{TRAIN_STEPS} steps {scores[2]:.5f}: drop "
+        f"{scores[0] - scores[2]:.5f}, must exceed the spread of the "
+        f"{TRAIN_STEPS} batches' scores before training, {spread:.5f}: "
+        f"{falls} "
+        f"(the steps' own losses, each on a new batch, move within the "
+        f"batches' spread: mean of the last 4 {np.mean(losses[-4:]):.4f}, "
+        f"first {losses[0]:.4f})")
+    bad = [name for name, ok in (
+        ("restarted losses", same_losses), ("final params", same_params),
+        ("async == sync image", same_images), ("loss falls", falls),
+        ("launches", launches == want),
+        ("flash on tc only", variants["flash_attention"]["fma"] == 0))
+        if not ok]
+    if bad:
+        raise SystemExit(f"{cfg.name} training failed: {bad}")
+    profile_training(restored["sync"], card)
+    del t_a, t_b, out, restored
+    for run in runs.values():
+        shutil.rmtree(run, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
+def profile_training(trainer, card: str) -> None:
+    """torch.profiler over one training step (outside the counted
+    window): device busy share and kernels per step."""
+    import torch
+    batch = trainer._batch()
+    trainer._train_step(batch)                                 # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer._train_step(batch)["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[profile] {trainer.cfg.name} train step (profiled): wall "
+        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / wall_ms:.0%}), {sum(e.count for e in rows)} device "
+        f"kernels and copies/step; {card}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.key[:60]}: "
+            f"{e.self_device_time_total / 1e3:.3f} ms/step x{e.count}")
+
+
+@contextlib.contextmanager
+def _ssd_forward(fn):
+    """``ops.ssd`` with `fn` in place of the SSD kernel's forward and the
+    op's own backward (the oracle's, from the saved inputs); the other
+    kernels of a kernel path stay.  `fn` None leaves the op as it is."""
+    import torch
+    from repro_torch.kernels import ops
+    if fn is None:
+        yield
+        return
+
+    class Stand(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, chunk):
+            ctx.save_for_backward(x, dt, A, Bm, Cm)
+            ctx.chunk = chunk
+            ctx.set_materialize_grads(False)
+            return fn(x, dt, A, Bm, Cm, chunk=chunk)
+        backward = staticmethod(ops._SSD.backward)
+
+    kernel = ops.ssd
+    ops.ssd = lambda x, dt, A, Bm, Cm, *, chunk=128: Stand.apply(
+        x, dt, A, Bm, Cm, chunk)
+    try:
+        yield
+    finally:
+        ops.ssd = kernel
+
+
+def _ssd_off_by_2pc(x, dt, A, Bm, Cm, chunk):
+    """A broken SSD forward for the check to catch: y 2% too large."""
+    from repro_torch.kernels import ssd_scan as ssd
+    y, h = ssd.ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    return (y.float() * 1.02).to(y.dtype), h
+
+
+def _ssd_no_carry(x, dt, A, Bm, Cm, chunk):
+    """A broken SSD forward for the check to catch: each chunk starts
+    from a zero state (the carry between chunks dropped)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    parts = [ssd.ssd_plain(x[:, i:i + chunk], dt[:, i:i + chunk], A,
+                           Bm[:, i:i + chunk], Cm[:, i:i + chunk],
+                           chunk=chunk) for i in range(0, x.shape[1], chunk)]
+    return torch.cat([y for y, _ in parts], 1), parts[-1][1]
+
+
+def phase_training_mamba(seed: int, workdir: str, card: str) -> dict:
+    """mamba2-2.7b at full width, 4 of 64 layers: the first step's grads
+    on the kernel path against the plain bf16 path over the mamba leaves,
+    beside a witness and two broken forwards, then 3 steps through the
+    SSD-scan kernel (a finite loss, 2 x 4 SSD launches per step)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.device_plugin import flatten_with_paths
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, loss_and_grads
+
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), num_layers=MAMBA_LAYERS)
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)
+    plain = LM(cfg, compute_dtype=torch.bfloat16, device=dev)
+    tcfg = _train_config(MAMBA_B, MAMBA_S, seed)
+    t = Trainer(cfg, tcfg, os.path.join(workdir, "mamba"), device=dev,
+                model=model)
+    t.initialize()
+    batch = _device_batch(t.pipeline.peek(0), dev)
+    grads = {}
+    for name, m, fwd in (("kernels", model, None), ("plain", plain, None),
+                         ("witness", model, ssd.ssd_tc_plain),
+                         ("2% off", model, _ssd_off_by_2pc),
+                         ("no carry", model, _ssd_no_carry)):
+        with _ssd_forward(fwd):
+            g = flatten_with_paths(loss_and_grads(m, t.params, batch)[1])
+        grads[name] = {k: v for k, v in g.items() if "/mamba/" in k}
+
+    def dist(name):
+        """(max over the mamba leaves of max |diff| / max |grad| against
+        the plain path, that leaf)."""
+        return max(((grads[name][k].float() - w.float()).abs().max().item()
+                    / w.float().abs().max().item(), k)
+                   for k, w in grads["plain"].items())
+    err = {k: dist(k) for k in grads if k != "plain"}
+    del grads
+    counters = _counters()
+    _zero_counters()                  # this path's launches start here
+    t.run(MAMBA_STEPS)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    variants = _variants()
+    losses = t.metrics_history["loss"]
+    per_step = {"flash_attention": 0, "ssd_scan": 2 * MAMBA_LAYERS,
+                "rmsnorm": 2 * 2 * MAMBA_LAYERS + 1}
+    want = {k: v * MAMBA_STEPS for k, v in per_step.items()}
+    log(f"[train] {cfg.name} ({MAMBA_LAYERS} of 64 layers, full width, "
+        f"batch {MAMBA_B} x {MAMBA_S}, bf16, remat, kernels): losses "
+        f"{[round(x, 4) for x in losses]}; first step's grads against the "
+        f"plain bf16 path, max |diff| / max |grad| of the worst mamba "
+        f"leaf: kernels {err['kernels'][0]:.4g} ({err['kernels'][1]}), "
+        f"witness (SSD forward = ssd_tc_plain, the tc kernel's rounding "
+        f"in plain torch) {err['witness'][0]:.4g} ({err['witness'][1]}), "
+        f"broken SSD forwards: y 2% off {err['2% off'][0]:.4g} "
+        f"({err['2% off'][1]}), no carry between chunks "
+        f"{err['no carry'][0]:.4g} ({err['no carry'][1]}); limit "
+        f"{MAMBA_GRAD_TOL}; launches "
+        f"{launches} (want {want}); by variant: {variants}; {card}")
+    ok = (np.isfinite(losses).all()
+          and err["kernels"][0] <= MAMBA_GRAD_TOL
+          and err["witness"][0] <= MAMBA_GRAD_TOL
+          and err["2% off"][0] > MAMBA_GRAD_TOL
+          and err["no carry"][0] > MAMBA_GRAD_TOL
+          and launches == want and variants["ssd_scan"]["fma"] == 0)
+    if not ok:
+        raise SystemExit(f"{cfg.name} training failed")
+    del t
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -835,6 +1310,7 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; {card}")
     rows = phase_kernels(args.seed)
+    phase_grads(args.seed)
     for arch, *_ in SERVE_PATHS:
         check_small_reference(arch, args.seed)
     by_path = {}
@@ -843,6 +1319,11 @@ def main() -> int:
             by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
                                           args.seed, workdir)
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        by_path[f"{TRAIN_ARCH} train"] = phase_training(args.seed, workdir,
+                                                        card)
+        by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
+            phase_training_mamba(args.seed, workdir, card)
     print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ restores the other's images.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -45,13 +46,24 @@ TORCH_BACKEND_FEATURES = frozenset({
 
 
 # ---------------------------------------------------------------- paths
+def _is_dataclass(tree: Any) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
+
 def flatten_with_paths(tree: PyTree, prefix: str = "") -> Dict[str, Any]:
     """'a/b/c' -> leaf, dict keys in sorted order (the order of JAX's
-    pytree flattening); None is an empty subtree, as in JAX."""
+    pytree flattening); a dataclass (``OptState``) contributes its fields
+    by name in declaration order, as JAX names a registered dataclass's
+    fields (``opt/step``, ``opt/m/…``); None is an empty subtree, as in
+    JAX."""
     out: Dict[str, Any] = {}
     if isinstance(tree, dict):
         for k in sorted(tree):
             out.update(flatten_with_paths(tree[k], f"{prefix}{k}/"))
+    elif _is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            out.update(flatten_with_paths(getattr(tree, f.name),
+                                          f"{prefix}{f.name}/"))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(flatten_with_paths(v, f"{prefix}{i}/"))
@@ -70,6 +82,27 @@ def unflatten_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return out
+
+
+def unflatten_like(template: PyTree, flat: Dict[str, Any],
+                   prefix: str = "") -> PyTree:
+    """The inverse of :func:`flatten_with_paths` for `template`'s
+    structure: dicts, dataclasses (rebuilt as the same class), lists and
+    tuples, with every leaf taken from `flat` by its path."""
+    if isinstance(template, dict):
+        return {k: unflatten_like(v, flat, f"{prefix}{k}/")
+                for k, v in template.items()}
+    if _is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: unflatten_like(getattr(template, f.name), flat,
+                                   f"{prefix}{f.name}/")
+            for f in dataclasses.fields(template)})
+    if isinstance(template, (list, tuple)):
+        return type(template)(unflatten_like(v, flat, f"{prefix}{i}/")
+                              for i, v in enumerate(template))
+    if template is None:
+        return None
+    return flat[prefix[:-1]]
 
 
 # ---------------------------------------------------------------- entries

@@ -35,7 +35,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.chaos import hooks as chaos_hooks
-from repro_torch.core.device_plugin import flatten_with_paths, unflatten_paths
+from repro_torch.core.device_plugin import (flatten_with_paths,
+                                            unflatten_like)
 from repro_torch.core.lock import LockTimeout
 from repro_torch.core.plugins import (CallbackPlugin, Hook, HookContext,
                                       Plugin, PluginRegistry)
@@ -352,14 +353,15 @@ class SnapshotEngine:
 
     @staticmethod
     def retree(template: PyTree, raw_tree: Any) -> PyTree:
-        """Rebuild `template`'s nested-dict structure from a raw restored
-        tree (every template leaf must be present)."""
+        """Rebuild `template`'s structure (nested dicts, and dataclasses
+        such as ``OptState`` as instances of their class) from a raw
+        restored tree (every template leaf must be present)."""
         flat = flatten_with_paths(template)
         raw = flatten_with_paths(raw_tree)
         missing = set(flat) - set(raw)
         if missing:
             raise KeyError(f"snapshot missing leaves: {sorted(missing)[:5]}")
-        return unflatten_paths({k: raw[k] for k in flat})
+        return unflatten_like(template, raw)
 
     def restore_into(self, template: PyTree, state: str = "train_state",
                      step: Optional[int] = None) -> PyTree:

@@ -1,6 +1,6 @@
 """Core layers of the dense decoder, in PyTorch.
 
-Port of the JAX package's ``models/layers.py`` for the serving path:
+Port of the JAX package's ``models/layers.py`` for serving and training:
 
   * params are plain nested dicts of tensors (f32 masters), declared
     through ``ParamSpec``s with the same paths and shapes as the reference,
@@ -25,6 +25,9 @@ PyTree = Any
 
 CHUNK_THRESHOLD = 8192     # chunk queries when S >= this
 QUERY_CHUNK = 1024
+# sequence-chunked cross-entropy: when > 0 the (B, S, V) logit loss is
+# computed in S/chunk pieces, bounding the live f32 logit intermediates
+XENT_SEQ_CHUNK = 0
 
 
 # ======================================================================
@@ -259,6 +262,42 @@ def mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     out = logits.clone()
     out[..., cfg.vocab_size:] = -1e30
     return out
+
+
+# ======================================================================
+# loss
+# ======================================================================
+def _xent_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL.  The label logit is picked with the reference's
+    compare-select-reduce (iota == target, where, sum), not a gather: its
+    backward stays an elementwise op, deterministic on CUDA without a
+    scatter-add."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)                            # (B,S)
+    iota = torch.arange(lg.shape[-1], device=lg.device)
+    sel = torch.where(iota == targets[..., None], lg, 0.0)
+    return lse - sel.sum(dim=-1)
+
+
+def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross-entropy and the token count; sequence-chunked
+    when ``XENT_SEQ_CHUNK`` divides S, so at most (B, chunk, V) f32
+    intermediates are live at once."""
+    S = logits.shape[1]
+    C = XENT_SEQ_CHUNK
+    if C and S > C and S % C == 0:
+        nll = torch.cat([_xent_nll(logits[:, i:i + C], targets[:, i:i + C])
+                         for i in range(0, S, C)], dim=1)
+    else:
+        nll = _xent_nll(logits, targets)
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    mask = mask.float()
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / ntok, ntok
 
 
 # ======================================================================

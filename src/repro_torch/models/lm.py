@@ -1,22 +1,28 @@
-"""Decoder LM: prefill and decode over a stacked-layer param tree.
+"""Decoder LM: training forward and loss, prefill and decode over a
+stacked-layer param tree.
 
-Port of the serving half of the JAX package's ``models/lm.py`` for models
-whose every layer is a dense ``"attn"`` block (qwen1.5, phi3, deepseek) or
-whose every layer is a ``"mamba"`` block (mamba2): param specs with the
-reference's paths (``blocks/pos0/attn/wq``, ``blocks/pos0/mamba/w_x``,
-with a leading stacked-layer dim), ``prefill``, ``decode_step`` and the
-cache per layer kind: ``pos0/{k,v}`` of (L, B, S, KV, hd) for attention,
+Port of the JAX package's ``models/lm.py`` for models whose every layer is
+a dense ``"attn"`` block (qwen1.5, phi3, deepseek) or whose every layer is
+a ``"mamba"`` block (mamba2): param specs with the reference's paths
+(``blocks/pos0/attn/wq``, ``blocks/pos0/mamba/w_x``, with a leading
+stacked-layer dim), ``forward`` and ``loss`` (full-length next-token
+cross-entropy), ``prefill``, ``decode_step`` and the cache per layer kind:
+``pos0/{k,v}`` of (L, B, S, KV, hd) for attention,
 ``pos0/{h,conv_x,conv_B,conv_C}`` for Mamba (h (L, B, nh, P, N) in f32,
 the conv tails (L, B, W-1, ·) in the compute dtype).  Layers run as a
-Python loop over the stacked dim where the reference scans.
+Python loop over the stacked dim where the reference scans; with ``remat``
+each layer (a super-block of the all-attn and all-mamba patterns) is
+recomputed in the backward (``torch.utils.checkpoint``), as the reference
+rematerialises each super-block.
 
-``use_kernels`` routes prefill attention through the flash-attention
-kernel, prefill's SSD scan through the SSD-scan kernel, and the block,
-final and gated norms through the RMSNorm kernel
-(``repro_torch.kernels.ops``); those compute the same functions as the
-plain layers.  Decode attention reads the whole cache for one query per
-sequence, and the decode SSM step is one recurrence step: both stay plain
-``torch`` math, as in the reference.
+``use_kernels`` routes training and prefill attention through the
+flash-attention kernel, their SSD scan through the SSD-scan kernel, and
+the block, final and gated norms through the RMSNorm kernel
+(``repro_torch.kernels.ops``, differentiable: kernel forward, oracle
+backward); those compute the same functions as the plain layers.  Decode
+attention reads the whole cache for one query per sequence, and the decode
+SSM step is one recurrence step: both stay plain ``torch`` math, as in the
+reference.
 
 Unlike the reference, ``decode_step`` writes the new K/V, SSM state and
 conv tails into the cache in place (no second cache per token) and
@@ -25,9 +31,10 @@ returns the same cache object.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -90,11 +97,14 @@ def check_supported(cfg: ModelConfig) -> None:
             f"are not ported yet")
 
 
-def _layer(tree: PyTree, i: int) -> PyTree:
-    """Slice index `i` of the stacked-layer dim from every leaf."""
+def _unstack(tree: PyTree, n: int) -> List[PyTree]:
+    """Every layer of a stacked tree (views), by one ``unbind`` per leaf:
+    its backward stacks the n layers' grads once, where indexing each
+    layer would add n full-size zero-padded grads."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ======================================================================
@@ -102,12 +112,13 @@ def _layer(tree: PyTree, i: int) -> PyTree:
 # ======================================================================
 class LM:
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 param_dtype=torch.float32, use_kernels: bool = False,
-                 device: DeviceLike = None):
+                 param_dtype=torch.float32, remat: bool = True,
+                 use_kernels: bool = False, device: DeviceLike = None):
         check_supported(cfg)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
+        self.remat = remat
         self.use_kernels = use_kernels
         self.device = resolve_device(device)
         self._specs = lm_param_specs(cfg)
@@ -141,6 +152,62 @@ class LM:
             return x                        # pure-SSM archs: no FFN
         return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x))
 
+    def _layers(self, params) -> Dict[str, List[PyTree]]:
+        """pos{j} -> the params of each of its stacked layers."""
+        return {f"pos{j}": _unstack(params["blocks"][f"pos{j}"], self._n_sb)
+                for j in range(self._P)}
+
+    def _positions(self, batch) -> torch.Tensor:
+        pos = batch.get("positions")
+        if pos is not None:
+            return pos
+        B, S = batch["tokens"].shape
+        return torch.arange(S, dtype=torch.int32,
+                            device=batch["tokens"].device).expand(B, S)
+
+    # ---------------- forward / loss (training) ----------------
+    def _block(self, lp, j: int, x, positions):
+        h = self._norm(lp["pre_mixer_norm"], x)
+        if self.cfg.layer_kind(j) == "attn":
+            o = self._attn(lp, h, positions)[0]
+        else:
+            o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
+        return self._ffn(lp, x + o)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Logits (B, S, padded_vocab) in the compute dtype."""
+        x = self._embed(params, batch["tokens"])
+        positions = self._positions(batch)
+        layers = self._layers(params)
+        for i in range(self._n_sb):
+            for j in range(self._P):
+                lp = layers[f"pos{j}"][i]
+                if self.remat:
+                    x = checkpoint(self._block, lp, j, x, positions,
+                                   use_reentrant=False)
+                else:
+                    x = self._block(lp, j, x, positions)
+        x = self._norm(params["final_norm"], x)
+        return self._head(params, x)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Full-length next-token loss: targets are the tokens rolled by
+        one, the last position masked (S stays whole, as in the
+        reference).  ``total = loss + 0.01 * aux``; aux is 0 (no MoE
+        yet)."""
+        logits = self.forward(params, batch)
+        tokens = batch["tokens"]
+        targets = torch.roll(tokens, -1, dims=1)
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device) if mask is None
+                else mask.float().clone())
+        mask[:, -1] = 0.0
+        loss, ntok = L.softmax_xent_sharded(logits, targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + 0.01 * aux
+        return total, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
+
     # ---------------- KV / SSM cache ----------------
     def _cache(self, batch: int, max_seq: int, device) -> PyTree:
         cfg = self.cfg
@@ -171,34 +238,32 @@ class LM:
         """Forward over a prompt, returning last-position logits (B, V)
         and the populated KV/SSM cache (KV length == prompt length)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
-        layers: Dict[str, Dict[str, list]] = {
+        x = self._embed(params, batch["tokens"])
+        positions = self._positions(batch)
+        layers = self._layers(params)
+        caches: Dict[str, Dict[str, list]] = {
             f"pos{j}": {} for j in range(self._P)}
         for i in range(self._n_sb):
             for j in range(self._P):
-                lp = _layer(params["blocks"][f"pos{j}"], i)
+                lp = layers[f"pos{j}"][i]
                 h = self._norm(lp["pre_mixer_norm"], x)
                 if cfg.layer_kind(j) == "attn":
-                    o, nc = self._prefill_attn(lp, h, positions)
+                    o, nc = self._attn(lp, h, positions)
                 else:
                     o, hfin, nc = M.mamba_prefill(lp["mamba"], cfg, h,
                                                   self.use_kernels)
                     nc = {"h": hfin, **nc}
                 x = self._ffn(lp, x + o)
                 for k, t in nc.items():
-                    layers[f"pos{j}"].setdefault(k, []).append(t)
+                    caches[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
         logits = self._head(params, x)[:, 0, :]
         cache = {p: {k: torch.stack(ts) for k, ts in leaves.items()}
-                 for p, leaves in layers.items()}
+                 for p, leaves in caches.items()}
         return logits, cache
 
-    def _prefill_attn(self, lp, h, positions):
+    def _attn(self, lp, h, positions):
+        """Causal self-attention over a sequence: (out, {k, v})."""
         cfg = self.cfg
         B, S = h.shape[:2]
         q, k, v = L._qkv(lp["attn"], cfg, h, positions)
@@ -243,10 +308,12 @@ class LM:
                     raise ValueError(f"decode position {pos} outside the "
                                      f"cache (length {S_c})")
         x = self._embed(params, tokens)                      # (B, d)
+        layers = self._layers(params)
+        caches = {p: _unstack(c, self._n_sb) for p, c in cache.items()}
         for i in range(self._n_sb):
             for j in range(self._P):
-                lp = _layer(params["blocks"][f"pos{j}"], i)
-                lc = _layer(cache[f"pos{j}"], i)
+                lp = layers[f"pos{j}"][i]
+                lc = caches[f"pos{j}"][i]
                 h = self._norm(lp["pre_mixer_norm"], x)
                 if self.cfg.layer_kind(j) == "attn":
                     o = self._decode_attn(lp, h, lc["k"], lc["v"], pos)

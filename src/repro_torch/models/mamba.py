@@ -1,4 +1,4 @@
-"""Mamba2 (SSD, state-space duality) block for serving, in PyTorch.
+"""Mamba2 (SSD, state-space duality) block in PyTorch.
 
 Port of the JAX package's ``models/mamba.py`` and of ``_mamba_prefill``
 (``models/lm.py``), with the reference's param paths and cache layout:
@@ -6,17 +6,18 @@ Port of the JAX package's ``models/mamba.py`` and of ``_mamba_prefill``
   * ``mamba_specs``: ``w_x``, ``w_z``, ``w_B``, ``w_C``, ``w_dt``,
     ``dt_bias``, ``A_log``, ``D``, ``conv_x``, ``conv_B``, ``conv_C``,
     ``norm``, ``w_out``;
-  * ``mamba_prefill``: the block over a prompt, also returning the final
-    SSM state and the conv tails (the last W-1 pre-conv inputs) that seed
-    decode;
+  * ``mamba_block``: the training forward over a sequence (no cache);
+  * ``mamba_prefill``: the same block over a prompt, also returning the
+    final SSM state and the conv tails (the last W-1 pre-conv inputs) that
+    seed decode;
   * ``mamba_decode``: the O(1)-per-token recurrence on the cache
     ``{h (B,nh,P,N) f32, conv_x/B/C (B,W-1,·) compute dtype}``.
 
 Shapes: x (B, S, d_model); d_inner = expand·d_model, nh = d_inner / P
-heads, state N.  With ``use_kernels`` prefill's scan goes through
-``ops.ssd`` (the SSD-scan kernel on the card; the reference's prefill calls
-``ssd_chunked``, the same function) and the gated norm over d_inner
-through ``ops.rmsnorm``.  Decode stays plain torch, as in the reference,
+heads, state N.  With ``use_kernels`` the scan of training and prefill
+goes through ``ops.ssd`` (the SSD-scan kernel on the card; the reference's
+prefill calls ``ssd_chunked``, the same function) and the gated norm over
+d_inner through ``ops.rmsnorm``.  Decode stays plain torch, as in the reference,
 and updates h and the conv tails in place (no second state per token).
 The depthwise causal conv is ``F.conv1d(groups=C)``: the reference
 computes it outside any kernel too.
@@ -105,11 +106,10 @@ def _dt_A(params, dt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ----------------------------------------------------------------------
 # block: prefill and decode
 # ----------------------------------------------------------------------
-def mamba_prefill(params, cfg, x: torch.Tensor, use_kernels: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor,
-                             Dict[str, torch.Tensor]]:
-    """x (B, S, d_model) -> (out (B, S, d_model), h_final (B,nh,P,N) f32,
-    conv tails {conv_x, conv_B, conv_C} of (B, W-1, ·))."""
+def _mixer(params, cfg, x: torch.Tensor, use_kernels: bool,
+           with_tails: bool):
+    """The block over a sequence, shared by training and prefill: (out,
+    h_final, the conv tails when `with_tails`, else None)."""
     B, S, _ = x.shape
     di, nh, P = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     W = cfg.ssm_conv_width
@@ -119,11 +119,15 @@ def mamba_prefill(params, cfg, x: torch.Tensor, use_kernels: bool = False
     Bm = x @ params["w_B"].to(dt_)
     Cm = x @ params["w_C"].to(dt_)
     dt = x @ params["w_dt"].to(dt_)
-    # the last W-1 pre-conv inputs (zeros before the start, as the conv
-    # sees them), copied so the full activations are not kept alive
-    tails = {name: F.pad(t, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
-             .contiguous()
-             for name, t in (("conv_x", xi), ("conv_B", Bm), ("conv_C", Cm))}
+    tails = None
+    if with_tails:
+        # the last W-1 pre-conv inputs (zeros before the start, as the
+        # conv sees them), copied so the full activations are not kept
+        # alive
+        tails = {name: F.pad(t, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
+                 .contiguous()
+                 for name, t in (("conv_x", xi), ("conv_B", Bm),
+                                 ("conv_C", Cm))}
     xi = F.silu(causal_conv(xi, params["conv_x"]))
     Bm = F.silu(causal_conv(Bm, params["conv_B"])).contiguous()
     Cm = F.silu(causal_conv(Cm, params["conv_C"])).contiguous()
@@ -138,6 +142,20 @@ def mamba_prefill(params, cfg, x: torch.Tensor, use_kernels: bool = False
     y = (y + params["D"].float()[None, None, :, None] * xh).to(dt_)
     y = _gated_norm(params, cfg, y.reshape(B, S, di), xz, use_kernels)
     return y @ params["w_out"].to(dt_), h_final, tails
+
+
+def mamba_block(params, cfg, x: torch.Tensor, use_kernels: bool = False
+                ) -> torch.Tensor:
+    """Training forward.  x (B, S, d_model) -> (B, S, d_model)."""
+    return _mixer(params, cfg, x, use_kernels, with_tails=False)[0]
+
+
+def mamba_prefill(params, cfg, x: torch.Tensor, use_kernels: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Dict[str, torch.Tensor]]:
+    """x (B, S, d_model) -> (out (B, S, d_model), h_final (B,nh,P,N) f32,
+    conv tails {conv_x, conv_B, conv_C} of (B, W-1, ·))."""
+    return _mixer(params, cfg, x, use_kernels, with_tails=True)
 
 
 def mamba_decode(params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],

@@ -25,6 +25,7 @@ from repro_torch.api.session import SnapshotWriteFailed
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.runtime.fault import SimulatedFailure
 
 
 class DecodeServer:
@@ -96,12 +97,15 @@ class DecodeServer:
         return walk(cache)
 
     def decode_until(self, target_pos: int,
-                     preempt: Optional[Callable[[], bool]] = None
-                     ) -> Dict[str, Any]:
+                     preempt: Optional[Callable[[], bool]] = None,
+                     fail_at: Optional[int] = None,
+                     straggle_at: Optional[int] = None) -> Dict[str, Any]:
         """Decode to `target_pos`; resumable and preemptible.  `preempt`
         is polled between tokens and triggers a checkpoint-on-signal at
         the current position; a failed async snapshot write aborts the
-        generation with :class:`SnapshotWriteFailed`."""
+        generation with :class:`SnapshotWriteFailed`.  As in
+        ``Trainer.run_until``, `fail_at` raises ``SimulatedFailure`` at
+        that position and `straggle_at` stalls the token there."""
         t0 = time.perf_counter()
         executed = 0
         preempted = False
@@ -117,6 +121,10 @@ class DecodeServer:
                 ckpt_path = snap.path
                 preempted = True
                 break
+            if fail_at is not None and self.pos == fail_at:
+                raise SimulatedFailure(f"injected failure at pos {self.pos}")
+            if straggle_at is not None and self.pos == straggle_at:
+                time.sleep(0.25)                   # injected straggler
             last = torch.as_tensor(self.tokens[:, -1], dtype=torch.long,
                                    device=self.device)
             logits, self.cache = self.model.decode_step(

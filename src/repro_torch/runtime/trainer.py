@@ -1,0 +1,253 @@
+"""Training runtime with transparent unified checkpointing.
+
+Port of the reference's ``runtime/trainer.py``.  The loop contains no
+checkpoint logic for its *state*: the session is attached to a state
+provider and captures params and optimizer state (device) plus the data
+cursor and the trainer's step (host) through plugins.  Periodic and
+just-in-time policies drive the same session.  ``run_with_restarts`` is
+the failure story: crash (``SimulatedFailure``) -> a fresh ``Trainer`` ->
+restore from the newest valid image -> continue, bitwise the run that
+never crashed.
+
+Images match the reference's: state ``train_state/{params,opt}`` (the
+optimizer as ``opt/step`` int32, ``opt/m/…``, ``opt/v/…``) and host state
+``data_cursor`` and ``trainer``, so a trainer of either package resumes
+the other's run.
+
+Grads come from ``torch.autograd.grad`` on views of the params (the
+counterpart of ``jax.value_and_grad``; nothing accumulates in ``.grad``),
+and AdamW updates params and moments in place.  Runs on ``cuda`` unless
+the caller passes ``device="cpu"``.  Lazy restore and concurrent capture
+are not ported yet (the options reject them), so neither are the
+reference's branches for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.api import CheckpointOptions, CheckpointSession
+from repro_torch.api.session import SnapshotWriteFailed
+from repro_torch.core.device_plugin import flatten_with_paths, unflatten_like
+from repro_torch.core.snapshot_io import snapshot_dir
+from repro_torch.data import TokenPipeline
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
+from repro_torch.optim import AdamW
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime.fault import (JITCheckpointPolicy,
+                                       SimulatedFailure, StragglerMonitor)
+
+PyTree = Any
+
+
+def loss_and_grads(model: LM, params: PyTree, batch
+                   ) -> Tuple[Dict[str, torch.Tensor], PyTree]:
+    """``model.loss``'s metrics and the grads of its total for every
+    param (the counterpart of ``jax.value_and_grad``), taken on views of
+    the params: nothing accumulates in ``.grad``."""
+    flat = {k: p.detach().requires_grad_()
+            for k, p in flatten_with_paths(params).items()}
+    total, metrics = model.loss(unflatten_like(params, flat), batch)
+    # a declared leaf no layer reads (pre_mlp_norm without an FFN) gets
+    # zeros, as from jax.grad
+    grads = torch.autograd.grad(total, list(flat.values()),
+                                allow_unused=True, materialize_grads=True)
+    return ({k: v.detach() for k, v in metrics.items()},
+            unflatten_like(params, dict(zip(flat, grads))))
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 4
+    seq_len: int = 64
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    total_steps: int = 200
+    ckpt_every: int = 0             # 0 = no periodic checkpoints
+    ckpt: CheckpointOptions = dataclasses.field(      # how snapshots
+        default_factory=CheckpointOptions)           # are taken
+    seed: int = 0
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+
+
+class Trainer:
+    """`model=` lets a caller pass its own ``LM`` (e.g. one built with
+    ``use_kernels=True``); its compute dtype and remat then stand in for
+    the config's."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, run_dir: str,
+                 session: Optional[CheckpointSession] = None, *,
+                 device: DeviceLike = None, model: Optional[LM] = None):
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.model = model if model is not None else LM(
+            cfg, compute_dtype=tcfg.compute_dtype, remat=tcfg.remat,
+            device=self.device)
+        self.opt = AdamW(lr=warmup_cosine(tcfg.lr, tcfg.warmup_steps,
+                                          tcfg.total_steps))
+        self.pipeline = TokenPipeline(cfg, tcfg.batch_size, tcfg.seq_len,
+                                      seed=tcfg.seed)
+        self.params = None
+        self.opt_state = None
+        self.step = 0
+        self.metrics_history: Dict[str, list] = {"loss": []}
+        self.straggler = StragglerMonitor()
+        if session is None:
+            session = CheckpointSession(run_dir, tcfg.ckpt,
+                                        device=self.device)
+        self.session = session
+        self.engine = session.engine
+        # transparent wiring: live state via provider, host bits via plugins
+        self.session.attach(lambda: {"train_state": {
+            "params": self.params, "opt": self.opt_state}})
+        self.session.register_host_state(
+            "data_cursor", lambda: self.pipeline.state(),
+            lambda st: self.pipeline.restore_state(st))
+        self.session.register_host_state(
+            "trainer", lambda: {"step": self.step,
+                                "loss_hist": self.metrics_history["loss"][-50:]},
+            self._restore_trainer_state)
+        self.jit_ckpt = JITCheckpointPolicy(self.session)
+
+    def _restore_trainer_state(self, st):
+        self.step = st["step"]
+        self.metrics_history["loss"] = list(st["loss_hist"])
+
+    # ------------------------------------------------------------- steps
+    def _train_step(self, batch) -> Dict[str, torch.Tensor]:
+        metrics, grads = loss_and_grads(self.model, self.params, batch)
+        _, _, om = self.opt.update(grads, self.opt_state, self.params)
+        return {**metrics, **om}
+
+    def initialize(self) -> None:
+        self.params = self.model.init(self.tcfg.seed)
+        self.opt_state = self.opt.init(self.params)
+        self.step = 0
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Unified restore (the session pushes host state back through
+        its plugins); a trainer with nothing loaded takes its tree
+        structure from abstract templates."""
+        if self.params is None:
+            abstract = self.model.init_abstract()
+            template = {"params": abstract,
+                        "opt": self.opt.init_abstract(abstract)}
+        else:
+            template = {"params": self.params, "opt": self.opt_state}
+        restored = self.session.restore_into(template, state="train_state",
+                                             step=step)
+        self.params = restored["params"]
+        self.opt_state = restored["opt"]
+        return self.step
+
+    def _batch(self) -> Dict[str, torch.Tensor]:
+        out = {k: torch.as_tensor(v).to(self.device)
+               for k, v in self.pipeline.next().items()}
+        out["tokens"] = out["tokens"].long()
+        return out
+
+    # ------------------------------------------------------------- loop
+    def run_until(self, target_step: int,
+                  preempt: Optional[Callable[[], bool]] = None,
+                  fail_at: Optional[int] = None,
+                  straggle_at: Optional[int] = None) -> Dict[str, Any]:
+        """Run to `target_step`; resumable and preemptible.
+
+        `preempt` is polled between steps (the SIGTERM-trap analogue): when
+        it fires the trainer checkpoints-on-signal (``session.frozen`` at
+        the current step) and returns with ``preempted=True``.  A failed
+        async snapshot write aborts the run with
+        :class:`SnapshotWriteFailed`.
+        """
+        if self.params is None:
+            self.initialize()
+        t_loop = time.perf_counter()
+        executed = 0
+        preempted = False
+        ckpt_path = None
+        while self.step < target_step:
+            if self.session.write_error is not None:
+                raise SnapshotWriteFailed(
+                    f"async snapshot write failed at step {self.step}: "
+                    f"{self.session.write_error}")
+            if preempt is not None and preempt():
+                if (self.session.last_commit_step == self.step
+                        and self.session.latest_step() == self.step):
+                    # THIS incarnation committed an image of this exact
+                    # step: yield it instead of re-dumping the same state
+                    ckpt_path = snapshot_dir(self.session.run_dir,
+                                             self.step)
+                else:
+                    with self.session.frozen(self.step) as snap:
+                        pass                           # dump-and-yield
+                    ckpt_path = snap.path
+                preempted = True
+                break
+            if fail_at is not None and self.step == fail_at:
+                raise SimulatedFailure(f"injected failure at {self.step}")
+            batch = self._batch()
+            t0 = time.perf_counter()
+            if straggle_at is not None and self.step == straggle_at:
+                time.sleep(0.25)                       # injected straggler
+            metrics = self._train_step(batch)
+            loss = float(metrics["loss"])
+            self.metrics_history["loss"].append(loss)
+            dt = time.perf_counter() - t0
+            self.step += 1
+            executed += 1
+            if self.straggler.record(dt):
+                self.jit_ckpt.on_signal(self.step)     # just-in-time ckpt
+            if (self.tcfg.ckpt_every
+                    and self.step % self.tcfg.ckpt_every == 0):
+                self.session.checkpoint(self.step)
+        return {"steps": executed, "step": self.step,
+                "preempted": preempted, "ckpt_path": ckpt_path,
+                "loss": (self.metrics_history["loss"][-1]
+                         if self.metrics_history["loss"] else None),
+                "wall_s": time.perf_counter() - t_loop}
+
+    def run(self, num_steps: int, fail_at: Optional[int] = None,
+            straggle_at: Optional[int] = None) -> Dict[str, Any]:
+        if self.params is None:
+            self.initialize()
+        t_loop = time.perf_counter()
+        self.run_until(self.step + num_steps, fail_at=fail_at,
+                       straggle_at=straggle_at)
+        self.session.wait_pending()
+        return {"steps": self.step,
+                "loss": self.metrics_history["loss"][-1],
+                "wall_s": time.perf_counter() - t_loop}
+
+
+def run_with_restarts(make_trainer, total_steps: int,
+                      failures: Dict[int, str]) -> Dict[str, Any]:
+    """Drive training to `total_steps`, surviving injected failures.
+
+    failures: {step: kind}; the trainer is rebuilt from scratch and
+    restored from the newest valid image after each crash (node-replacement
+    semantics).
+    """
+    restarts = 0
+    trainer = make_trainer()
+    trainer.initialize()
+    pending = dict(failures)
+    while trainer.step < total_steps:
+        fail_at = min((s for s in pending if s >= trainer.step),
+                      default=None)
+        try:
+            trainer.run(total_steps - trainer.step, fail_at=fail_at)
+        except SimulatedFailure:
+            pending.pop(fail_at, None)
+            restarts += 1
+            trainer = make_trainer()                   # replacement node
+            trainer.restore()                          # newest valid image
+    return {"steps": trainer.step, "restarts": restarts,
+            "loss_history": trainer.metrics_history["loss"],
+            "trainer": trainer}

@@ -85,11 +85,14 @@ def host_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def numpy_to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
-    """Inverse of :func:`host_numpy` (shares memory with `arr`)."""
+    """Inverse of :func:`host_numpy` (shares memory with `arr`).  A 0-d
+    array stays 0-d (``ascontiguousarray`` alone returns it as (1,))."""
+    shape = np.shape(arr)
     arr = np.ascontiguousarray(arr)
     if dtype == BF16:
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).reshape(shape)
+    return torch.from_numpy(arr).reshape(shape)
 
 
 # ------------------------------------------------------------------ codec

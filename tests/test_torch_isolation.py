@@ -21,7 +21,11 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.models.lm", "repro_torch.models.convert",
                "repro_torch.configs", "repro_torch.runtime.server",
                "repro_torch.serialization.pack", "repro_torch.obs",
-               "repro_torch.chaos.hooks", "repro_torch.core.streams"]
+               "repro_torch.chaos.hooks", "repro_torch.core.streams",
+               "repro_torch.optim", "repro_torch.optim.adamw",
+               "repro_torch.optim.schedule", "repro_torch.data",
+               "repro_torch.data.pipeline", "repro_torch.runtime.fault",
+               "repro_torch.runtime.trainer"]
 
 
 def _env():

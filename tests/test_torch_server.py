@@ -98,6 +98,29 @@ def test_preempt_checkpoints_and_yields(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_crash_mid_generation_resumes_token_exact(arch, tmp_path):
+    """`fail_at` raises SimulatedFailure at that position; a fresh server
+    restores the last image and finishes the generation with the tokens
+    of the run that never crashed (`straggle_at` only stalls a token)."""
+    from repro_torch.runtime.fault import SimulatedFailure
+    params, batch = _np_params(arch=arch), _prompt(arch=arch)
+    ref = _server(str(tmp_path / "ref"), params, arch=arch)
+    ref.start(batch)
+    want = ref.decode(8).copy()
+    run = str(tmp_path / "srv")
+    srv = _server(run, params, arch=arch)
+    srv.start(batch)
+    srv.decode_until(srv.pos + 3, straggle_at=srv.pos + 1)
+    srv.checkpoint(srv.pos)
+    with pytest.raises(SimulatedFailure):
+        srv.decode_until(srv.pos + 5, fail_at=srv.pos + 2)
+    fresh = _server(run, arch=arch)
+    assert fresh.restore() == ref.pos - 5
+    fresh.decode_until(ref.pos)
+    np.testing.assert_array_equal(fresh.tokens, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_match_jax(arch, tmp_path, mesh1):
     params = _np_params(arch=arch)
     batch = _prompt(arch=arch)
