@@ -26,7 +26,15 @@ from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
 then mamba2-2.7b (SSM cache; SSD scan + RMSNorm) with a sync snapshot.
 Each prefills a batch of prompts, decodes greedily, snapshots
 mid-generation, and a fresh server cold-restores the image and carries on
-token-exact; each image is deleted once checked.  The kernels' launch
+token-exact; each image is deleted once checked.  The sync paths write
+incremental images: after the first, 16 more tokens and a second image,
+which must name the first as parent, write at most the cache plus one
+4 MiB chunk per entry and reuse at least the params' bytes; the fresh
+server restores the second (following its ref chunks into the first).
+The async path's fresh server restores lazily (critical set
+serve_state/params, the cache streamed behind and joined at the first
+decode step).  Each image's write_s, hash_s (the host's CRCs),
+written_bytes and reused_bytes are printed.  The kernels' launch
 counters are zeroed just before each path's serving run and read just
 after it.  Each path's bf16 kernel logits are then held against its f32
 plain path (mamba2's over its first 4 layers), and one prefill and a few
@@ -56,8 +64,23 @@ per step, and first-step grads of the mamba leaves within MAMBA_GRAD_TOL
 of the plain bf16 path's, where a witness (the SSD kernel's rounding in
 plain torch) must fit too and two broken SSD forwards (y 2% off, no
 carry between chunks) must not.
-Step time, tokens/s, MFU, snapshot and restore times and a profile of one
-step are printed beside the card's name and power limit.
+In phase 3 (b)'s restore from the step-4 image is lazy (critical
+train_state/params; restore_critical_s is printed against (c)'s eager
+cold restores).  (e) trains (a)'s run again with capture="concurrent"
+(a soft-freeze capture every 4 steps): its losses must be (a)'s bitwise,
+and a fresh trainer restores its first image (whose host state names the
+step at the validate pause), runs to step 12 and must end at (a)'s
+params, m and v bitwise; the pin and validate pauses, speculation time
+and dirty / re-captured entries and bytes are printed.
+Phase 4 drives the session API under capture="concurrent" with 2 GiB of
+CUDA tensors (f32 and bf16): while the speculation's copies run, half the
+leaves are mutated in place on the compute stream (add_, a write by index
+into a view), one is replaced, one key added and one dropped; the dirty
+set must be exactly the touched keys, the re-captured bytes at most
+theirs, and the image must restore bitwise to the live tree.
+Step time, tokens/s, MFU, snapshot and restore times, a profile of one
+step and the script's wall time are printed beside the card's name and
+power limit.
 
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
@@ -695,8 +718,56 @@ def _image_bytes(path: str) -> int:
     return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
 
 
+def serve_image(srv, card: str) -> dict:
+    """Snapshot the server at its position; the image's stats (the write
+    joined first for an async image)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = srv.checkpoint(srv.pos)
+    dump_s = time.perf_counter() - t0
+    st = dict(srv.session.last_stats)
+    srv.session.wait_pending()
+    st.update(srv.session.last_stats)
+    man = srv.session.store.manifest(srv.pos)
+    out = dict(step=srv.pos, path=path, dump_s=dump_s, manifest=man,
+               image=_image_bytes(path),
+               freeze_ms=(st["lock_s"] + st["frozen_s"]) * 1e3,
+               **{k: st[k] for k in ("write_s", "hash_s", "io_s",
+                                     "written_bytes", "reused_bytes")})
+    log(f"[serve] {srv.cfg.name} image at pos {out['step']} (parent "
+        f"{man['parent']}): freeze {out['freeze_ms']:.1f} ms, write_s "
+        f"{out['write_s']:.3f} (hash_s {out['hash_s']:.3f} of it: the "
+        f"host's CRCs; io_s {out['io_s']:.3f}, appender threads), "
+        f"written_bytes {out['written_bytes']:.0f}, reused_bytes "
+        f"{out['reused_bytes']:.0f}, files {out['image']} bytes; {card}")
+    return out
+
+
+def check_delta_image(srv, images, params) -> None:
+    """The second image of the sync path is a delta of the first: it
+    names it as parent, writes at most the cache plus one chunk per entry
+    and reuses at least the params' bytes."""
+    first, second = images
+    man = second["manifest"]
+    cache_b = sum(t.nbytes for t in _leaves(srv.cache))
+    param_b = sum(t.nbytes for t in _leaves(params))
+    limit = cache_b + len(man["entry_bytes"]) * (4 << 20)
+    ok = (man["parent"] == first["step"]
+          and man["written_bytes"] <= limit
+          and man["reused_bytes"] >= param_b)
+    log(f"[serve] {srv.cfg.name} delta image: parent {man['parent']} "
+        f"(want {first['step']}), written_bytes {man['written_bytes']} <= "
+        f"cache {cache_b} + {len(man['entry_bytes'])} entries x 4 MiB = "
+        f"{limit}, reused_bytes {man['reused_bytes']} >= params "
+        f"{param_b}: {ok}")
+    if not ok:
+        raise SystemExit(f"{srv.cfg.name}: the incremental image is not "
+                         f"a delta of the first")
+
+
 def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
-                  workdir: str) -> dict:
+                  workdir: str, card: str) -> dict:
     """Serve `arch` at full width with snapshots; returns the kernels'
     launches on this serving path, and those of flash attention and the SSD
     scan by variant."""
@@ -725,7 +796,9 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
     _zero_counters()                  # this path's launches start here
     for mode in modes:
         run = os.path.join(workdir, mode)
-        opts = CheckpointOptions(mode=mode)
+        # the sync path writes incremental images; the async path's fresh
+        # server restores lazily
+        opts = CheckpointOptions(mode=mode, incremental=mode == "sync")
         srv = DecodeServer(cfg, run, max_seq=SERVE_MAX, options=opts,
                            device=dev, model=model)
         srv.load(params)
@@ -738,36 +811,48 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         srv.decode(SERVE_TOKENS)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TOKENS
-        t0 = time.perf_counter()
-        path = srv.checkpoint(srv.pos)
-        dump_s = time.perf_counter() - t0
-        st = dict(srv.session.last_stats)
-        step = srv.pos
+        images = [serve_image(srv, card)]
+        if mode == "sync":                       # (a)/(c): a delta image
+            srv.decode(SERVE_TOKENS)
+            images.append(serve_image(srv, card))
+            check_delta_image(srv, images, params)
         expected = srv.decode(SERVE_TOKENS).copy()
         srv.session.wait_pending()
-        write_s = srv.session.last_stats.get("write_s", float("nan"))
-        image = _image_bytes(path)
 
+        restore_opts = opts.replace(restore_mode="lazy") \
+            if mode == "async" else opts                # (b)
         t0 = time.perf_counter()
-        fresh = DecodeServer(cfg, run, max_seq=SERVE_MAX, options=opts,
-                             device=dev, model=model)
+        fresh = DecodeServer(cfg, run, max_seq=SERVE_MAX,
+                             options=restore_opts, device=dev, model=model)
         fresh.restore()
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
+        rst = dict(fresh.session.last_stats)
         got = fresh.decode(SERVE_TOKENS)
         same = fresh.pos == srv.pos and np.array_equal(got, expected)
-        freeze_ms = (st["lock_s"] + st["frozen_s"]) * 1e3
+        first = images[0]
+        if mode == "async":
+            lazy = (f"lazy cold restore {restore_s:.2f} s to resume "
+                    f"(restore_critical_s "
+                    f"{rst['restore_critical_s']:.3f}, "
+                    f"{rst['critical_bytes']:.0f} critical bytes: "
+                    f"serve_state/params), restore_background_s "
+                    f"{fresh.session.last_stats['restore_background_s']:.3f}"
+                    f" (the cache, joined at the first decode step)")
+        else:
+            lazy = (f"eager cold restore of image {len(images)} "
+                    f"{restore_s:.2f} s")
         log(f"[serve] {cfg.name} {mode}: prefill {prefill_ms:.1f} ms "
             f"(B={SERVE_B}, S={SERVE_S}); decode {decode_ms:.2f} ms/token; "
-            f"snapshot at pos {step}: freeze (lock + D2H) {freeze_ms:.1f} ms, "
-            f"dump call {dump_s:.2f} s, write {write_s:.2f} s, image "
-            f"{image} bytes; cold restore {restore_s:.2f} s; "
-            f"continuation token-exact: {same}")
+            f"snapshot at pos {first['step']}: freeze (lock + D2H) "
+            f"{first['freeze_ms']:.1f} ms, dump call {first['dump_s']:.2f} "
+            f"s, write {first['write_s']:.2f} s, image {first['image']} "
+            f"bytes; {lazy}; continuation token-exact: {same}; {card}")
         if not same:
             raise SystemExit(f"{cfg.name} {mode}: cold-restored server "
                              f"diverged")
         del srv, fresh
-        shutil.rmtree(run)            # one image on the disk at a time
+        shutil.rmtree(run)            # one image set on the disk at a time
         torch.cuda.empty_cache()
     launches = {name: mod.launches for name, mod in counters.items()}
     variants = _variants()
@@ -963,10 +1048,39 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
                device=dev)                              # remat=True
     runs = {m: os.path.join(workdir, m) for m in ("async", "sync")}
 
-    def trainer(mode):
+    def trainer(mode, restore_mode="eager"):
         tcfg = _train_config(TRAIN_B, TRAIN_S, seed, ckpt_every=TRAIN_CKPT_EVERY,
-                             ckpt=CheckpointOptions(mode=mode, keep=1))
+                             ckpt=CheckpointOptions(mode=mode, keep=1,
+                                                    restore_mode=restore_mode))
         return Trainer(cfg, tcfg, runs[mode], device=dev, model=model)
+
+    lazy_restores = []
+
+    def lazy_trainer():
+        """(b)'s trainers restore lazily (critical train_state/params);
+        each restore's stats are kept, and the background time once the
+        first step has joined the stream."""
+        t = trainer("sync", "lazy")
+        restore, finish = t.restore, t._finish_lazy_restore
+
+        def timed_restore(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(*a, **kw)
+            torch.cuda.synchronize()
+            lazy_restores.append(dict(t.session.last_stats,
+                                      resume_s=time.perf_counter() - t0))
+            return out
+
+        def timed_finish():
+            pending = t._pending_opt_template is not None
+            finish()
+            if pending:
+                lazy_restores[-1]["restore_background_s"] = \
+                    t.session.last_stats["restore_background_s"]
+
+        t.restore, t._finish_lazy_restore = timed_restore, timed_finish
+        return t
 
     counters = _counters()
     t_a = trainer("async")
@@ -986,7 +1100,7 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
     step_ms = [t * 1e3 for t in t_a.straggler.times]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     _snapshot_line("(a) async", t_a, card)
-    out = run_with_restarts(lambda: trainer("sync"), TRAIN_STEPS,   # (b)
+    out = run_with_restarts(lazy_trainer, TRAIN_STEPS,              # (b)
                             {TRAIN_FAIL_AT: "crash"})
     t_b = out["trainer"]
     _snapshot_line("(b) sync", t_b, card)
@@ -1043,6 +1157,16 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
         f"optimizer state on the card) async image {restore_s['async']:.2f} "
         f"s, sync image {restore_s['sync']:.2f} s; restored params bitwise "
         f"equal: {same_images}; {card}")
+    lz = lazy_restores[0]
+    lazy_ok = (len(lazy_restores) == 1 and lz["restore_mode"] == "lazy"
+               and "restore_background_s" in lz)
+    log(f"[train] {cfg.name}: (b)'s lazy restore of the step-4 image "
+        f"(critical train_state/params, {lz['critical_bytes']:.0f} bytes): "
+        f"resumed in {lz['resume_s']:.2f} s (restore_critical_s "
+        f"{lz['restore_critical_s']:.3f}), restore_background_s "
+        f"{lz.get('restore_background_s', float('nan')):.3f} (m, v, step, "
+        f"joined before step 5); eager cold restores above "
+        f"{restore_s['async']:.2f} / {restore_s['sync']:.2f} s; {card}")
     log(f"[train] {cfg.name}: kernel launches over {executed} executed "
         f"steps: {launches} (want {want}); by variant: {variants}")
     log(f"[train] {cfg.name}: loss on step 0's batch before training "
@@ -1056,6 +1180,7 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
         f"first {losses[0]:.4f})")
     bad = [name for name, ok in (
         ("restarted losses", same_losses), ("final params", same_params),
+        ("lazy restore", lazy_ok),
         ("async == sync image", same_images), ("loss falls", falls),
         ("launches", launches == want),
         ("flash on tc only", variants["flash_attention"]["fma"] == 0))
@@ -1063,11 +1188,172 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
     if bad:
         raise SystemExit(f"{cfg.name} training failed: {bad}")
     profile_training(restored["sync"], card)
-    del t_a, t_b, out, restored
+    del t_b, out, restored
     for run in runs.values():
         shutil.rmtree(run, ignore_errors=True)
     torch.cuda.empty_cache()
+    phase_training_concurrent(cfg, model, seed, workdir, card,      # (e)
+                              losses, t_a)
+    del t_a
+    torch.cuda.empty_cache()
     return launches, variants
+
+
+def phase_training_concurrent(cfg, model, seed: int, workdir: str,
+                              card: str, losses, t_a) -> None:
+    """Phase 3 (e): (a)'s run again with soft-freeze captures every 4
+    steps: its losses bitwise (a)'s; a fresh trainer restores its first
+    concurrent image (whose host state names the step at the validate
+    pause), runs to step 12 and ends bitwise at (a)'s params, m and v."""
+    import numpy as np
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.runtime.trainer import Trainer
+    run = os.path.join(workdir, "concurrent")
+    opts = CheckpointOptions(incremental=True, capture="concurrent")
+
+    def trainer(ckpt_every=TRAIN_CKPT_EVERY):
+        tcfg = _train_config(TRAIN_B, TRAIN_S, seed, ckpt_every=ckpt_every,
+                             ckpt=opts)
+        return Trainer(cfg, tcfg, run, device=torch.device("cuda"),
+                       model=model)
+
+    counters = _counters()
+    before = {name: mod.launches for name, mod in counters.items()}
+    t_e = trainer()
+    t_e.initialize()
+    t_e.run(TRAIN_STEPS)
+    same_losses = np.array_equal(np.float64(t_e.metrics_history["loss"]),
+                                 np.float64(losses))
+    launches = {name: mod.launches - before[name]
+                for name, mod in counters.items()}
+    store = t_e.session.store
+    captures = []
+    for step in store.list_steps():
+        reader = store.reader(step, verify=False)
+        at = reader.host_state()["trainer"]["step"]
+        reader.close()
+        man = store.manifest(step)
+        st = man["capture_stats"]
+        captures.append((step, at, man["capture"]))
+        # a step off the ckpt_every grid is a just-in-time image: the
+        # straggler monitor fires while a speculation slows the steps
+        log(f"[train] {cfg.name} (e) concurrent image {step}"
+            f"{'' if step % TRAIN_CKPT_EVERY == 0 else ' (just-in-time)'}"
+            f" (validate "
+            f"pause at step {at}): pin_pause_s {st['pin_pause_s']:.4f}, "
+            f"validate_pause_s {st['validate_pause_s']:.3f}, speculate_s "
+            f"{st['speculate_s']:.3f}, dirty_entries {st['dirty_entries']} "
+            f"of {st['speculated_entries']} speculated, recaptured_entries "
+            f"{st['recaptured_entries']}, recaptured_bytes "
+            f"{st['recaptured_bytes']:.0f}, superseded_bytes "
+            f"{st['superseded_bytes']:.0f}; {card}")
+    log(f"[train] {cfg.name} (e) kernel launches over {TRAIN_STEPS} steps "
+        f"(not in the kernels line): {launches}")
+    first_step, first_at, _ = captures[0]
+    t_r = trainer(ckpt_every=0)
+    resumed_at = t_r.restore(step=first_step)
+    t_r.run_until(TRAIN_STEPS)
+    same_end = (_tree_equal(t_r.params, t_a.params)
+                and _tree_equal(t_r.opt_state, t_a.opt_state))
+    log(f"[train] {cfg.name} (e): losses bitwise (a)'s: {same_losses}; "
+        f"image {first_step} restored at step {resumed_at} (validate "
+        f"pause at {first_at}), run to {TRAIN_STEPS}: params, m, v bitwise "
+        f"(a)'s: {same_end}; {len(captures)} captures; {card}")
+    periodic = set(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                         TRAIN_CKPT_EVERY))
+    bad = [n for n, ok in (
+        ("losses", same_losses), ("end state", same_end),
+        ("captures", periodic <= {c[0] for c in captures}
+         and all(c[2] == "concurrent" for c in captures)),
+        ("host step", resumed_at == first_at)) if not ok]
+    if bad:
+        raise SystemExit(f"{cfg.name} concurrent training failed: {bad}")
+    del t_e, t_r
+    shutil.rmtree(run, ignore_errors=True)
+
+
+# phase 4: 16 leaves of 128 MiB (2 GiB), half f32 and half bf16
+RACE_LEAVES, RACE_LEAF_BYTES = 16, 128 << 20
+
+
+def phase_session_race(seed: int, workdir: str, card: str) -> None:
+    """The session API under capture="concurrent" with CUDA tensors: while
+    the speculation's side-stream copies run, the compute stream mutates
+    a known half of the leaves in place (add_ under no_grad, and a write
+    by index into a view), replaces one leaf, adds a key and drops one.
+    At finalize the dirty set must be exactly the touched keys, no
+    untouched leaf re-captured, and the image must restore bitwise to the
+    live tree at the validate pause."""
+    import torch
+    from repro_torch.api import CheckpointOptions, CheckpointSession
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tree = {}
+    for i in range(RACE_LEAVES):
+        dtype = torch.float32 if i % 2 == 0 else torch.bfloat16
+        n = RACE_LEAF_BYTES // torch.empty((), dtype=dtype).element_size()
+        tree[f"w{i:02d}"] = torch.randn(n, generator=g, device=dev,
+                                        dtype=dtype)
+    names = sorted(tree)
+    in_place = names[:RACE_LEAVES // 2]          # a known half
+    replaced, dropped = names[-2], names[-1]
+    run = os.path.join(workdir, "race")
+    opts = CheckpointOptions(incremental=True, capture="concurrent")
+    sess = CheckpointSession(run, opts, device=dev)
+    sess.attach(lambda: {"state": tree})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = sess.checkpoint_begin(1)
+    with torch.no_grad():                        # on the compute stream
+        for k in in_place:
+            if k[-1] in "02468":
+                tree[k].add_(1.0)
+            else:
+                tree[k].view(64, -1)[3] = 7.0    # by index into a view
+    tree[replaced] = tree[replaced] * 2          # identity drift
+    tree["added"] = torch.ones(1 << 20, device=dev)
+    del tree[dropped]
+    raced = not handle.speculation_done
+    if not handle.wait_speculated(600):
+        raise SystemExit("speculation did not finish")
+    torch.cuda.synchronize()
+    backend = sess.engine.device_plugin
+    dirty = {k.split("::", 1)[1] for k in handle._tracker.dirty_keys(
+        backend.flatten_keys({"state": tree}))}
+    touched = set(in_place) | {replaced, dropped}
+    sess.checkpoint_finalize()
+    st = dict(sess.last_stats)
+    wall_s = time.perf_counter() - t0
+    touched_bytes = sum(tree[k].nbytes for k in in_place + [replaced]) \
+        + tree["added"].nbytes
+    r = CheckpointSession(run, CheckpointOptions(), device=dev)
+    r.attach(lambda: {"state": None})
+    got = r.restore()["state"]
+    same = got.keys() == tree.keys() and all(
+        torch.equal(got[k], tree[k]) for k in tree)
+    ok = (dirty == touched and st["dirty_entries"] == len(touched)
+          and st["speculated_entries"] == RACE_LEAVES
+          and st["recaptured_bytes"] <= touched_bytes and same)
+    log(f"[session] concurrent capture of {RACE_LEAVES} CUDA leaves "
+        f"({RACE_LEAVES * RACE_LEAF_BYTES} bytes, f32 and bf16), "
+        f"{len(in_place)} mutated in place (add_, index into a view), one "
+        f"replaced, one added, one dropped while the speculation ran "
+        f"(still running when they were issued: {raced}): dirty set == "
+        f"touched: {dirty == touched} ({sorted(dirty)}); dirty_entries "
+        f"{st['dirty_entries']}, recaptured_entries "
+        f"{st['recaptured_entries']}, recaptured_bytes "
+        f"{st['recaptured_bytes']:.0f} (touched {touched_bytes}); "
+        f"pin_pause_s {st['pin_pause_s']:.4f}, speculate_s "
+        f"{st['speculate_s']:.3f}, validate_pause_s "
+        f"{st['validate_pause_s']:.3f}, begin->commit {wall_s:.2f} s; "
+        f"restored image == live tree at the validate pause: {same}; "
+        f"{card}")
+    if not ok:
+        raise SystemExit("session concurrent-capture race check failed")
+    del tree, got
+    shutil.rmtree(run, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def profile_training(trainer, card: str) -> None:
@@ -1306,6 +1592,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; {card}")
@@ -1317,13 +1604,16 @@ def main() -> int:
     for arch, modes, kernels, check_layers in SERVE_PATHS:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
-                                          args.seed, workdir)
+                                          args.seed, workdir, card)
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path[f"{TRAIN_ARCH} train"] = phase_training(args.seed, workdir,
                                                         card)
         by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
             phase_training_mamba(args.seed, workdir, card)
+        phase_session_race(args.seed, workdir, card)
+    log(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s;"
+        f" {card}")
     print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

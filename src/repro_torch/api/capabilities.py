@@ -45,6 +45,20 @@ def capabilities() -> Dict[str, Any]:
         "backends": available_backends(),
         "modes": ["sync", "async"],
         "pack_formats": {"write": [2], "read": [1, 2]},
+        "features": {
+            "incremental": True,
+            "compression": True,
+            "replication": False,
+            "parallel_restore": True,
+            "chunked_packs": True,        # pack v2: per-chunk CRC + codec
+            "striped_io": True,           # N pack files/host, appender each
+            "pipelined_writer": True,     # capture -> compress -> write
+            "chunk_dedup": True,          # incremental reuse at chunk grain
+            "lazy_restore": True,         # restore_mode="lazy"
+            "concurrent_capture": True,   # capture="concurrent"
+        },
+        "restore_modes": ["eager", "lazy"],
+        "captures": ["sync", "concurrent"],
     }
 
 

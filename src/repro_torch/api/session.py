@@ -103,6 +103,33 @@ class CheckpointSession:
     def checkpoint(self, step: int) -> str:
         return self.engine.checkpoint(step)
 
+    def checkpoint_running(self, step: int) -> str:
+        """Commit a snapshot while minimizing the pause the job observes:
+        under ``capture="concurrent"`` the job is only paused for the pin
+        and validate windows; otherwise an ordinary checkpoint."""
+        return self.engine.snapshot_while_running(step)
+
+    def checkpoint_begin(self, step: int):
+        """Start a soft-freeze capture (requires
+        ``CheckpointOptions(capture="concurrent")``) and return its
+        :class:`repro_torch.core.engine.ConcurrentCapture` handle.  The
+        job keeps stepping while speculation runs; poll
+        ``handle.speculation_done`` and call :meth:`checkpoint_finalize`
+        for the short validate pause."""
+        return self.engine.begin_concurrent(step)
+
+    def checkpoint_finalize(self) -> Optional[str]:
+        """Finalize the in-flight soft-freeze capture, if any.  Returns
+        the snapshot path, or None when nothing was in flight."""
+        handle = self.engine.concurrent_capture
+        if handle is None:
+            return None
+        return handle.finalize()
+
+    @property
+    def concurrent_capture(self):
+        return self.engine.concurrent_capture
+
     @contextlib.contextmanager
     def frozen(self, step: int):
         """Freeze, yield the in-memory capture, commit (or abort) on exit.
@@ -117,13 +144,33 @@ class CheckpointSession:
             snap.commit()
 
     def restore(self, step: Optional[int] = None,
-                verify: Optional[bool] = None) -> Dict[str, Any]:
-        """`criu restore` (eager): the whole image is placed on return."""
-        return self.engine.restore(step=step, verify=verify)
+                verify: Optional[bool] = None,
+                wait: Optional[str] = None) -> Dict[str, Any]:
+        """`criu restore`.  ``wait="critical"`` (the default when
+        ``options.restore_mode == "lazy"``) returns once the critical set
+        is placed — the job resumes while the rest of the image streams
+        in the background; join it with :meth:`restore_barrier`.
+        ``wait="all"`` blocks until the whole image is placed."""
+        return self.engine.restore(step=step, verify=verify, wait=wait)
 
     def restore_into(self, template: PyTree, state: str = "train_state",
-                     step: Optional[int] = None) -> PyTree:
-        return self.engine.restore_into(template, state=state, step=step)
+                     step: Optional[int] = None,
+                     wait: Optional[str] = None) -> PyTree:
+        return self.engine.restore_into(template, state=state, step=step,
+                                        wait=wait)
+
+    def restore_barrier(self) -> Optional[Dict[str, Any]]:
+        """Join the background restore stream (a no-op after eager
+        restores) and return the complete restored tree.  Raises
+        :class:`repro_torch.core.lazy.LazyRestoreError` if the stream
+        died; the step is quarantined and a retried :meth:`restore` falls
+        back to the previous committed image."""
+        return self.engine.restore_barrier()
+
+    @property
+    def lazy_pending(self) -> bool:
+        """True while a background restore stream is still outstanding."""
+        return self.engine.lazy_pending
 
     # ------------------------------------------------------- queries
     @property

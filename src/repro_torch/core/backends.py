@@ -90,7 +90,8 @@ class HostNumpyBackend(TorchBackend):
 
     name = "host"
     features = frozenset({"host_arrays", "dry_run_restore",
-                          "chunked_packs", "pipelined_io"})
+                          "chunked_packs", "pipelined_io",
+                          "dirty_tracking"})
 
     def __init__(self, lock_timeout_s: float = 10.0,
                  restore_threads: int = 0, device=None):

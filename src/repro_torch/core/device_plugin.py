@@ -15,7 +15,16 @@ The cuda-checkpoint analogue for tensors (the reference's
                        place where JAX rebinds them.  CPU leaves are copied
                        for the same reason;
   RESUME_DEVICES_LATE  host -> device: each entry is rebuilt and placed on
-                       the backend's device.
+                       the backend's device; a lazy restore places the
+                       critical set and leaves the rest to a
+                       ``core.lazy.LazyMaterializer``.
+
+Concurrent capture (``capture="concurrent"``) uses the single-leaf
+``capture_entry``, the keyed view ``flatten_keys`` and the dirty-tracking
+hooks ``begin_tracking``/``end_tracking``.  At the pin, an event is
+recorded on the compute stream; every speculation copy runs on a side
+stream that waits on it, as ``capture_tree``'s copies wait on the compute
+stream.
 
 Entries keep the reference's layout (``kind``/``shape``/``dtype``/
 ``sharding``/``shards``), one whole shard per tensor, so either package
@@ -34,6 +43,7 @@ from repro_torch.core.lock import DeviceLock
 from repro_torch.core.plugins import PLUGIN_API_VERSION, HookContext, Plugin
 from repro_torch.core.topology import (compatibility, mesh_fingerprint,
                                        sharding_descriptor)
+from repro_torch.devices import resolve_device
 from repro_torch.serialization.pack import (dtype_from_str, host_numpy,
                                             numpy_to_tensor, tensor_dtype_str)
 
@@ -42,7 +52,7 @@ PyTree = Any
 #: Feature flags of the "torch" backend.
 TORCH_BACKEND_FEATURES = frozenset({
     "device_arrays", "pinned_capture", "parallel_restore", "chunked_packs",
-    "pipelined_io"})
+    "pipelined_io", "dirty_tracking"})
 
 
 # ---------------------------------------------------------------- paths
@@ -118,6 +128,17 @@ def tensor_entry(t: torch.Tensor, host: torch.Tensor) -> Dict[str, Any]:
     }
 
 
+def _side_stream(device: torch.device, after) -> "torch.cuda.Stream":
+    """A fresh side stream on `device` ordered after `after` (an event,
+    or a stream)."""
+    side = torch.cuda.Stream(device)
+    if isinstance(after, torch.cuda.Event):
+        side.wait_event(after)
+    else:
+        side.wait_stream(after)
+    return side
+
+
 def leaf_entry(leaf: Any) -> Dict[str, Any]:
     if isinstance(leaf, np.ndarray):
         return {"kind": "np", "data": leaf.copy()}
@@ -138,9 +159,8 @@ def capture_tree(roots: Dict[str, PyTree]) -> Dict[str, Dict[str, Any]]:
             if leaf.is_cuda:
                 side = streams.get(leaf.device)
                 if side is None:
-                    side = streams[leaf.device] = torch.cuda.Stream(
-                        leaf.device)
-                    side.wait_stream(torch.cuda.current_stream(leaf.device))
+                    side = streams[leaf.device] = _side_stream(
+                        leaf.device, torch.cuda.current_stream(leaf.device))
                 buf = torch.empty(leaf.shape, dtype=leaf.dtype,
                                   pin_memory=True)
                 with torch.cuda.stream(side):
@@ -176,12 +196,19 @@ def assemble_global(entry: Dict[str, Any]) -> np.ndarray:
     return out
 
 
-def _entry_value(entry: Dict[str, Any], device: Optional[torch.device]):
+def _entry_value(entry: Dict[str, Any], device: Optional[torch.device],
+                 non_blocking: bool = False):
+    """The restored leaf of `entry` on `device` (None: host numpy).  With
+    `non_blocking` a CUDA copy is enqueued on the current stream from
+    pinned memory and not waited on."""
     if entry["kind"] == "device_array":
         arr = assemble_global(entry)
         if device is None:
             return arr
-        return numpy_to_tensor(arr, entry["dtype"]).to(device)
+        t = numpy_to_tensor(arr, entry["dtype"])
+        if non_blocking and device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
     if entry["kind"] == "np":
         return entry["data"]
     return entry["value"]
@@ -191,12 +218,31 @@ def _entry_value(entry: Dict[str, Any], device: Optional[torch.device]):
 class StreamBoundary:
     """The CRAC-style capture boundary: every pause drains the injectable
     fake streams (``repro_torch.core.streams``) and fails fast with
-    ``UnsafeOpInFlight`` on an op that cannot be quiesced."""
+    ``UnsafeOpInFlight`` on an op that cannot be quiesced.  During a
+    concurrent capture, stream retirements feed the dirty tracker."""
 
     streams = None            # Optional[repro_torch.core.streams.StreamSet]
 
     def attach_streams(self, streams) -> None:
         self.streams = streams
+
+    def begin_tracking(self, tracker) -> None:
+        """Route stream retirements into the dirty set for the duration
+        of a concurrent capture."""
+        if self.streams is not None:
+            self.streams.on_retire = (
+                lambda op: tracker.note_many(op.targets))
+
+    def end_tracking(self) -> None:
+        if self.streams is not None:
+            self.streams.on_retire = None
+
+    @staticmethod
+    def flatten_keys(roots: Dict[str, PyTree]) -> Dict[str, Any]:
+        """roots -> {"state::path": leaf} in capture order."""
+        return {f"{name}::{key}": leaf
+                for name, tree in roots.items()
+                for key, leaf in flatten_with_paths(tree).items()}
 
     def drain_streams(self) -> None:
         if self.streams is None:
@@ -217,9 +263,44 @@ class TorchBackend(StreamBoundary, Plugin):
     def __init__(self, lock_timeout_s: float = 10.0,
                  restore_threads: int = 0,
                  device: Optional[torch.device] = None):
-        self.device = torch.device(device) if device is not None else None
+        self.device = resolve_device(device) if device is not None \
+            else None
         self.lock = DeviceLock(lock_timeout_s, self.device)
         self.restore_threads = restore_threads
+        self._pin_event = None
+
+    # --- concurrent capture ---
+    def begin_tracking(self, tracker) -> None:
+        """Also mark the pin on the compute stream: the speculation's
+        copies are ordered after it."""
+        super().begin_tracking(tracker)
+        if self.device is not None and self.device.type == "cuda":
+            self._pin_event = torch.cuda.Event()
+            self._pin_event.record(torch.cuda.current_stream(self.device))
+
+    def end_tracking(self) -> None:
+        super().end_tracking()
+        self._pin_event = None
+
+    def capture_entry(self, leaf: Any) -> Dict[str, Any]:
+        """Capture one leaf (the concurrent speculation loop and the
+        validate patch).  A CUDA tensor is copied on a side stream that
+        waits on the pin's event (or on the compute stream outside a
+        capture) into a fresh pinned buffer, and the copy has completed
+        on return."""
+        if not isinstance(leaf, torch.Tensor):
+            return leaf_entry(leaf)
+        if not leaf.is_cuda:
+            return tensor_entry(leaf, leaf.detach().to(
+                "cpu", copy=True).contiguous())
+        after = self._pin_event if self._pin_event is not None \
+            else torch.cuda.current_stream(leaf.device)
+        side = _side_stream(leaf.device, after)
+        buf = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            buf.copy_(leaf.detach(), non_blocking=True)
+        side.synchronize()
+        return tensor_entry(leaf, buf)
 
     # --- dump ---
     def pause_devices(self, ctx: HookContext) -> None:
@@ -266,12 +347,33 @@ class TorchBackend(StreamBoundary, Plugin):
         """Where restored arrays go (None: stay numpy)."""
         return self.device
 
+    def _place_entry(self, reader, state: str, path: str):
+        """Load + rebuild one leaf — the unit the lazy materializer
+        streams; a CUDA copy is enqueued on the current stream from
+        pinned memory."""
+        return _entry_value(reader.load_entry(state, path), self._target(),
+                            non_blocking=True)
+
     def resume_devices_late(self, ctx: HookContext) -> None:
         """host -> device restore; with restore_threads > 1 worker threads
-        read pack entries while the main thread places them."""
+        read pack entries while the main thread places them.  Lazy mode
+        (resume-before-read): only the critical set is placed here; the
+        rest is handed to a LazyMaterializer the engine starts after the
+        job is unlocked."""
         t0 = time.perf_counter()
         reader = ctx.reader
         threads = getattr(ctx, "restore_threads", 0) or self.restore_threads
+        if getattr(ctx, "lazy", False):
+            from repro_torch.core.lazy import resume_with_schedule
+            target = self._target()
+            resume_with_schedule(ctx, self._place_entry, threads, target)
+            if target is not None and target.type == "cuda":
+                # the critical copies were enqueued non-blocking
+                torch.cuda.synchronize(target)
+            self.lock.unlock()                    # resume on criticals
+            ctx.stats["host_to_device_s"] = time.perf_counter() - t0
+            ctx.stats["place_s"] = ctx.stats.get("place_critical_s", 0.0)
+            return
         place_s = 0.0
         for name in reader.state_names():
             keys = reader.entry_names(name)

@@ -18,14 +18,21 @@ The CRIUgpu workflow (paper Fig. 4a), as in the reference engine:
   restore(step):
     read the newest valid manifest (CRC-verified, torn images skipped)
     RESTORE_EXT_STATE -> UPDATE_TOPOLOGY_MAP -> RESUME_DEVICES_LATE
+    lazy mode: return once the critical set is placed; the rest streams
+    in the background and restore_barrier() joins it
+
+Incremental images take the newest image strictly below the step as
+parent.  Concurrent capture (``capture="concurrent"``) is the soft-freeze
+protocol: pin -> speculate -> validate -> patch -> commit
+(:class:`ConcurrentCapture`).
 
 Transparency contract: the serving code defines no checkpoint logic.  It
 attaches a *state provider* (a zero-arg callable returning the live root
 trees) and registers host state through CallbackPlugins.
 
 Not ported yet (their options are rejected by ``CheckpointOptions``):
-incremental images, concurrent (soft-freeze) capture, lazy restore,
-replication and transfer.
+replication and transfer, and with them the heal of a lazy stream from a
+replica.
 """
 from __future__ import annotations
 
@@ -34,9 +41,13 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
+import torch
+
 from repro_torch.chaos import hooks as chaos_hooks
 from repro_torch.core.device_plugin import (flatten_with_paths,
                                             unflatten_like)
+from repro_torch.core.dirty import DirtyTracker
 from repro_torch.core.lock import LockTimeout
 from repro_torch.core.plugins import (CallbackPlugin, Hook, HookContext,
                                       Plugin, PluginRegistry)
@@ -94,11 +105,30 @@ class SnapshotEngine:
         self.registry = PluginRegistry([self.device_plugin]
                                        + list(plugins or []))
         self.mode = self.options.mode
+        self.incremental = self.options.incremental
+        if self.options.capture == "concurrent":
+            from repro_torch.api.options import OptionsError
+            feats = getattr(self.device_plugin, "features", frozenset())
+            if "dirty_tracking" not in feats:
+                raise OptionsError(
+                    f"capture='concurrent' needs a backend with the "
+                    f"'dirty_tracking' feature; backend "
+                    f"{getattr(self.device_plugin, 'backend_name', self.device_plugin.name)!r} "
+                    f"offers {sorted(feats)} (sync-only capture)")
+        self._concurrent: Optional["ConcurrentCapture"] = None
         self._provider: Optional[StateProvider] = None
         self._pending: Optional[threading.Thread] = None
         self._pending_ctx: Optional[HookContext] = None
         self._pending_err: List[BaseException] = []
         self._write_error: Optional[str] = None
+        # lazy-restore stream: at most one background materializer per
+        # engine; a failed stream quarantines its step so the retry's
+        # newest-valid scan falls back past it (eager semantics)
+        self._lazy = None
+        self._lazy_ctx: Optional[HookContext] = None
+        self._lazy_step: Optional[int] = None
+        self._last_restored: Optional[Dict[str, Any]] = None
+        self._quarantined: set = set()
         self.last_stats: Dict[str, Any] = {}
         # step of the newest image committed by THIS engine instance
         self.last_commit_step: Optional[int] = None
@@ -118,7 +148,20 @@ class SnapshotEngine:
 
     # ------------------------------------------------------------ dump
     def checkpoint(self, step: int) -> str:
-        """Create a unified snapshot.  Returns the snapshot directory."""
+        """Create a unified snapshot.  Returns the snapshot directory.
+        Under ``capture="concurrent"`` this still blocks until the image
+        commits, but runs the soft-freeze protocol; callers that want the
+        overlap use :meth:`begin_concurrent`."""
+        return self.snapshot_while_running(step)
+
+    def snapshot_while_running(self, step: int) -> str:
+        """Commit a snapshot of `step` with the least pause the job
+        observes: the soft-freeze protocol under ``capture="concurrent"``,
+        else a stop-the-world dump."""
+        if self.options.capture == "concurrent":
+            handle = self.begin_concurrent(step)
+            handle.wait_speculated()
+            return handle.finalize()
         return self.commit_dump(self.freeze(step))
 
     def freeze(self, step: int) -> HookContext:
@@ -127,7 +170,15 @@ class SnapshotEngine:
         :meth:`commit_dump` or :meth:`abort_dump`."""
         if self._provider is None:
             raise RuntimeError("no state provider attached")
+        if self._concurrent is not None:
+            # settle an in-flight soft-freeze capture first: a second
+            # dump must never interleave with an open stripe set
+            self._concurrent.finalize()
         self.wait_pending()
+        if self._lazy is not None:
+            # never freeze a half-restored job: join the stream first
+            # (raises if it died; the state must not become an image)
+            self.restore_barrier()
         ctx = HookContext("dump", step)
         ctx.roots = self._provider()
         self.registry.init_all("dump")
@@ -205,19 +256,118 @@ class SnapshotEngine:
         self._pending.start()
         return snapshot_dir(self.run_dir, ctx.step)
 
+    # ----------------------------------------------- concurrent capture
+    def begin_concurrent(self, step: int) -> "ConcurrentCapture":
+        """Start a soft-freeze capture (PhoenixOS-style validated
+        speculation).
+
+        Pin pause: quiesce (device lock: the CUDA streams drain), pin the
+        state tree (strong refs + signatures) and start dirty tracking,
+        then *resume the job*.  A background thread speculatively captures
+        the pinned leaves into an open stripe set while the step loop
+        keeps running.  ``handle.finalize()`` takes the validate pause:
+        drain again, re-hash dirtied entries against the speculated chunk
+        CRCs, re-capture only the mismatches, and commit — the image is
+        the state at the *validate* pause, bit-exact with a sync dump
+        taken there.  Raises :class:`CheckpointAborted` (job keeps
+        running, no image) on lock timeout or an unsafe op in flight.
+        """
+        if self._provider is None:
+            raise RuntimeError("no state provider attached")
+        if self.options.capture != "concurrent":
+            from repro_torch.api.options import OptionsError
+            raise OptionsError(
+                "begin_concurrent() requires "
+                "CheckpointOptions(capture='concurrent'); "
+                f"these options say capture={self.options.capture!r}")
+        if self._concurrent is not None:
+            self._concurrent.finalize()          # settle the previous one
+        self.wait_pending()
+        if self._lazy is not None:
+            self.restore_barrier()
+
+        ctx = HookContext("dump", step)
+        ctx.roots = self._provider()
+        self.registry.init_all("dump")
+        ctx.stats["t_begin"] = time.perf_counter()
+        try:
+            with obs_trace.span("dump.pause", step=step, phase="pin"):
+                self.registry.run(Hook.PAUSE_DEVICES, ctx)  # pin pause
+        except LockTimeout as e:
+            self.registry.exit_all("dump", False)
+            raise CheckpointAborted(str(e)) from e
+        except UnsafeOpInFlight as e:
+            self.device_plugin.lock.unlock()
+            self.registry.exit_all("dump", False)
+            raise CheckpointAborted(str(e)) from e
+        except Exception:
+            self.device_plugin.lock.unlock()
+            self.registry.exit_all("dump", False)
+            raise
+        try:
+            tracker = DirtyTracker()
+            pinned = self.device_plugin.flatten_keys(ctx.roots)
+            tracker.pin(pinned)
+            self.device_plugin.begin_tracking(tracker)
+            writer = self._make_writer(step)
+        except Exception:
+            self.device_plugin.end_tracking()
+            self.device_plugin.lock.unlock()
+            self.registry.exit_all("dump", False)
+            raise
+        handle = ConcurrentCapture(self, ctx, writer, pinned, tracker)
+        self.device_plugin.lock.unlock()                   # job resumes
+        ctx.stats["pin_pause_s"] = (time.perf_counter()
+                                    - ctx.stats["t_begin"])
+        ctx.stats["pin_lock_s"] = ctx.stats.pop("lock_s", 0.0)
+        self._concurrent = handle
+        handle._start()
+        return handle
+
+    @property
+    def concurrent_capture(self) -> Optional["ConcurrentCapture"]:
+        """The in-flight soft-freeze capture handle, if any."""
+        return self._concurrent
+
+    def _make_writer(self, step: int) -> SnapshotWriter:
+        opts = self.options
+        prev_manifest = None
+        if self.incremental:
+            # parent = newest step strictly below the one being dumped: a
+            # re-dump of an existing step must never take the image it is
+            # about to overwrite as its own parent
+            prev_steps = [s for s in self.store.list_steps() if s < step]
+            if prev_steps:
+                prev_manifest = self.store.manifest(prev_steps[-1])
+        return SnapshotWriter(self.run_dir, step, host_id=0,
+                              compress=opts.compress,
+                              prev_manifest=prev_manifest,
+                              chunk_bytes=opts.chunk_mb << 20,
+                              stripes=opts.stripes,
+                              io_threads=opts.io_threads)
+
+    @staticmethod
+    def _writer_stats(ctx: HookContext, writer: SnapshotWriter) -> None:
+        ctx.stats["written_bytes"] = float(writer.written_bytes)
+        ctx.stats["reused_bytes"] = float(writer.reused_bytes)
+        # pipeline stage timings (thread time: compress_s + io_s may
+        # exceed write_s when the stages overlap)
+        ctx.stats["compress_s"] = writer.compress_s
+        ctx.stats["io_s"] = writer.io_s
+        ctx.stats["hash_s"] = writer.hash_s
+        stripe_bytes = writer.stripe_bytes
+        if stripe_bytes and max(stripe_bytes) > 0:
+            ctx.stats["stripe_utilization"] = (
+                min(stripe_bytes) / max(stripe_bytes))
+
     def _write(self, ctx: HookContext) -> str:
         t0 = time.perf_counter()
-        opts = self.options
-        writer = SnapshotWriter(self.run_dir, ctx.step, host_id=0,
-                                compress=opts.compress,
-                                chunk_bytes=opts.chunk_mb << 20,
-                                stripes=opts.stripes,
-                                io_threads=opts.io_threads)
+        writer = self._make_writer(ctx.step)
         try:
             with obs_trace.span("dump.write", step=ctx.step, mode=self.mode):
                 writer.write_states(ctx.device_snapshot)
                 writer.write_host_state(ctx.host_state)
-                ctx.stats["serialize_s"] = time.perf_counter() - t0
+                t_serialize = time.perf_counter() - t0
                 ctx.stats["host_bytes"] = float(
                     len(pack_host_blob(ctx.host_state)))
                 path = writer.commit(topology=self._topology(),
@@ -225,21 +375,27 @@ class SnapshotEngine:
                                      extra={"warnings": ctx.warnings,
                                             "mode": self.mode,
                                             "capture": "sync",
-                                            "incremental": False})
+                                            "incremental": self.incremental})
+            # commit() drains the pipeline and fsyncs: only now are the
+            # stage timings and the reuse accounting final
             ctx.stats["write_s"] = time.perf_counter() - t0
-            ctx.stats["written_bytes"] = float(writer.written_bytes)
-            ctx.stats["reused_bytes"] = 0.0
-            ctx.stats["compress_s"] = writer.compress_s
-            ctx.stats["io_s"] = writer.io_s
+            ctx.stats["serialize_s"] = t_serialize
+            self._writer_stats(ctx, writer)
         except BaseException:
             writer.abort()
             raise
+        return self._after_commit(ctx, path)
+
+    def _after_commit(self, ctx: HookContext, path: str) -> str:
         obs_metrics.counter_add("dump.count")
         obs_metrics.counter_add("dump.bytes_written",
-                                ctx.stats["written_bytes"])
-        obs_metrics.observe("dump.frozen_s", ctx.stats.get("frozen_s", 0.0))
+                                ctx.stats.get("written_bytes", 0.0))
+        obs_metrics.counter_add("dump.bytes_deduped",
+                                ctx.stats.get("reused_bytes", 0.0))
+        if "frozen_s" in ctx.stats:
+            obs_metrics.observe("dump.frozen_s", ctx.stats["frozen_s"])
         obs_journal.emit("dump", "commit", step=ctx.step,
-                         bytes=ctx.stats["written_bytes"],
+                         bytes=ctx.stats.get("written_bytes"),
                          frozen_s=ctx.stats.get("frozen_s"))
         if chaos_hooks.INJECTOR is not None:
             # chaos: lost-writeback site (image committed)
@@ -290,33 +446,84 @@ class SnapshotEngine:
         return self._write_error
 
     # ------------------------------------------------------------ restore
-    def _open_verified(self, step: int, verify: bool, io_threads: int):
+    def _verify_reader(self, reader, lazy: bool) -> None:
+        """Pre-restore image check: eager verifies every entry; lazy
+        verifies the critical set (plus the blobs read eagerly), so the job
+        resumes before the cold entries are read — every background chunk
+        read re-checks its stored CRC, so the guarantee is the same."""
+        if lazy:
+            from repro_torch.core.lazy import (critical_pack_names,
+                                               split_schedule)
+            critical, _ = split_schedule(reader,
+                                         self.options.critical_states)
+            reader.verify_entries(critical_pack_names(reader, critical))
+        else:
+            reader.verify_all()
+
+    def _open_verified(self, step: int, verify: bool, io_threads: int,
+                       lazy: bool):
         reader = self.store.reader(step, verify=verify,
                                    io_threads=io_threads)
         if verify:
             try:
-                reader.verify_all()
+                self._verify_reader(reader, lazy)
             except Exception:
                 reader.close()
                 raise
         return reader
 
+    def _abandon_lazy(self) -> None:
+        """A newer restore supersedes a still-streaming one: cancel it and
+        wait for its thread to stop (the stream's own cleanup closes its
+        reader and unpins its step).  Errors are not raised: the
+        superseding restore is often the retry."""
+        mat, self._lazy = self._lazy, None
+        self._lazy_ctx, self._lazy_step = None, None
+        if mat is not None and not mat.done:
+            mat.cancel()
+            mat.wait_done(timeout=60.0)
+
     def restore(self, step: Optional[int] = None,
-                verify: Optional[bool] = None) -> Dict[str, Any]:
-        """Eager restore.  Returns {state_name: nested-dict tree}; host
+                verify: Optional[bool] = None,
+                wait: Optional[str] = None) -> Dict[str, Any]:
+        """Unified restore.  Returns {state_name: nested-dict tree}; host
         state is pushed back through the registered CallbackPlugins.
-        With ``step=None`` the newest image that verifies is used."""
+        With ``step=None`` the newest image that verifies (and was not
+        quarantined by a failed lazy stream) is used.
+
+        With ``options.restore_mode == "lazy"`` (or ``wait="critical"``)
+        the call returns once the critical set is placed; the remaining
+        entries stream in the background and :meth:`restore_barrier`
+        joins them.  ``wait="all"`` materializes everything first."""
         if verify is None:
             verify = self.options.verify_restore
+        if wait not in (None, "critical", "all"):
+            raise ValueError(f"wait must be 'critical' or 'all', "
+                             f"got {wait!r}")
+        # wait="critical" opts one call into the lazy machinery even
+        # under eager options
+        lazy = self.options.restore_mode == "lazy" or wait == "critical"
+        if wait is None:
+            wait = "critical" if lazy else "all"
         self.wait_pending()
+        self._abandon_lazy()
+        t_restore0 = time.perf_counter()
         io_threads = self.options.io_threads or auto_io_threads()
-        with obs_trace.span("restore.critical", mode="eager") as sp, \
-                self.store.lock:
+        # the store lock covers the critical phase, so a gc in another
+        # thread of this process cannot delete a step or a parent pack
+        # under the reads; the background stream pins its step instead
+        sp_crit = obs_trace.span("restore.critical",
+                                 mode="lazy" if lazy else "eager")
+        with sp_crit, self.store.lock:
             if step is None:
-                # newest *valid* image: fall back past torn/corrupt ones
+                # newest valid image: fall back past torn/corrupt ones and
+                # past steps whose lazy stream died (the quarantine)
                 for s in reversed(self.store.list_steps()):
+                    if s in self._quarantined:
+                        continue
                     try:
-                        reader = self._open_verified(s, verify, io_threads)
+                        reader = self._open_verified(s, verify, io_threads,
+                                                     lazy)
                     except Exception:
                         continue
                     step = s
@@ -325,31 +532,95 @@ class SnapshotEngine:
                     raise FileNotFoundError(
                         f"no restorable snapshot under {self.run_dir}")
             else:
-                reader = self._open_verified(step, verify, io_threads)
-            sp.set(step=step)
+                reader = self._open_verified(step, verify, io_threads, lazy)
+            sp_crit.set(step=step)
             ctx = HookContext("restore", step)
             ctx.reader = reader
             ctx.manifest = reader.manifest
             ctx.restore_threads = self.options.restore_threads
+            ctx.lazy = lazy
+            if lazy:
+                ctx.critical_specs = self.options.critical_states
+                self.store.pin(step)
+                ctx.lazy_reopen = (
+                    lambda s=step: self.store.reader(
+                        s, verify=verify, io_threads=io_threads))
+                ctx.lazy_heal = None          # no replica to heal from
+                ctx.lazy_on_done = (lambda s=step: self.store.unpin(s))
             self.registry.init_all("restore")
+            materializer = None
             try:
                 ctx.host_state = reader.host_state()
                 self.registry.run(Hook.RESTORE_EXT_STATE, ctx)
                 self.registry.run(Hook.UPDATE_TOPOLOGY_MAP, ctx)
                 self.registry.run(Hook.RESUME_DEVICES_LATE, ctx)
+                materializer = getattr(ctx, "materializer", None)
             except Exception:
                 self.registry.exit_all("restore", False)
-                raise
-            finally:
                 ctx.stats.update(reader.io_stats())
                 reader.close()
+                if lazy:
+                    self.store.unpin(step)
+                raise
+            ctx.stats.update(reader.io_stats())   # read_s, decompress_s
+            if materializer is None:
+                reader.close()                    # eager: image fully read
+                if lazy:
+                    self.store.unpin(step)        # backend without lazy
         self.registry.exit_all("restore", True)
-        ctx.stats["restore_mode"] = "eager"
+        if lazy:
+            ctx.stats["restore_critical_s"] = (time.perf_counter()
+                                               - t_restore0)
+        ctx.stats["restore_mode"] = "lazy" if lazy else "eager"
         obs_metrics.counter_add("restore.count")
-        obs_journal.emit("restore", "resumed", step=step, mode="eager")
+        if lazy:
+            obs_metrics.observe("restore.critical_s",
+                                ctx.stats["restore_critical_s"])
+        obs_journal.emit("restore", "resumed", step=step,
+                         mode=ctx.stats["restore_mode"])
         self.last_stats = dict(ctx.stats)
         self.last_stats["topology_mode"] = ctx.topology_map.get("mode")
+        self._last_restored = ctx.restored
+        if materializer is not None:
+            self._lazy = materializer
+            self._lazy_ctx = ctx
+            self._lazy_step = step
+            materializer.start()                  # stream the cold tail
+            if wait == "all":
+                return self.restore_barrier()
         return ctx.restored
+
+    def restore_barrier(self) -> Optional[Dict[str, Any]]:
+        """Join the background restore stream: blocks until every lazily
+        scheduled entry has landed (and, on CUDA, orders the caller's
+        stream after their copies), then returns the complete restored
+        tree.  If the stream died, raises
+        :class:`repro_torch.core.lazy.LazyRestoreError` and quarantines
+        the step, so a retried :meth:`restore` falls back to the previous
+        committed image.  A no-op after eager restores."""
+        mat = self._lazy
+        if mat is None:
+            return self._last_restored
+        try:
+            mat.join()
+        except BaseException:
+            if self._lazy_step is not None:
+                self._quarantined.add(self._lazy_step)
+            self._lazy, self._lazy_ctx, self._lazy_step = None, None, None
+            raise
+        for k in ("background_s", "background_bytes",
+                  "background_entries", "healed_entries"):
+            self.last_stats[k] = mat.stats.get(k, 0.0)
+        self.last_stats["restore_background_s"] = mat.stats["background_s"]
+        restored = self._lazy_ctx.restored
+        self._last_restored = restored
+        self._lazy, self._lazy_ctx, self._lazy_step = None, None, None
+        return restored
+
+    @property
+    def lazy_pending(self) -> bool:
+        """True while a background restore stream is still outstanding."""
+        return self._lazy is not None
 
     @staticmethod
     def retree(template: PyTree, raw_tree: Any) -> PyTree:
@@ -364,9 +635,247 @@ class SnapshotEngine:
         return unflatten_like(template, raw)
 
     def restore_into(self, template: PyTree, state: str = "train_state",
-                     step: Optional[int] = None) -> PyTree:
-        """Restore one state into the caller's tree structure."""
-        return self.retree(template, self.restore(step=step)[state])
+                     step: Optional[int] = None,
+                     wait: Optional[str] = None) -> PyTree:
+        """Restore one state into the caller's tree structure.  The typed
+        reassembly needs every template leaf, so a lazy stream is joined
+        first (callers that want the overlap use :meth:`restore` with
+        ``wait="critical"`` and :meth:`retree` after the barrier)."""
+        restored = self.restore(step=step, wait=wait)
+        if self._lazy is not None:
+            restored = self.restore_barrier()
+        return self.retree(template, restored[state])
 
     def latest_step(self) -> Optional[int]:
         return self.store.latest_step()
+
+
+class ConcurrentCapture:
+    """Handle for one in-flight soft-freeze capture.
+
+    ``engine.begin_concurrent(step)`` returns it with the speculation
+    thread running and the job resumed; the caller steps freely (polling
+    :attr:`speculation_done`), then calls :meth:`finalize` for the
+    validate/patch pause and the atomic commit, or :meth:`abort` to
+    discard everything.  The committed image is bit-exact with the live
+    state at the validate pause.
+    """
+
+    def __init__(self, engine: SnapshotEngine, ctx: HookContext,
+                 writer: SnapshotWriter, pinned: Dict[str, Any],
+                 tracker: DirtyTracker):
+        self._engine = engine
+        self.ctx = ctx
+        self._writer = writer
+        self._pinned = pinned
+        self._tracker = tracker
+        self._stop = threading.Event()
+        self._spec_done = threading.Event()
+        self._spec_err: Optional[BaseException] = None
+        self._speculated: set = set()
+        self._done = False
+        self._obs_ctx = obs_trace.current_context()
+        self._thread = threading.Thread(target=self._speculate,
+                                        name="repro-spec-capture",
+                                        daemon=True)
+
+    def _start(self) -> None:
+        self._thread.start()
+
+    # ------------------------------------------------------------- state
+    @property
+    def step(self) -> int:
+        return self.ctx.step
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        return self.ctx.stats
+
+    @property
+    def speculation_done(self) -> bool:
+        """True once the background pass over the pinned tree finished
+        (finalize() after this point pays the smallest pause)."""
+        return self._spec_done.is_set()
+
+    def wait_speculated(self, timeout: Optional[float] = None) -> bool:
+        return self._spec_done.wait(timeout)
+
+    # -------------------------------------------------------- speculation
+    def _speculate(self) -> None:
+        backend = self._engine.device_plugin
+        t0 = time.perf_counter()
+        with obs_trace.context(**self._obs_ctx), \
+                obs_trace.span("dump.speculate", step=self.ctx.step) as sp:
+            try:
+                dev = getattr(self._engine.device_plugin, "device", None)
+                if dev is not None and dev.type == "cuda":
+                    torch.cuda.set_device(dev)       # an indexed device
+                for key, leaf in self._pinned.items():
+                    if self._stop.is_set():
+                        break
+                    if chaos_hooks.INJECTOR is not None:
+                        # chaos: mutation-storm site — a handler may mutate
+                        # the live leaf mid-speculation (it must note() it)
+                        chaos_hooks.fire("engine.speculate", key=key,
+                                         leaf=leaf, note=self._tracker.note,
+                                         step=self.ctx.step,
+                                         run_dir=self._engine.run_dir)
+                    state, path = key.split("::", 1)
+                    try:
+                        entry = backend.capture_entry(leaf)
+                    except RuntimeError:
+                        # freed or resized under us: the live value is
+                        # captured at the validate pause instead
+                        self._tracker.note(key)
+                        continue
+                    self._writer.put_state_entry(state, path, entry)
+                    self._speculated.add(key)
+                if not self._stop.is_set():
+                    # drain the pack pipeline while the job still runs:
+                    # finalize()'s own flush is then a no-op
+                    self._writer.flush()
+            except BaseException as e:
+                self._spec_err = e
+            finally:
+                self.ctx.stats["speculate_s"] = time.perf_counter() - t0
+                self.ctx.stats["speculated_entries"] = len(self._speculated)
+                sp.set(entries=len(self._speculated))
+                self._spec_done.set()
+
+    # ----------------------------------------------------------- finalize
+    def finalize(self) -> str:
+        """Validate pause: quiesce (the device synchronises), re-hash the
+        dirty entries against the speculated chunk CRCs, re-capture only
+        actual mismatches from the live tensors, dump host state, commit
+        atomically, resume.  Returns the snapshot directory.  Raises
+        CheckpointAborted (no image, job running) on lock timeout or an
+        unsafe op in flight."""
+        if self._done:
+            raise RuntimeError("concurrent capture already finalized")
+        eng = self._engine
+        ctx = self.ctx
+        backend = eng.device_plugin
+        t_val = time.perf_counter()
+        try:
+            ctx.roots = eng._provider()
+            with obs_trace.span("dump.pause", step=ctx.step,
+                                phase="validate"):
+                eng.registry.run(Hook.PAUSE_DEVICES, ctx)  # validate pause
+        except LockTimeout as e:
+            self._cleanup(unlock=False)
+            raise CheckpointAborted(str(e)) from e
+        except UnsafeOpInFlight as e:
+            self._cleanup(unlock=True)
+            raise CheckpointAborted(str(e)) from e
+        except Exception:
+            self._cleanup(unlock=True)
+            raise
+        try:
+            with obs_trace.span("dump.validate", step=ctx.step) as sp_val:
+                self._stop.set()
+                self._thread.join()
+                if self._spec_err is not None:
+                    raise self._spec_err
+                self._writer.flush()    # speculated chunk records final
+                # the post-lock tree is the commit point
+                ctx.roots = eng._provider()
+                live = backend.flatten_keys(ctx.roots)
+                if chaos_hooks.INJECTOR is not None:
+                    # chaos: validate site
+                    chaos_hooks.fire("engine.validate", step=ctx.step,
+                                     run_dir=eng.run_dir)
+                dirty = self._tracker.dirty_keys(live)
+                sp_val.set(dirty=len(dirty))
+            recaptured = recaptured_bytes = 0
+            with obs_trace.span("dump.patch", step=ctx.step) as sp_patch:
+                for key, leaf in live.items():
+                    if (key in dirty or key not in self._speculated
+                            or not isinstance(leaf, (torch.Tensor,
+                                                     np.ndarray))):
+                        state, path = key.split("::", 1)
+                        nb = self._writer.reput_state_entry(
+                            state, path, backend.capture_entry(leaf))
+                        if nb:
+                            recaptured += 1
+                            recaptured_bytes += nb
+                for key in self._pinned:
+                    if key not in live:  # structural drift: entry gone
+                        state, path = key.split("::", 1)
+                        self._writer.drop_state_entry(state, path)
+                sp_patch.set(recaptured=recaptured)
+            eng.registry.run(Hook.DUMP_EXT_STATE, ctx)
+            self._writer.write_host_state(ctx.host_state)
+            ctx.stats["host_bytes"] = float(
+                len(pack_host_blob(ctx.host_state)))
+            ctx.stats["dirty_entries"] = len(dirty)
+            ctx.stats["recaptured_entries"] = recaptured
+            ctx.stats["recaptured_bytes"] = float(recaptured_bytes)
+            ctx.stats["superseded_bytes"] = float(
+                self._writer.superseded_bytes)
+            ctx.stats["validate_pause_s"] = time.perf_counter() - t_val
+            ctx.stats["frozen_s"] = (ctx.stats["pin_pause_s"]
+                                     + ctx.stats["validate_pause_s"])
+            path = self._writer.commit(
+                topology=eng._topology(), stats=ctx.stats,
+                extra={"warnings": ctx.warnings,
+                       "mode": eng.mode,
+                       "incremental": eng.incremental,
+                       "capture": "concurrent",
+                       "capture_stats": {
+                           k: ctx.stats[k] for k in (
+                               "pin_pause_s", "validate_pause_s",
+                               "frozen_s", "speculate_s",
+                               "speculated_entries", "dirty_entries",
+                               "recaptured_entries", "recaptured_bytes",
+                               "superseded_bytes")
+                           if k in ctx.stats}})
+            ctx.stats["write_s"] = ctx.stats.get("speculate_s", 0.0)
+            eng._writer_stats(ctx, self._writer)
+        except Exception:
+            self._cleanup(unlock=True)
+            raise
+        # the fsync/rename is part of the pause the caller observed
+        ctx.stats["validate_pause_s"] = time.perf_counter() - t_val
+        ctx.stats["frozen_s"] = (ctx.stats["pin_pause_s"]
+                                 + ctx.stats["validate_pause_s"])
+        ctx.stats["locked_total_s"] = ctx.stats["frozen_s"]
+        eng.device_plugin.lock.unlock()                    # resume
+        backend.end_tracking()
+        # the speculation thread is joined and every copy it made has
+        # completed: the pinned (possibly replaced) tensors may go
+        self._tracker.reset()
+        self._pinned = {}
+        eng.registry.exit_all("dump", True)
+        t_begin = ctx.stats.pop("t_begin", t_val)
+        ctx.stats["total_s"] = time.perf_counter() - t_begin
+        eng._concurrent = None
+        self._done = True
+        eng._after_commit(ctx, path)
+        eng.last_stats = dict(ctx.stats)
+        eng._write_error = None
+        eng.last_commit_step = ctx.step
+        return path
+
+    # -------------------------------------------------------------- abort
+    def abort(self) -> None:
+        """Discard the capture: stop speculation, delete the open stripe
+        set, resume tracking-free.  The job never observes it."""
+        if self._done:
+            return
+        self._cleanup(unlock=False)
+
+    def _cleanup(self, unlock: bool) -> None:
+        eng = self._engine
+        self._stop.set()
+        self._thread.join(timeout=60.0)
+        self._writer.abort()
+        eng.device_plugin.end_tracking()
+        if not self._thread.is_alive():
+            # a copy may still read the pinned tensors while it runs
+            self._tracker.reset()
+            self._pinned = {}
+        if unlock:
+            eng.device_plugin.lock.unlock()
+        eng.registry.exit_all("dump", False)
+        eng._concurrent = None
+        self._done = True

@@ -6,19 +6,24 @@ Layout:
     host0000.pack.0..N-1  — this host's payloads, striped (pack v2)
     host0000.pack         — legacy v1 single-file layout (read only)
 
+Incremental mode (Check-N-Run-style): unchanged entries (by content CRC)
+are not rewritten; the manifest's ``locations`` point them at the pack of
+an earlier image, forming a delta chain that the reader resolves.
+Partially changed entries dedup at chunk grain: unchanged chunks (matched
+by their raw CRC, which doubles as the content hash) become ``ref``
+records into the parent's stripes.
+
 The writer is the serialization stage of the pipelined data plane: entries
 are chunked and handed to ``serialization.pack.PackWriterV2``, whose
 compress workers and per-stripe appenders overlap CRC/compression with
-file I/O.  The reader follows the manifest's ``locations`` (so incremental
-images the JAX package wrote, whose entries live in earlier steps' packs,
-restore too) and fans chunk reads out to ``io_threads``.
+file I/O.  The reader follows the manifest's ``locations`` and fans chunk
+reads out to ``io_threads``; it also serves the lazy restore's schedule
+(``restore_order``, ``entry_schedule``, ``verify_entries``).
 
 Host blobs (``__meta__``, ``__host__``) are msgpack with numpy arrays as
 ``{"__np__": True, "dtype", "shape", "data"}`` maps — the reference's
 ``_mp_default`` encoding — through the port's ``msgpack_lite``.
 
-Not ported yet: incremental writes (chunk dedup against a parent image),
-the concurrent-capture patch path, and the lazy-restore schedule.
 """
 from __future__ import annotations
 
@@ -26,14 +31,15 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.chaos import hooks as chaos_hooks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serialization import msgpack_lite
-from repro_torch.serialization.integrity import atomic_write_json, read_json
+from repro_torch.serialization.integrity import (atomic_write_json, crc32,
+                                                 read_json)
 from repro_torch.serialization.pack import (DEFAULT_CHUNK_BYTES, PackWriterV2,
                                             open_pack)
 
@@ -82,9 +88,13 @@ def _loc_step(loc: str) -> int:
 
 
 # ---------------------------------------------------------------- writer
+_NEVER_SPECULATED = object()
+
+
 class SnapshotWriter:
     def __init__(self, run_dir: str, step: int, host_id: int = 0,
                  compress: bool = False,
+                 prev_manifest: Optional[Dict[str, Any]] = None,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
                  stripes: int = 2, io_threads: int = 0):
         self.run_dir = run_dir
@@ -102,23 +112,125 @@ class SnapshotWriter:
         self.stripes = stripes
         self.locations: Dict[str, str] = {}
         self.meta: Dict[str, Any] = {}
+        # incremental: entry -> (crc, location) in the parent image
+        self._prev: Dict[str, Any] = {}
+        self.parent_step: Optional[int] = None
+        if prev_manifest is not None:
+            self.parent_step = prev_manifest["step"]
+            self._prev = {
+                name: {"crc": crc, "loc": prev_manifest["locations"][name]}
+                for name, crc in prev_manifest.get("entry_crcs", {}).items()}
+        self._parent_packs: Dict[str, Any] = {}      # loc -> reader | None
         self.entry_crcs: Dict[str, int] = {}
+        self.reused_bytes = 0
         self.written_bytes = 0
+        self._hash_s = 0.0
         # restore-priority hint: entry names in registration order, with
-        # per-entry raw sizes (read by the reference's lazy restore)
+        # per-entry raw sizes (the lazy restore's schedule)
         self.restore_order: List[str] = []
         self.entry_bytes: Dict[str, int] = {}
+        # per-entry chunk CRCs as speculated/written — the concurrent
+        # validate pass compares live bytes against these (None marks a
+        # v1-parent reuse where only the whole-entry CRC is known)
+        self.spec_crcs: Dict[str, Optional[List[int]]] = {}
+
+    # --------------------------------------------------- chunk-level dedup
+    def _parent_entry(self, name: str) -> Optional[Tuple[Dict[str, Any],
+                                                          str]]:
+        """(parent entry record, parent pack loc) if the parent holds this
+        entry in a v2 pack with matching chunking, else None."""
+        prev = self._prev.get(name)
+        if prev is None:
+            return None
+        loc = prev["loc"]
+        if loc not in self._parent_packs:
+            reader = None
+            try:
+                r = open_pack(os.path.join(self.run_dir, "snapshots", loc))
+                if r.format == 2 and r.chunk_bytes == self.chunk_bytes:
+                    reader = r
+                else:
+                    r.close()
+            except (OSError, ValueError):
+                reader = None
+            self._parent_packs[loc] = reader
+        reader = self._parent_packs[loc]
+        if reader is None or name not in reader.index:
+            return None
+        return reader.entry(name), loc
+
+    def _chunk_crcs(self, flat) -> List[int]:
+        t0 = time.perf_counter()
+        mv = memoryview(flat).cast("B")
+        C = self.chunk_bytes
+        crcs = [crc32(mv[o:o + C]) for o in range(0, len(mv), C)]
+        self._hash_s += time.perf_counter() - t0
+        return crcs
+
+    def _whole_crc(self, flat) -> int:
+        t0 = time.perf_counter()
+        c = crc32(memoryview(flat).cast("B"))
+        self._hash_s += time.perf_counter() - t0
+        return c
+
+    def _reuse(self, name: str, crc: int, nbytes: int,
+               spec: Optional[List[int]]) -> None:
+        self.entry_crcs[name] = crc
+        self.locations[name] = self._prev[name]["loc"]   # delta: entry reuse
+        self.reused_bytes += nbytes
+        self.spec_crcs[name] = spec
 
     def _put(self, name: str, data: np.ndarray, dtype: str) -> None:
-        self._writer.add(name, data, dtype=dtype)
+        """Write one pack entry, or reuse the parent's: hash once, at
+        chunk grain, and make both reuse decisions from that single pass
+        (whole-entry reuse = every chunk matches; partial = the pack
+        writer refs the matching chunks)."""
+        raw, flat = PackWriterV2._flat(data)
         self.restore_order.append(name)
-        self.entry_bytes[name] = int(data.nbytes)
+        self.entry_bytes[name] = int(raw.nbytes)
+        prev = self._prev.get(name)
+        parent = self._parent_entry(name) if prev is not None else None
+        if parent is not None:
+            crcs = self._chunk_crcs(flat)
+            pchunks = parent[0]["chunks"]
+            if (parent[0]["raw_nbytes"] == raw.nbytes
+                    and len(crcs) == len(pchunks)
+                    and all(c == p.get("raw_crc32")
+                            for c, p in zip(crcs, pchunks))):
+                self._reuse(name, parent[0]["crc32"], raw.nbytes, crcs)
+                return
+            self._writer.add(name, raw, dtype=dtype, parent=parent,
+                             chunk_crcs=crcs)
+        elif prev is not None:
+            # parent exists but is v1 / differently chunked: the
+            # whole-entry CRC is all the dedup available
+            c = self._whole_crc(flat)
+            if prev["crc"] == c:
+                self._reuse(name, c, raw.nbytes, None)
+                return
+            self._writer.add(name, raw, dtype=dtype)
+        else:
+            self._writer.add(name, raw, dtype=dtype)
+        self._record_written(name, raw)
+        self.spec_crcs[name] = self._writer.raw_crcs(name)
+
+    def _record_written(self, name: str, raw: np.ndarray) -> None:
         self.entry_crcs[name] = self._writer.entry_crc(name)
         self.locations[name] = self._loc
-        self.written_bytes += data.nbytes
+        self.written_bytes += raw.nbytes
 
-    def put_state_entry(self, state: str, path: str,
-                        e: Dict[str, Any]) -> None:
+    @staticmethod
+    def _pieces(state: str, path: str, e: Dict[str, Any]
+                ) -> List[Tuple[str, np.ndarray, Optional[str]]]:
+        """(pack entry name, data, stored dtype) of one captured leaf."""
+        if e["kind"] == "device_array":
+            return [(f"{state}::{path}::s{i}", s["data"], e["dtype"])
+                    for i, s in enumerate(e["shards"])]
+        if e["kind"] == "np":
+            return [(f"{state}::{path}::np", e["data"], None)]
+        return []
+
+    def _set_meta(self, state: str, path: str, e: Dict[str, Any]) -> None:
         meta = self.meta.setdefault(state, {})
         if e["kind"] == "device_array":
             meta[path] = {
@@ -126,13 +238,18 @@ class SnapshotWriter:
                 "dtype": e["dtype"], "sharding": e["sharding"],
                 "shards": [s["index"] for s in e["shards"]],
             }
-            for i, s in enumerate(e["shards"]):
-                self._put(f"{state}::{path}::s{i}", s["data"], e["dtype"])
         elif e["kind"] == "np":
             meta[path] = {"kind": "np"}
-            self._put(f"{state}::{path}::np", e["data"], None)
         else:
             meta[path] = {"kind": "host", "value": e["value"]}
+
+    def put_state_entry(self, state: str, path: str,
+                        e: Dict[str, Any]) -> None:
+        """Write one captured leaf (the concurrent speculation loop streams
+        entries one at a time; write_states is the batch form)."""
+        self._set_meta(state, path, e)
+        for name, data, dtype in self._pieces(state, path, e):
+            self._put(name, data, dtype)
 
     def write_states(self, device_snapshot: Dict[str, Dict[str, Any]]) -> None:
         """device_snapshot: state_name -> {leafpath -> captured entry}."""
@@ -141,12 +258,84 @@ class SnapshotWriter:
             for path, e in entries.items():
                 self.put_state_entry(state, path, e)
 
+    def flush(self) -> None:
+        """Drain the pack pipeline without closing it: every speculated
+        chunk record is populated, the stripe set stays open for
+        re-capture (concurrent capture's validate/patch boundary)."""
+        self._writer.flush()
+
+    def reput_state_entry(self, state: str, path: str,
+                          e: Dict[str, Any]) -> int:
+        """Validate one dirtied leaf against the speculated image and
+        patch only the pieces whose content hash changed (the patch phase
+        of concurrent capture).  Returns the raw bytes re-captured (0 =
+        the speculation validated bit-exact).  Call flush() first."""
+        if e["kind"] == "host":
+            # host leaves are tiny python values: always refresh
+            self._set_meta(state, path, e)
+            return 0
+        recaptured = 0
+        for name, data, dtype in self._pieces(state, path, e):
+            raw, flat = PackWriterV2._flat(data)
+            crcs = self._chunk_crcs(flat)
+            spec = self.spec_crcs.get(name, _NEVER_SPECULATED)
+            if (spec is not _NEVER_SPECULATED and spec is not None
+                    and crcs == spec
+                    and self.entry_bytes.get(name) == raw.nbytes):
+                continue                     # speculation validated
+            if spec is None and self._whole_crc(flat) == \
+                    self.entry_crcs.get(name):
+                continue                     # v1-parent reuse still valid
+            if spec is _NEVER_SPECULATED:
+                # structural drift: a leaf that did not exist at pin
+                self._put(name, raw, dtype)
+            elif self.locations.get(name) != self._loc:
+                # was reused from the parent image: pull it into this
+                # pack now (the parent copy no longer matches)
+                self.reused_bytes -= self.entry_bytes.get(name, raw.nbytes)
+                self._writer.add(name, raw, dtype=dtype,
+                                 parent=self._parent_entry(name),
+                                 chunk_crcs=crcs)
+                self._record_written(name, raw)
+                self.spec_crcs[name] = crcs
+            else:
+                # speculated into this pack: append-only patch, with the
+                # old record as dedup parent so untouched chunks stay as
+                # self-references
+                self._writer.replace(name, raw, dtype=dtype,
+                                     own_loc=self._loc, chunk_crcs=crcs)
+                self.entry_crcs[name] = self._writer.entry_crc(name)
+                self.spec_crcs[name] = crcs
+            recaptured += raw.nbytes
+            self.entry_bytes[name] = int(raw.nbytes)
+        # refresh shape/sharding metadata alongside the patched bytes
+        self._set_meta(state, path, e)
+        return recaptured
+
+    def drop_state_entry(self, state: str, path: str) -> None:
+        """Remove a leaf from the image metadata (concurrent capture: the
+        entry vanished from the live tree between pin and validate).  Any
+        speculated bytes stay in the pack as dead data; restore only
+        follows the metadata."""
+        self.meta.get(state, {}).pop(path, None)
+
+    @property
+    def superseded_bytes(self) -> int:
+        return self._writer.superseded_bytes
+
     def write_host_state(self, host_state: Dict[str, Any]) -> None:
         blob = pack_host_blob(host_state)
         self._writer.add_bytes("__host__", blob)
         self.locations["__host__"] = self._loc
+        # host blobs restore last in the lazy schedule (coldest priority)
         self.restore_order.append("__host__")
         self.entry_bytes["__host__"] = len(blob)
+
+    def _close_parent_packs(self) -> None:
+        for r in self._parent_packs.values():
+            if r is not None:
+                r.close()
+        self._parent_packs.clear()
 
     def commit(self, topology: Dict[str, Any],
                stats: Optional[Dict[str, Any]] = None,
@@ -155,6 +344,14 @@ class SnapshotWriter:
             self._writer.add_bytes("__meta__", pack_host_blob(self.meta))
             self.locations["__meta__"] = self._loc
             self._writer.close()
+            self._close_parent_packs()
+            reused_chunks = self._writer.reused_chunk_bytes
+            self.written_bytes -= reused_chunks
+            self.reused_bytes += reused_chunks
+            # every step this image's bytes live in (locations = entry
+            # reuse; chunk refs = chunk reuse): GC keeps them all
+            ref_steps = {_loc_step(loc) for loc in self.locations.values()}
+            ref_steps.update(_loc_step(loc) for loc in self._writer.ref_locs)
             manifest = {
                 "format": 2,
                 "step": self.step,
@@ -162,14 +359,14 @@ class SnapshotWriter:
                 "topology": topology,
                 "has_device_state": True,      # inventory flag (paper §3.1.1)
                 "states": sorted(self.meta),
-                "parent": None,
+                "parent": self.parent_step,
                 "locations": self.locations,
                 "entry_crcs": self.entry_crcs,
                 "files": self.files,
                 "stats": dict(stats or {}),
-                "reused_bytes": 0,
+                "reused_bytes": self.reused_bytes,
                 "written_bytes": self.written_bytes,
-                "ref_steps": [self.step],
+                "ref_steps": sorted(ref_steps),
                 "restore_order": self.restore_order,
                 "entry_bytes": self.entry_bytes,
                 "chunk_bytes": self.chunk_bytes,
@@ -193,7 +390,19 @@ class SnapshotWriter:
     def io_s(self) -> float:
         return self._writer.io_s
 
+    @property
+    def hash_s(self) -> float:
+        """Caller-thread time spent CRC-ing raw bytes (the dedup pass and
+        the pack writer's chunk and entry CRCs); compress workers' CRCs of
+        the stored bytes are in neither this nor io_s."""
+        return self._hash_s + self._writer.hash_s
+
+    @property
+    def stripe_bytes(self) -> List[int]:
+        return list(self._writer.stripe_bytes)
+
     def abort(self) -> None:
+        self._close_parent_packs()
         self._writer.abort()
 
 
@@ -262,6 +471,59 @@ class SnapshotReader:
     def entry_names(self, state: str) -> List[str]:
         return list(self.meta[state])
 
+    # ------------------------------------------------------- lazy schedule
+    def restore_order(self) -> List[str]:
+        """Pack-entry names, most-critical first: the manifest's
+        ``restore_order`` hint (dump-time registration order), derived
+        from the meta tables for images that predate the hint."""
+        order = self.manifest.get("restore_order")
+        if order:
+            return list(order)
+        out: List[str] = []
+        for state in self.state_names():
+            for path in self.meta[state]:
+                out.extend(self.pack_entries(state, path))
+        out.append("__host__")
+        return out
+
+    def pack_entries(self, state: str, path: str) -> List[str]:
+        """The pack-entry names backing one logical (state, path) leaf."""
+        m = self.meta[state][path]
+        if m["kind"] == "device_array":
+            return [f"{state}::{path}::s{i}"
+                    for i in range(len(m["shards"]))]
+        if m["kind"] == "np":
+            return [f"{state}::{path}::np"]
+        return []                          # host value: lives in the meta
+
+    def entry_schedule(self) -> List[Tuple[str, str]]:
+        """Every logical (state, path) leaf, ordered by restore priority —
+        the lazy materializer's streaming order.  Meta-resident host
+        values sort first (they cost no I/O)."""
+        prio = {n: i for i, n in enumerate(self.restore_order())}
+        items: List[Tuple[str, str, int]] = []
+        for state in self.state_names():
+            for path in self.meta[state]:
+                names = self.pack_entries(state, path)
+                items.append((state, path, min(
+                    (prio.get(n, len(prio)) for n in names), default=-1)))
+        items.sort(key=lambda t: t[2])
+        return [(s, p) for s, p, _ in items]
+
+    def entry_nbytes(self, state: str, path: str) -> int:
+        """Raw payload bytes of one logical leaf (0 for meta-resident
+        host values)."""
+        sizes = self.manifest.get("entry_bytes", {})
+        total = 0
+        for n in self.pack_entries(state, path):
+            if n in sizes:
+                total += int(sizes[n])
+            else:                          # image without the hint
+                pack = self._pack_for(self.manifest["locations"][n])
+                total += int(pack.entry_nbytes(n)) \
+                    if pack.format == 2 else 0
+        return total
+
     def load_entry(self, state: str, path: str) -> Dict[str, Any]:
         m = self.meta[state][path]
         if m["kind"] == "device_array":
@@ -289,7 +551,13 @@ class SnapshotReader:
     def verify_all(self) -> None:
         """CRC-check every entry the manifest references, so a torn image
         is rejected before restore chooses it."""
-        names = list(self.manifest["locations"])
+        self.verify_entries(list(self.manifest["locations"]))
+
+    def verify_entries(self, names: List[str]) -> None:
+        """CRC-check a subset of pack entries.  The lazy restore
+        pre-verifies only the critical set (plus ``__host__`` and
+        ``__meta__``) before resuming the job; background entries keep
+        the same guarantee because every chunk read re-checks its CRC."""
         if self._io_threads > 1 and len(names) > 1:
             from concurrent.futures import ThreadPoolExecutor
             # a pool distinct from the chunk executor: entry tasks block on
@@ -330,6 +598,21 @@ class SnapshotStore:
         # serializes gc against restore scans on this store (the async
         # writer thread gc's while restore() may be reading)
         self.lock = threading.RLock()
+        # steps a lazy restore stream still reads from: gc keeps them (and
+        # their parents) without blocking behind a long-running restore
+        self._pins: Dict[int, int] = {}
+
+    def pin(self, step: int) -> None:
+        with self.lock:
+            self._pins[step] = self._pins.get(step, 0) + 1
+
+    def unpin(self, step: int) -> None:
+        with self.lock:
+            n = self._pins.get(step, 0) - 1
+            if n <= 0:
+                self._pins.pop(step, None)
+            else:
+                self._pins[step] = n
 
     def list_steps(self) -> List[int]:
         try:
@@ -365,14 +648,16 @@ class SnapshotStore:
 
     def gc(self, keep: int = 3) -> List[int]:
         """Remove old snapshots, never breaking a parent chain that a kept
-        image (a JAX-written incremental one) still reads from.  The
-        manifest is unlinked before the payload, so other readers see an
-        image vanish whole rather than turn corrupt."""
+        image still reads from (entry- or chunk-level), and never a step
+        a lazy restore has pinned.  The manifest is unlinked before the
+        payload, so other readers see an image vanish whole rather than
+        turn corrupt."""
         with self.lock:
             steps = self.list_steps()
             if len(steps) <= keep:
                 return []
             keep_steps = set(steps[-keep:])
+            keep_steps.update(s for s in self._pins if s in steps)
             changed = True
             while changed:
                 changed = False

@@ -14,7 +14,9 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); else as given."""
+    """``None`` -> ``cuda`` (raises without a card); else as given.  A
+    CUDA device comes back with its index (``cuda`` alone: the current
+    one), so threads the port starts select the same card."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -25,6 +27,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available")
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -8,8 +8,11 @@ processes for fast cold start).  Images match the reference's: state
 ``serve_state/{params,cache}`` and host state ``decode_cursor``, so a
 server of either package resumes the other's generation.
 
-Runs on ``cuda`` unless the caller passes ``device="cpu"``.  Lazy restore
-is not ported yet (``restore_mode="lazy"`` is rejected by the options).
+Runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
+``restore_mode="lazy"`` a restore resumes on the params (the default
+critical set ``serve_state/params``) while the cache streams in behind;
+the first decode step, a checkpoint or a preempt dump joins the stream
+first.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.api import CheckpointOptions, CheckpointSession
 from repro_torch.api.session import SnapshotWriteFailed
+from repro_torch.core.lazy import covers
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
@@ -45,8 +49,15 @@ class DecodeServer:
         self.cache = None
         self.tokens: Optional[np.ndarray] = None       # generated so far
         self.pos = 0
+        if (options is not None and options.restore_mode == "lazy"
+                and options.critical_states is None):
+            # resume-before-read default: the decode loop touches params
+            # at once; the (large) cache streams in behind the server
+            options = options.replace(
+                critical_states=("serve_state/params",))
         self.session = CheckpointSession(run_dir, options,
                                          device=self.device)
+        self._pending_cache_template = None   # lazy: cache still streaming
         self.session.attach(lambda: {"serve_state": {
             "params": self.params, "cache": self.cache}})
         self.session.register_host_state(
@@ -116,6 +127,9 @@ class DecodeServer:
                     f"async snapshot write failed at pos {self.pos}: "
                     f"{self.session.write_error}")
             if preempt is not None and preempt():
+                # a dump captures the live roots: the streaming cache
+                # must have landed before the freeze
+                self._finish_lazy_restore()
                 with self.session.frozen(self.pos) as snap:
                     pass                               # dump-and-yield
                 ckpt_path = snap.path
@@ -125,6 +139,7 @@ class DecodeServer:
                 raise SimulatedFailure(f"injected failure at pos {self.pos}")
             if straggle_at is not None and self.pos == straggle_at:
                 time.sleep(0.25)                   # injected straggler
+            self._finish_lazy_restore()   # first touch of the cache
             last = torch.as_tensor(self.tokens[:, -1], dtype=torch.long,
                                    device=self.device)
             logits, self.cache = self.model.decode_step(
@@ -143,6 +158,8 @@ class DecodeServer:
 
     # ------------------------------------------------------------- ckpt
     def checkpoint(self, tag: int = 0) -> str:
+        # the image must pair the restored params with the restored cache
+        self._finish_lazy_restore()
         return self.session.checkpoint(tag)
 
     def _boot_template(self, template):
@@ -166,6 +183,22 @@ class DecodeServer:
         decode cursor: no prefill re-execution."""
         template = {"params": self.params, "cache": self.cache}
         engine = self.session.engine
+        if self.session.options.restore_mode == "lazy":
+            # resume-before-read: params place now, the cache streams
+            # behind the server and is joined before the first decode step
+            restored = self.session.restore(step=step, wait="critical")
+            template = self._boot_template(template)
+            if not covers(self.session.options.critical_states,
+                          "serve_state", "params", template["params"]):
+                # the critical set leaves params leaves in the stream
+                restored = self.session.restore_barrier()
+            raw = restored["serve_state"]
+            self.params = engine.retree(template["params"], raw["params"])
+            if self.session.lazy_pending:
+                self._pending_cache_template = template["cache"]
+            else:
+                self.cache = engine.retree(template["cache"], raw["cache"])
+            return self.pos
         if template["params"] is None or template["cache"] is None:
             raw = self.session.restore(step=step)["serve_state"]
             template = self._boot_template(template)
@@ -177,3 +210,13 @@ class DecodeServer:
         self.params = restored["params"]
         self.cache = restored["cache"]
         return self.pos
+
+    def _finish_lazy_restore(self) -> None:
+        """Join the background stream and adopt the streamed cache."""
+        if self._pending_cache_template is None:
+            return
+        template, self._pending_cache_template = \
+            self._pending_cache_template, None
+        full = self.session.restore_barrier()
+        self.cache = self.session.engine.retree(
+            template, full["serve_state"]["cache"])

@@ -17,9 +17,14 @@ the other's run.
 Grads come from ``torch.autograd.grad`` on views of the params (the
 counterpart of ``jax.value_and_grad``; nothing accumulates in ``.grad``),
 and AdamW updates params and moments in place.  Runs on ``cuda`` unless
-the caller passes ``device="cpu"``.  Lazy restore and concurrent capture
-are not ported yet (the options reject them), so neither are the
-reference's branches for them.
+the caller passes ``device="cpu"``.
+
+With ``restore_mode="lazy"`` a restore resumes on the params (the default
+critical set ``train_state/params``) while the optimizer state streams in
+behind; the first step or a preempt dump joins the stream first.  With
+``capture="concurrent"`` a periodic checkpoint is a soft-freeze capture
+begun at the step and finalized between later steps once its speculation
+is done (and at the end of ``run_until``).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 from repro_torch.api import CheckpointOptions, CheckpointSession
 from repro_torch.api.session import SnapshotWriteFailed
 from repro_torch.core.device_plugin import flatten_with_paths, unflatten_like
+from repro_torch.core.lazy import covers
 from repro_torch.core.snapshot_io import snapshot_dir
 from repro_torch.data import TokenPipeline
 from repro_torch.devices import DeviceLike, resolve_device
@@ -100,9 +106,17 @@ class Trainer:
         self.metrics_history: Dict[str, list] = {"loss": []}
         self.straggler = StragglerMonitor()
         if session is None:
-            session = CheckpointSession(run_dir, tcfg.ckpt,
-                                        device=self.device)
+            opts = tcfg.ckpt
+            if (opts.restore_mode == "lazy"
+                    and opts.critical_states is None):
+                # resume-before-read default: the first step's forward
+                # touches params; the optimizer state streams in behind
+                opts = opts.replace(critical_states=("train_state/params",))
+            session = CheckpointSession(run_dir, opts, device=self.device)
         self.session = session
+        # lazy restore: the optimizer template whose leaves are still
+        # streaming; joined right before the first step runs
+        self._pending_opt_template = None
         self.engine = session.engine
         # transparent wiring: live state via provider, host bits via plugins
         self.session.attach(lambda: {"train_state": {
@@ -134,18 +148,49 @@ class Trainer:
     def restore(self, step: Optional[int] = None) -> int:
         """Unified restore (the session pushes host state back through
         its plugins); a trainer with nothing loaded takes its tree
-        structure from abstract templates."""
+        structure from abstract templates.  In lazy mode this returns
+        once the critical set (by default the params) is placed; the
+        optimizer state keeps streaming and is joined right before the
+        first step (resume-before-read)."""
         if self.params is None:
             abstract = self.model.init_abstract()
             template = {"params": abstract,
                         "opt": self.opt.init_abstract(abstract)}
         else:
             template = {"params": self.params, "opt": self.opt_state}
+        if self.session.options.restore_mode == "lazy":
+            restored = self.session.restore(step=step, wait="critical")
+            engine = self.session.engine
+            if not covers(self.session.options.critical_states,
+                          "train_state", "params", template["params"]):
+                # a critical set that leaves params leaves in the stream:
+                # join it, decided by the spec and not by which leaves
+                # happen to have landed
+                restored = self.session.restore_barrier()
+            raw = restored["train_state"]
+            self.params = engine.retree(template["params"], raw["params"])
+            if self.session.lazy_pending:
+                self._pending_opt_template = template["opt"]
+            else:
+                self.opt_state = engine.retree(template["opt"], raw["opt"])
+            return self.step
         restored = self.session.restore_into(template, state="train_state",
                                              step=step)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         return self.step
+
+    def _finish_lazy_restore(self) -> None:
+        """Join the background stream and adopt the streamed optimizer
+        state — on first touch (right before the first step, or before a
+        preempt dump captures the live roots)."""
+        if self._pending_opt_template is None:
+            return
+        template, self._pending_opt_template = \
+            self._pending_opt_template, None
+        full = self.session.restore_barrier()
+        self.opt_state = self.session.engine.retree(
+            template, full["train_state"]["opt"])
 
     def _batch(self) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(v).to(self.device)
@@ -177,7 +222,17 @@ class Trainer:
                 raise SnapshotWriteFailed(
                     f"async snapshot write failed at step {self.step}: "
                     f"{self.session.write_error}")
+            handle = self.session.concurrent_capture
+            if handle is not None and handle.speculation_done:
+                # the soft-freeze capture finished speculating: take its
+                # short validate pause now, between steps
+                self.session.checkpoint_finalize()
             if preempt is not None and preempt():
+                # a dump captures the live roots: the streamed optimizer
+                # state must have landed, and an open soft-freeze capture
+                # must settle (its validate pause re-reads the roots)
+                self._finish_lazy_restore()
+                self.session.checkpoint_finalize()
                 if (self.session.last_commit_step == self.step
                         and self.session.latest_step() == self.step):
                     # THIS incarnation committed an image of this exact
@@ -193,6 +248,9 @@ class Trainer:
             if fail_at is not None and self.step == fail_at:
                 raise SimulatedFailure(f"injected failure at {self.step}")
             batch = self._batch()
+            # first touch: batch prep (and everything since restore
+            # returned) overlapped the optimizer state's stream
+            self._finish_lazy_restore()
             t0 = time.perf_counter()
             if straggle_at is not None and self.step == straggle_at:
                 time.sleep(0.25)                       # injected straggler
@@ -206,7 +264,15 @@ class Trainer:
                 self.jit_ckpt.on_signal(self.step)     # just-in-time ckpt
             if (self.tcfg.ckpt_every
                     and self.step % self.tcfg.ckpt_every == 0):
-                self.session.checkpoint(self.step)
+                if self.session.options.capture == "concurrent":
+                    # soft-freeze: brief pin pause, then the loop keeps
+                    # stepping while the image is speculated; finalized
+                    # by the poll above or the settle below
+                    self.session.checkpoint_begin(self.step)
+                else:
+                    self.session.checkpoint(self.step)
+        # never leave a capture half-done across run_until boundaries
+        self.session.checkpoint_finalize()
         return {"steps": executed, "step": self.step,
                 "preempted": preempted, "ckpt_path": ckpt_path,
                 "loss": (self.metrics_history["loss"][-1]

@@ -14,11 +14,13 @@ footer holds the full logical index::
                         chunks: [{stripe, offset, nbytes, raw_nbytes,
                                   crc32, raw_crc32, codec, ref?}, ...]}}}
 
-A chunk with a ``ref`` lives in an earlier image's pack (an incremental
-image of the JAX package); the reader follows it.  :class:`PackWriterV2`
-runs a bounded pipeline (caller thread chunks + hashes -> compress/CRC
-workers -> one appender thread per stripe), so compression overlaps file
-I/O.
+A chunk with a ``ref`` lives in another image's pack (an incremental
+image, or this pack's own earlier record after a concurrent capture's
+patch); the reader follows it.  Given the same-named entry of a parent
+pack, :class:`PackWriterV2` writes a chunk whose raw CRC matches the
+parent's as a ``ref`` record and no bytes.  It runs a bounded pipeline
+(caller thread chunks + hashes -> compress/CRC workers -> one appender
+thread per stripe), so compression overlaps file I/O.
 
 Differences from the reference: indexes go through the port's own
 ``msgpack_lite`` (the same bytes); the codec is zlib only, and a
@@ -201,9 +203,20 @@ class PackWriterV2:
         self._closed = False
         self._errors: List[BaseException] = []
         self._rr = 0                                  # round-robin stripe
+        self.reused_chunk_bytes = 0
+        self.ref_locs: set = set()
         self.compress_s = 0.0
         self.io_s = 0.0
+        self.hash_s = 0.0                # caller-thread raw-byte CRCs
+        self.stripe_bytes = [0] * stripes
         self._stats_lock = threading.Lock()
+        # per-entry raw chunk CRCs, kept out of the records (the footer
+        # serializes _entries verbatim); the concurrent-capture validate
+        # pass re-hashes live bytes against these
+        self._raw_crcs: Dict[str, List[int]] = {}
+        self.superseded_bytes = 0        # dead bytes left by replace()
+        self._outstanding = 0            # chunks still in the pipeline
+        self._flush_cv = threading.Condition()
 
         workers = max(1, workers)
         self._comp_q: "queue.Queue" = queue.Queue(maxsize=workers * 4)
@@ -259,6 +272,7 @@ class PackWriterV2:
                         return
                     rec, j, part, stripe, rcrc = item
                     if self._errors:
+                        self._chunk_done()
                         continue                       # drain without work
                     data, codec = self._compress_one(part)
                     self._put(self._stripe_qs[stripe],
@@ -277,6 +291,7 @@ class PackWriterV2:
                         return
                     rec, j, data, raw_n, scrc, rcrc, codec = item
                     if self._errors:
+                        self._chunk_done()
                         continue
                     t0 = time.perf_counter()
                     off = f.tell()
@@ -289,18 +304,49 @@ class PackWriterV2:
                                          stripe=k, base=self.base)
                     with self._stats_lock:
                         self.io_s += time.perf_counter() - t0
+                        self.stripe_bytes[k] += len(data)
                     rec["chunks"][j] = {
                         "stripe": k, "offset": off, "nbytes": len(data),
                         "raw_nbytes": raw_n, "crc32": scrc,
                         "raw_crc32": rcrc, "codec": codec,
                     }
                     obs_metrics.counter_add("pack.chunks")
+                    self._chunk_done()
         except BaseException as e:                     # pragma: no cover
             self._errors.append(e)
 
+    def _chunk_done(self) -> None:
+        with self._flush_cv:
+            self._outstanding -= 1
+            self._flush_cv.notify_all()
+
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """Block until every enqueued chunk has landed in its stripe file
+        (records fully populated) without closing the pack: the
+        concurrent-capture validate pass needs the speculated chunk
+        records while the stripe set stays open for re-capture."""
+        deadline = (time.perf_counter() + timeout) if timeout else None
+        with obs_trace.span("pack.flush", outstanding=self._outstanding), \
+                self._flush_cv:
+            while self._outstanding > 0 and not self._errors:
+                if deadline is not None and time.perf_counter() > deadline:
+                    raise TimeoutError(
+                        f"{self.base}: flush timed out with "
+                        f"{self._outstanding} chunk(s) still in flight")
+                self._flush_cv.wait(timeout=0.1)
+        if self._errors:
+            raise self._errors[0]
+
     # ---------------------------------------------------------------- add
     def _add_blob(self, name: str, raw, dtype: Optional[str],
-                  shape: Optional[list]) -> None:
+                  shape: Optional[list],
+                  parent: Optional[Tuple[Dict[str, Any], str]] = None,
+                  chunk_crcs: Optional[List[int]] = None) -> None:
+        """`parent` = (the same-named entry's record in a parent pack, that
+        pack's location "step_XXXXXXXX/hostYYYY.pack"), offered only when
+        the parent is v2 with the same chunk size: a chunk whose raw CRC
+        and size match the parent's becomes a ``ref`` record and no bytes
+        are written for it."""
         if self._closed:
             raise RuntimeError(f"{self.base}: pack already closed")
         if self._errors:
@@ -314,32 +360,104 @@ class PackWriterV2:
             "raw_nbytes": n, "crc32": 0, "chunks": [None] * nchunks,
         }
         self._entries[name] = rec
+        prev_chunks = parent[0]["chunks"] if parent else []
         running = 0
+        raw_crcs: List[int] = []
+        hash_s = 0.0
         for j in range(nchunks):
             part = mv[j * C:(j + 1) * C]
-            rcrc = crc32(part)
+            t0 = time.perf_counter()
+            rcrc = chunk_crcs[j] if chunk_crcs else crc32(part)
             running = crc32(part, running)
+            hash_s += time.perf_counter() - t0
+            raw_crcs.append(rcrc)
+            p = prev_chunks[j] if j < len(prev_chunks) else None
+            if (p is not None and p.get("raw_crc32") == rcrc
+                    and p["raw_nbytes"] == len(part)):
+                c = dict(p)                           # chunk-level dedup
+                c.setdefault("ref", parent[1])
+                rec["chunks"][j] = c
+                self.reused_chunk_bytes += len(part)
+                self.ref_locs.add(c["ref"])
+                continue
             stripe = self._rr
             self._rr = (self._rr + 1) % self.stripes
+            with self._flush_cv:
+                self._outstanding += 1
             self._put(self._comp_q, (rec, j, part, stripe, rcrc))
         rec["crc32"] = running            # == crc32 of the full raw bytes
+        self._raw_crcs[name] = raw_crcs
+        self.hash_s += hash_s
+
+    @staticmethod
+    def _flat(array: np.ndarray):
+        arr = np.asarray(array, order="C")   # (keeps a 0-d array 0-d)
+        return arr, (arr.reshape(-1).view(np.uint8) if arr.size else b"")
 
     def add(self, name: str, array: np.ndarray,
-            dtype: Optional[str] = None) -> None:
+            dtype: Optional[str] = None,
+            parent: Optional[Tuple[Dict[str, Any], str]] = None,
+            chunk_crcs: Optional[List[int]] = None) -> None:
         """Append one array; `dtype` overrides the stored dtype name (a
         bf16 tensor arrives as uint16 bits with dtype ``"bfloat16"``).
-        The array's buffer is read by the pipeline threads until
-        ``close()``: the caller must not change it before then."""
-        arr = np.asarray(array, order="C")   # (keeps a 0-d array 0-d)
-        self._add_blob(name, arr.reshape(-1).view(np.uint8) if arr.size
-                       else b"", dtype or dtype_to_str(arr.dtype),
-                       list(arr.shape))
+        `parent` enables chunk-level dedup (see ``_add_blob``);
+        `chunk_crcs` lets a caller that already hashed the chunks skip
+        the second CRC pass.  The array's buffer is read by the pipeline
+        threads until ``close()``: the caller must not change it before
+        then."""
+        arr, flat = self._flat(array)
+        self._add_blob(name, flat, dtype or dtype_to_str(arr.dtype),
+                       list(arr.shape), parent, chunk_crcs)
 
     def add_bytes(self, name: str, raw: bytes) -> None:
         self._add_blob(name, raw, None, None)
 
     def entry_crc(self, name: str) -> int:
         return self._entries[name]["crc32"]
+
+    def raw_crcs(self, name: str) -> List[int]:
+        """Per-chunk raw-byte CRCs of an entry as written — the content
+        hashes the validate pass compares live bytes against."""
+        return list(self._raw_crcs[name])
+
+    def replace(self, name: str, array: np.ndarray,
+                dtype: Optional[str] = None,
+                own_loc: Optional[str] = None,
+                chunk_crcs: Optional[List[int]] = None) -> None:
+        """Re-capture an entry into the open stripe set (concurrent
+        capture's patch phase).  The old record becomes the dedup parent
+        of the new one, so chunks the mutation did not touch stay as
+        references to the bytes already on disk (``own_loc`` is this
+        pack's own location) and only invalidated chunks are appended.
+        Call ``flush()`` first.  Superseded chunks stay in the stripe
+        files as dead bytes (``superseded_bytes``)."""
+        if self._closed:
+            raise RuntimeError(f"{self.base}: pack already closed")
+        old = self._entries.get(name)
+        if old is None:
+            raise KeyError(f"replace of unknown entry {name!r}")
+        if any(c is None for c in old["chunks"]):
+            raise RuntimeError(
+                f"replace({name!r}) before flush(): speculated chunks "
+                f"still in flight")
+        arr, flat = self._flat(array)
+        n = len(memoryview(flat).cast("B"))
+        C = self.chunk_bytes
+        if chunk_crcs is None:
+            mv = memoryview(flat).cast("B")
+            chunk_crcs = [crc32(mv[o:o + C]) for o in range(0, n, C)]
+        # dead bytes = chunks written into this pack whose content no
+        # longer matches (self-referenced unchanged chunks stay live)
+        with self._stats_lock:
+            self.superseded_bytes += sum(
+                c["nbytes"] for j, c in enumerate(old["chunks"])
+                if "ref" not in c
+                and (j >= len(chunk_crcs)
+                     or chunk_crcs[j] != c.get("raw_crc32")
+                     or c["raw_nbytes"] != min(C, n - j * C)))
+        self._add_blob(name, flat, dtype or dtype_to_str(arr.dtype),
+                       list(arr.shape), (old, own_loc) if own_loc else None,
+                       chunk_crcs)
 
     # -------------------------------------------------------------- close
     def _post_done(self, q: "queue.Queue") -> None:
@@ -451,6 +569,13 @@ class PackReaderV2:
         self.index: Dict[str, Dict[str, Any]] = footer["entries"]
         self.stripes: int = footer["stripes"]
         self.chunk_bytes: int = footer["chunk_bytes"]
+
+    def entry(self, name: str) -> Dict[str, Any]:
+        return self.index[name]
+
+    def entry_nbytes(self, name: str) -> int:
+        """Raw (decoded) payload size of one entry."""
+        return int(self.index[name]["raw_nbytes"])
 
     def _chunk_file(self, c: Dict[str, Any]) -> str:
         ref = c.get("ref")

@@ -25,7 +25,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.optim", "repro_torch.optim.adamw",
                "repro_torch.optim.schedule", "repro_torch.data",
                "repro_torch.data.pipeline", "repro_torch.runtime.fault",
-               "repro_torch.runtime.trainer"]
+               "repro_torch.runtime.trainer", "repro_torch.core.dirty",
+               "repro_torch.core.lazy", "repro_torch.core.engine"]
 
 
 def _env():

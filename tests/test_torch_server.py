@@ -180,8 +180,8 @@ def test_pad_cache_pads_only_attention_kv():
 
 
 def test_unported_options_are_rejected(tmp_path):
-    for bad in (dict(restore_mode="lazy"), dict(incremental=True),
-                dict(replicate_to=str(tmp_path / "peer")),
+    for bad in (dict(replicate_to=str(tmp_path / "peer")),
+                dict(transfer_policy=object()),
                 dict(pack_format=1)):
         with pytest.raises(OptionsError, match="not ported"):
             CheckpointOptions(**bad)
