@@ -78,6 +78,29 @@ leaves are mutated in place on the compute stream (add_, a write by index
 into a view), one is replaced, one key added and one dropped; the dirty
 set must be exactly the touched keys, the re-captured bytes at most
 theirs, and the image must restore bitwise to the live tree.
+Phase 5 replicates and migrates, qwen1.5-0.5b at full width through the
+kernels: (a) sync incremental images 16 tokens apart, each pushed inside
+the dump to a peer by the CAS delta replicator (image 2 must ship the KV
+cache, at most one chunk more, and skip image 1 whole); the primary's
+images are deleted and a fresh server must restore from the replica
+(``restored_from_replica``) and continue token-exact; (b) one stored
+chunk of a KV-cache entry of the primary image is torn: a lazy restore
+without a replicator must raise at the barrier, one with the replicator
+must heal the stream from the replica and continue token-exact; (c) an
+async incremental server migrates live by pre-copy (a round every 4
+tokens, the controller of ``TransferPolicy(mode="delta",
+precopy_rounds=4)`` deciding, then a checkpoint-on-signal and the
+residual round), and a fresh server at the destination must continue
+token-exact; one full push of the final image to an empty peer is the
+stop-and-copy baseline.  (d) Training, cut to 4 of the 24 layers: a run
+of 10 steps, and a run migrated by pre-copy (a round every 2 steps) whose
+destination resumes and runs to step 10: losses, params, m and v must be
+the first run's bitwise; before that, the source's images are deleted and
+a fresh trainer there must restore from the destination as its replica,
+bitwise.  Each round's bytes sent and
+reused, its wall time and the decision, the blackout (the residual
+push) and every replicate_s are printed as ``[replicate]`` and
+``[migrate]`` lines.
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
 power limit.
@@ -1504,6 +1527,394 @@ def phase_training_mamba(seed: int, workdir: str, card: str) -> dict:
     return launches, variants
 
 
+# ----------------------------------------------------------------- phase 5
+REPL_ARCH = "qwen1.5-0.5b"
+REPL_TOKENS = 16          # decoded between the two replicated images
+MIGRATE_TOKENS = 4        # decoded between two pre-copy rounds
+MIGRATE_ROUNDS = 4        # TransferPolicy.precopy_rounds; no blackout budget
+# training migration: qwen1.5 at full width cut to 4 of its 24 layers, a
+# round every 2 steps, 10 steps in all.  Every round ships the whole 2.49
+# GB image (AdamW rewrites every leaf), ~10 s per push from the host of an
+# H100 80GB HBM3, so the replica fallback reuses the destination as its
+# replica rather than pushing more images
+MIG_LAYERS, MIG_EVERY, MIG_STEPS = 4, 2, 10
+
+
+def precopy_migrate(session, advance, preempt, position, rep, tag):
+    """The reference orchestrator's pre-copy loop
+    (src/repro/orchestrator/orchestrator.py:476-531, the residual at
+    :581-592): the job advances, snapshots while running, waits for the
+    commit and ships a round; the controller observes it and decides.  On
+    "freeze" or "fallback" the job advances once more (it runs until the
+    signal is taken), a checkpoint-on-signal freezes it, and the residual
+    round ships.  Returns (rounds, decisions, final step, frozen_s: from
+    the signal to the end of the residual push)."""
+    from repro_torch.api import TransferPolicy
+    from repro_torch.transfer import PrecopyController
+    ctrl = PrecopyController(TransferPolicy(mode="delta",
+                                            precopy_rounds=MIGRATE_ROUNDS))
+    rounds, decisions = [], []
+    while True:
+        advance()
+        if decisions and decisions[-1].action != "continue":
+            t0 = time.perf_counter()
+            step = preempt()
+            session.wait_pending()
+            rounds.append(rep.push_round(session.run_dir, step, tag,
+                                         residual=True))
+            return rounds, decisions, step, time.perf_counter() - t0
+        step = position()
+        session.checkpoint_running(step)
+        session.wait_pending()
+        rounds.append(rep.push_round(session.run_dir, step, tag))
+        ctrl.observe(rounds[-1])
+        decisions.append(ctrl.decide())
+
+
+def log_rounds(tag, rounds, decisions, card) -> None:
+    for rec, d in zip(rounds, decisions + [None]):
+        what = (f"decision {d.action} ({d.reason}; predicted residual "
+                f"{d.predicted_residual_bytes} B)" if d is not None
+                else "residual round: the blackout push")
+        log(f"[migrate] {tag} round {rec['round']} (step {rec['step']}): "
+            f"bytes_sent {rec['bytes_sent']}, bytes_reused "
+            f"{rec['bytes_reused']}, chunks_sent {rec['chunks_sent']}, "
+            f"chunks_reused {rec['chunks_reused']}, wall_s "
+            f"{rec['wall_s']:.3f}; {what}; {card}")
+
+
+def replicate_image(srv, card: str) -> dict:
+    """A sync image of the server, pushed to its replica inside the dump:
+    the dump's and the push's stats."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.checkpoint(srv.pos)
+    dump_s = time.perf_counter() - t0
+    st = dict(srv.session.last_stats, step=srv.pos, dump_s=dump_s)
+    log(f"[replicate] {srv.cfg.name} image at pos {srv.pos}: dump "
+        f"{dump_s:.2f} s = frozen_s {st['frozen_s']:.3f} + write_s "
+        f"{st['write_s']:.3f} + replicate_s {st['replicate_s']:.3f} (the "
+        f"delta push, inside the dump); replica_bytes_sent "
+        f"{st['replica_bytes_sent']}, replica_bytes_reused "
+        f"{st['replica_bytes_reused']}, replica_chunks_sent "
+        f"{st['replica_chunks_sent']}, replica_chunks_reused "
+        f"{st['replica_chunks_reused']}, replica_steps_transferred "
+        f"{st['replica_steps_transferred']}, replica_steps_skipped "
+        f"{st['replica_steps_skipped']}; written_bytes "
+        f"{st['written_bytes']:.0f}, reused_bytes {st['reused_bytes']:.0f}"
+        f"; {card}")
+    return st
+
+
+def _tear_cache_chunk(run: str, step: int) -> str:
+    """Flip 4 bytes inside the first stored chunk of a KV-cache entry of
+    `run`'s image `step` (a background entry of a lazy restore whose
+    critical set is the params).  Returns the entry's name."""
+    from repro_torch.core.snapshot_io import SnapshotStore
+    from repro_torch.serialization.pack import open_pack, stripe_path
+    locs = SnapshotStore(run).manifest(step)["locations"]
+    entry = sorted(n for n in locs if "::cache/" in n)[0]
+    base = os.path.join(run, "snapshots", locs[entry])
+    with open_pack(base, verify=False) as r:
+        c = r.index[entry]["chunks"][0]
+    with open(stripe_path(base, c["stripe"]), "r+b") as f:
+        f.seek(c["offset"] + 8)
+        f.write(b"\xde\xad\xbe\xef")
+    return entry
+
+
+def phase_replication(seed: int, workdir: str, card: str) -> tuple:
+    """Phase 5 (a)-(c), qwen1.5-0.5b at full width through the kernels:
+    (a) sync incremental images delta-replicated to a peer, the second
+    shipping its own chunks only; the primary's images deleted, a fresh
+    server restores from the replica, token-exact; (b) a torn KV-cache
+    chunk of the primary image: a lazy restore without a replicator fails
+    at the barrier, one with it heals from the replica, token-exact; (c) a
+    live pre-copy migration of an async incremental server to a new
+    directory, token-exact there, against one full push of the final
+    image to an empty peer.  Returns the kernels' launches on this path."""
+    import numpy as np
+    import torch
+    from repro_torch.api import CheckpointOptions, TransferPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.core.lazy import LazyRestoreError
+    from repro_torch.models.lm import LM
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime.server import DecodeServer
+    from repro_torch.transfer import DeltaReplicator, summarize_rounds
+
+    cfg = get_config(REPL_ARCH)
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)
+    params = model.init(seed)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
+    delta = TransferPolicy(mode="delta")
+    run, peer = os.path.join(workdir, "primary"), os.path.join(workdir,
+                                                               "peer")
+
+    def server(path, **opts):
+        srv = DecodeServer(cfg, path, max_seq=SERVE_MAX, device=dev,
+                           model=model, options=CheckpointOptions(**opts))
+        return srv
+
+    def timed_restore(srv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = srv.restore()
+        torch.cuda.synchronize()
+        return step, time.perf_counter() - t0, dict(srv.session.last_stats)
+
+    counters = _counters()
+    _zero_counters()                  # this path's launches start here
+    # (a) delta replication of a serving chain, then the primary is lost
+    srv = server(run, incremental=True, replicate_to=peer,
+                 transfer_policy=delta)
+    srv.load(params)
+    srv.start({"tokens": prompts})
+    images = []
+    for _ in range(2):
+        srv.decode(REPL_TOKENS)
+        images.append(replicate_image(srv, card))
+    step = srv.pos
+    expected = srv.decode(REPL_TOKENS).copy()
+    cache_b = sum(t.nbytes for t in _leaves(srv.cache))
+    second = images[1]
+    ships_cache = (second["replica_steps_skipped"] == 1
+                   and cache_b <= second["replica_bytes_sent"]
+                   <= cache_b + (4 << 20))
+    del srv
+    shutil.rmtree(os.path.join(run, "snapshots"))        # primary lost
+    fresh = server(run, replicate_to=peer, transfer_policy=delta)
+    got_step, restore_s, rst = timed_restore(fresh)
+    from_replica = rst.get("restored_from_replica") is True \
+        and got_step == step
+    same_a = np.array_equal(fresh.decode(REPL_TOKENS), expected)
+    log(f"[replicate] {cfg.name} (a): image 2 shipped "
+        f"{second['replica_bytes_sent']} B against the KV cache's "
+        f"{cache_b} B (+ host blobs, at most one 4 MiB chunk), image 1 "
+        f"skipped whole: {ships_cache}; primary images deleted, fresh "
+        f"server restored pos {got_step} from the replica in "
+        f"{restore_s:.2f} s (pull of the image and its parent + eager "
+        f"restore; restored_from_replica {rst.get('restored_from_replica')}"
+        f"); continuation token-exact: {same_a}; {card}")
+    del fresh
+    # (b) a torn background chunk, healed from the replica
+    entry = _tear_cache_chunk(run, step)
+    bare = server(run, restore_mode="lazy")
+    bare.restore()
+    try:
+        bare.decode(1)
+        raised = False
+    except LazyRestoreError:
+        raised = True
+    del bare
+    healer = server(run, restore_mode="lazy", replicate_to=peer,
+                    transfer_policy=delta)
+    got_step, resume_s, rst = timed_restore(healer)
+    same_b = got_step == step and np.array_equal(
+        healer.decode(REPL_TOKENS), expected)
+    healed = healer.session.last_stats.get("healed_entries", 0)
+    log(f"[replicate] {cfg.name} (b): tore {entry} of the primary image; "
+        f"lazy restore without a replicator raised LazyRestoreError at the "
+        f"barrier: {raised}; with the replicator resumed in "
+        f"{resume_s:.2f} s (restore_critical_s "
+        f"{rst['restore_critical_s']:.3f}), the stream healed "
+        f"{healed:.0f} entries from the replica (restore_background_s "
+        f"{healer.session.last_stats['restore_background_s']:.3f}, the "
+        f"re-pull included); continuation token-exact: {same_b}; {card}")
+    del healer
+    shutil.rmtree(run)
+    shutil.rmtree(peer)
+    torch.cuda.empty_cache()
+
+    # (c) live pre-copy migration to `dest`
+    src, dest = os.path.join(workdir, "src"), os.path.join(workdir, "dest")
+    srv = server(src, mode="async", incremental=True)
+    srv.load(params)
+    srv.start({"tokens": prompts})
+
+    def preempt():
+        out = srv.decode_until(srv.pos + 1, preempt=lambda: True)
+        if not out["preempted"]:
+            raise SystemExit("the checkpoint-on-signal did not happen")
+        return srv.pos
+
+    rep = DeltaReplicator(dest)
+    rounds, decisions, step, frozen_s = precopy_migrate(
+        srv.session, lambda: srv.decode(MIGRATE_TOKENS), preempt,
+        lambda: srv.pos, rep, "serve")
+    log_rounds(f"{cfg.name} (c)", rounds, decisions, card)
+    summary = summarize_rounds(rep.round_state("serve"))
+    rep.clear_rounds("serve")
+    expected = srv.decode(REPL_TOKENS).copy()
+    del srv
+    fresh = server(dest)
+    got_step, restore_s, _ = timed_restore(fresh)
+    same_c = got_step == step and np.array_equal(
+        fresh.decode(REPL_TOKENS), expected)
+    del fresh
+    shutil.rmtree(dest)
+    # the stop-and-copy push, traced: its negotiate / ship / materialize
+    # phases (the replicator's own spans)
+    tracer = obs_trace.Tracer()
+    obs_trace.install(tracer)
+    try:
+        full = DeltaReplicator(os.path.join(workdir, "empty_peer")).push(
+            src, step)
+    finally:
+        obs_trace.uninstall()
+    spans = {}
+    for sp in tracer.spans:
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.t_end - sp.t_start
+    log(f"[migrate] {cfg.name} (c): summarize_rounds {json.dumps(summary)}; "
+        f"blackout (residual push) {summary['blackout_s']:.3f} s, "
+        f"{summary['residual_bytes']} B; signal -> residual pushed "
+        f"{frozen_s:.3f} s (the final image's freeze and write "
+        f"included); stop-and-copy baseline, one full push of the final "
+        f"image to an empty peer: push_s {full['push_s']:.3f}, bytes_sent "
+        f"{full['bytes_sent']} ("
+        f"{full['bytes_sent'] / max(1, summary['residual_bytes']):.2f}x "
+        f"the residual; by phase, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in sorted(spans.items())})}"
+        f"); restored at the destination, pos {got_step}, continuation "
+        f"token-exact: {same_c}; {card}")
+    shutil.rmtree(os.path.join(workdir, "empty_peer"))
+    shutil.rmtree(src)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    variants = _variants()
+    log(f"[replicate] {cfg.name}: kernel launches on the replication and "
+        f"migration path: {launches}; by variant: {variants}")
+    bad = [name for name, ok in (
+        ("(a) image 2 ships the cache", ships_cache),
+        ("(a) restored from the replica", from_replica),
+        ("(a) token-exact", same_a), ("(b) torn chunk raises", raised),
+        ("(b) healed", healed >= 1), ("(b) token-exact", same_b),
+        ("(c) residual round", summary["residual_bytes"] > 0),
+        ("(c) token-exact", same_c),
+        ("launches", launches["flash_attention"] > 0
+         and launches["rmsnorm"] > 0),
+        ("flash on tc only", variants["flash_attention"]["fma"] == 0))
+        if not ok]
+    if bad:
+        raise SystemExit(f"{cfg.name} replication / migration failed: {bad}")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
+def phase_migrate_training(seed: int, workdir: str, card: str) -> tuple:
+    """Phase 5 (d): qwen1.5-0.5b at full width cut to 4 layers (batch 4 x
+    512, AdamW, kernels).  A run that never migrates takes 10 steps; a
+    second run migrates by pre-copy (an async image and a round every 2
+    steps) and a fresh trainer at the destination resumes and runs to
+    step 10: its losses, params, m and v must be the first run's,
+    bitwise.  Before it runs on, the source's images are deleted and a
+    fresh trainer there, with the destination as its replica, must
+    restore the same state from the replica, bitwise.  Returns the
+    kernels' launches on this path."""
+    import torch
+    from repro_torch.api import CheckpointOptions, TransferPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.transfer import DeltaReplicator, summarize_rounds
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MIG_LAYERS)
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)
+    src, dest = os.path.join(workdir, "t_src"), os.path.join(workdir,
+                                                             "t_dest")
+
+    def trainer(path, **opts):
+        tcfg = _train_config(TRAIN_B, TRAIN_S, seed, ckpt_every=0,
+                             ckpt=CheckpointOptions(**opts))
+        return Trainer(cfg, tcfg, path, device=dev, model=model)
+
+    def timed_restore(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = t.restore()
+        torch.cuda.synchronize()
+        return step, time.perf_counter() - t0
+
+    def same(a, b):
+        return (a.metrics_history["loss"] == b.metrics_history["loss"]
+                and _tree_equal(a.params, b.params)
+                and _tree_equal(a.opt_state, b.opt_state))
+
+    counters = _counters()
+    _zero_counters()                  # this path's launches start here
+    ref = trainer(os.path.join(workdir, "t_ref"))   # writes no image
+    ref.run(MIG_STEPS)
+    t = trainer(src, mode="async", incremental=True)
+    t.initialize()
+
+    def preempt():
+        out = t.run_until(t.step + 1, preempt=lambda: True)
+        if not out["preempted"]:
+            raise SystemExit("the checkpoint-on-signal did not happen")
+        return t.step
+
+    rep = DeltaReplicator(dest)
+    rounds, decisions, step, frozen_s = precopy_migrate(
+        t.session, lambda: t.run_until(t.step + MIG_EVERY), preempt,
+        lambda: t.step, rep, "train")
+    log_rounds(f"{cfg.name} ({MIG_LAYERS} layers) (d)", rounds, decisions,
+               card)
+    summary = summarize_rounds(rep.round_state("train"))
+    rep.clear_rounds("train")
+    del t
+    fresh = trainer(dest)
+    got_step, restore_s = timed_restore(fresh)
+    # the source host's images are lost: its replica is the destination
+    shutil.rmtree(os.path.join(src, "snapshots"))
+    back = trainer(src, replicate_to=dest,
+                   transfer_policy=TransferPolicy(mode="delta"))
+    back_step, back_s = timed_restore(back)
+    from_replica = back.session.last_stats.get("restored_from_replica") \
+        is True and back_step == step
+    same_r = same(back, fresh)
+    del back
+    fresh.run_until(MIG_STEPS)
+    same_d = got_step == step and same(fresh, ref)
+    log(f"[migrate] {cfg.name} ({MIG_LAYERS} layers) (d): "
+        f"summarize_rounds {json.dumps(summary)}; blackout (residual push) "
+        f"{summary['blackout_s']:.3f} s against round 0's "
+        f"{rounds[0]['wall_s']:.3f} s; signal -> residual pushed "
+        f"{frozen_s:.3f} s; destination restored step {got_step} in "
+        f"{restore_s:.2f} s and ran to {MIG_STEPS}: losses, params, m, v "
+        f"bitwise the unmigrated run's: {same_d}; {card}")
+    log(f"[replicate] {cfg.name} ({MIG_LAYERS} layers) training: the "
+        f"source's images deleted, a fresh trainer there restored step "
+        f"{back_step} from its replica (the destination) in {back_s:.2f} s "
+        f"(restored_from_replica {from_replica}); losses, params, m, v "
+        f"bitwise the destination's: {same_r}; {card}")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    variants = _variants()
+    log(f"[replicate] {cfg.name} ({MIG_LAYERS} layers) training: kernel "
+        f"launches: {launches}; by variant: {variants}")
+    bad = [name for name, ok in (
+        ("(d) bitwise at the destination", same_d),
+        ("(d) residual round", bool(rounds[-1]["residual"])),
+        ("restored from the replica", from_replica),
+        ("replica bitwise", same_r),
+        ("launches", launches["flash_attention"] > 0
+         and launches["rmsnorm"] > 0),
+        ("flash on tc only", variants["flash_attention"]["fma"] == 0))
+        if not ok]
+    if bad:
+        raise SystemExit(f"{cfg.name} training migration failed: {bad}")
+    del fresh, ref, model
+    for path in (src, dest, os.path.join(workdir, "t_ref")):
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -1612,6 +2023,11 @@ def main() -> int:
         by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
             phase_training_mamba(args.seed, workdir, card)
         phase_session_race(args.seed, workdir, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        by_path[f"{REPL_ARCH} replicate/migrate"] = phase_replication(
+            args.seed, workdir, card)
+        by_path[f"{TRAIN_ARCH} migrate ({MIG_LAYERS} layers)"] = \
+            phase_migrate_training(args.seed, workdir, card)
     log(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s;"
         f" {card}")
     print(json.dumps({"kernels": kernel_rows(rows, by_path)}))

@@ -11,7 +11,7 @@ Images are the JAX package's format: ``python -m repro verify|inspect``
 operates on them offline.
 """
 from repro_torch.api.options import (CheckpointOptions,  # noqa: F401
-                                     OptionsError)
+                                     OptionsError, TransferPolicy)
 from repro_torch.api.capabilities import (CheckReport,  # noqa: F401
                                           capabilities, check)
 from repro_torch.api.session import (CheckpointSession,  # noqa: F401

@@ -44,11 +44,12 @@ def capabilities() -> Dict[str, Any]:
         },
         "backends": available_backends(),
         "modes": ["sync", "async"],
-        "pack_formats": {"write": [2], "read": [1, 2]},
+        "pack_formats": {"write": [1, 2], "read": [1, 2]},
         "features": {
             "incremental": True,
             "compression": True,
-            "replication": False,
+            "replication": True,
+            "elastic_restore": False,     # sharding is not ported
             "parallel_restore": True,
             "chunked_packs": True,        # pack v2: per-chunk CRC + codec
             "striped_io": True,           # N pack files/host, appender each
@@ -56,7 +57,11 @@ def capabilities() -> Dict[str, Any]:
             "chunk_dedup": True,          # incremental reuse at chunk grain
             "lazy_restore": True,         # restore_mode="lazy"
             "concurrent_capture": True,   # capture="concurrent"
+            "delta_transfer": True,       # CAS have/want cross-host ship
+            "content_addressed_store": True,  # repro_torch.transfer
+            "migration": False,           # the orchestrator is not ported
         },
+        "transfer_modes": ["copy", "delta"],
         "restore_modes": ["eager", "lazy"],
         "captures": ["sync", "concurrent"],
     }

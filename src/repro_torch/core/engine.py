@@ -26,13 +26,16 @@ parent.  Concurrent capture (``capture="concurrent"``) is the soft-freeze
 protocol: pin -> speculate -> validate -> patch -> commit
 (:class:`ConcurrentCapture`).
 
+Replication (``replicate_to``, or a ``replicator=``): every committed image
+is pushed to the peer right after its manifest lands (inside the freeze in
+sync mode, so only committed images replicate); a restore that finds no
+valid local image pulls the peer's newest and restores it
+(``last_stats["restored_from_replica"]``); a lazy stream that hits a torn
+chunk re-pulls the image from the peer and retries the entry.
+
 Transparency contract: the serving code defines no checkpoint logic.  It
 attaches a *state provider* (a zero-arg callable returning the live root
 trees) and registers host state through CallbackPlugins.
-
-Not ported yet (their options are rejected by ``CheckpointOptions``):
-replication and transfer, and with them the heal of a lazy stream from a
-replica.
 """
 from __future__ import annotations
 
@@ -89,7 +92,8 @@ class SnapshotEngine:
                  plugins: Optional[List[Plugin]] = None,
                  options=None,                       # api.CheckpointOptions
                  backend="torch",                    # name | Plugin instance
-                 device=None):
+                 device=None,
+                 replicator=None):                   # core.replication
         from repro_torch.api.options import CheckpointOptions
         self.options = options if options is not None else CheckpointOptions()
         self.options.validate()
@@ -106,6 +110,16 @@ class SnapshotEngine:
                                        + list(plugins or []))
         self.mode = self.options.mode
         self.incremental = self.options.incremental
+        self.replicator = replicator
+        if replicator is None and self.options.replicate_to:
+            policy = self.options.transfer_policy
+            if policy.mode == "delta":
+                from repro_torch.transfer import DeltaReplicator
+                self.replicator = DeltaReplicator(
+                    self.options.replicate_to, workers=policy.workers)
+            else:
+                from repro_torch.core.replication import DirReplicator
+                self.replicator = DirReplicator(self.options.replicate_to)
         if self.options.capture == "concurrent":
             from repro_torch.api.options import OptionsError
             feats = getattr(self.device_plugin, "features", frozenset())
@@ -342,6 +356,7 @@ class SnapshotEngine:
         return SnapshotWriter(self.run_dir, step, host_id=0,
                               compress=opts.compress,
                               prev_manifest=prev_manifest,
+                              pack_format=opts.pack_format,
                               chunk_bytes=opts.chunk_mb << 20,
                               stripes=opts.stripes,
                               io_threads=opts.io_threads)
@@ -387,6 +402,30 @@ class SnapshotEngine:
         return self._after_commit(ctx, path)
 
     def _after_commit(self, ctx: HookContext, path: str) -> str:
+        if self.replicator is not None:
+            with obs_trace.span("dump.replicate", step=ctx.step):
+                t_rep = time.perf_counter()
+                self.replicator.push(self.run_dir, ctx.step)
+                ctx.stats["replicate_s"] = time.perf_counter() - t_rep
+            # the replicator's counters (files/bytes copied vs skipped,
+            # chunks/bytes sent vs reused) ride along in the dump stats
+            # under a replica_ prefix and mirror into the metrics
+            obs_metrics.counter_add("replica.push_count")
+            rep_stats = getattr(self.replicator, "stats", None)
+            if not isinstance(rep_stats, dict):
+                rep_stats = getattr(self.replicator, "last_stats", None)
+            if rep_stats is None:
+                obs_metrics.counter_add("replica.missing_stats")
+                obs_metrics.warn_once(
+                    f"replicator-no-stats:{type(self.replicator).__name__}",
+                    f"replicator {type(self.replicator).__name__} exposes "
+                    f"no last_stats; replication counters for step "
+                    f"{ctx.step} (and later dumps) are not recorded")
+                rep_stats = {}
+            for k, v in rep_stats.items():
+                if isinstance(v, (int, float)):
+                    ctx.stats[f"replica_{k}"] = v
+                    obs_metrics.counter_add(f"replica.{k}", v)
         obs_metrics.counter_add("dump.count")
         obs_metrics.counter_add("dump.bytes_written",
                                 ctx.stats.get("written_bytes", 0.0))
@@ -398,7 +437,7 @@ class SnapshotEngine:
                          bytes=ctx.stats.get("written_bytes"),
                          frozen_s=ctx.stats.get("frozen_s"))
         if chaos_hooks.INJECTOR is not None:
-            # chaos: lost-writeback site (image committed)
+            # chaos: lost-writeback site (image committed and replicated)
             chaos_hooks.fire("engine.dump_done", run_dir=self.run_dir,
                              step=ctx.step, path=path)
         if self.options.keep:
@@ -472,6 +511,32 @@ class SnapshotEngine:
                 raise
         return reader
 
+    def _make_healer(self, step: int):
+        """Background-stream heal hook: re-pull the image (and its delta
+        chain) from the replica, so a torn background chunk is repaired
+        in place instead of killing the stream."""
+        rep = self.replicator
+        if rep is None or not hasattr(rep, "pull"):
+            return None
+
+        def heal(state: str, path: str, exc: BaseException) -> bool:
+            try:
+                manifest = self.store.manifest(step)
+                steps = sorted(self.store.referenced_steps(manifest)
+                               | {step})
+            except (OSError, ValueError, KeyError):
+                steps = [step]
+            healed = False
+            for s in steps:
+                try:
+                    if rep.pull(self.run_dir, s) is not None:
+                        healed = True
+                except OSError:
+                    continue
+            return healed
+
+        return heal
+
     def _abandon_lazy(self) -> None:
         """A newer restore supersedes a still-streaming one: cancel it and
         wait for its thread to stop (the stream's own cleanup closes its
@@ -529,6 +594,14 @@ class SnapshotEngine:
                     step = s
                     break
                 else:
+                    if self.replicator is not None:
+                        got = self.replicator.pull_latest(self.run_dir)
+                        if got is not None:
+                            self._quarantined.discard(got)
+                            out = self.restore(step=got, verify=verify,
+                                               wait=wait)
+                            self.last_stats["restored_from_replica"] = True
+                            return out
                     raise FileNotFoundError(
                         f"no restorable snapshot under {self.run_dir}")
             else:
@@ -545,7 +618,7 @@ class SnapshotEngine:
                 ctx.lazy_reopen = (
                     lambda s=step: self.store.reader(
                         s, verify=verify, io_threads=io_threads))
-                ctx.lazy_heal = None          # no replica to heal from
+                ctx.lazy_heal = self._make_healer(step)
                 ctx.lazy_on_done = (lambda s=step: self.store.unpin(s))
             self.registry.init_all("restore")
             materializer = None

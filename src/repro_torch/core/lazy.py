@@ -18,9 +18,9 @@ Corruption guarantees are unchanged: every chunk read re-checks its stored
 CRC, so a torn background chunk raises inside the stream; the failure
 surfaces at :meth:`LazyMaterializer.join` (the engine's
 ``restore_barrier()``), the image is quarantined, and a retry falls back
-to an eager restore of the previous committed step.  The heal hook
-(re-pull the image from a replica and retry) is kept; replication is not
-ported yet, so the engine passes no healer.
+to an eager restore of the previous committed step.  With a replicator,
+the engine passes a heal hook: the stream re-pulls the image from the
+replica, reopens its reader and retries the entry once.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Layout:
   run_dir/snapshots/step_00000123/
     MANIFEST.json         — committed last (atomic rename) = the image is valid
     host0000.pack.0..N-1  — this host's payloads, striped (pack v2)
-    host0000.pack         — legacy v1 single-file layout (read only)
+    host0000.pack         — v1 single-file layout (``pack_format=1``)
 
 Incremental mode (Check-N-Run-style): unchanged entries (by content CRC)
 are not rewritten; the manifest's ``locations`` point them at the pack of
@@ -40,8 +40,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serialization import msgpack_lite
 from repro_torch.serialization.integrity import (atomic_write_json, crc32,
                                                  read_json)
-from repro_torch.serialization.pack import (DEFAULT_CHUNK_BYTES, PackWriterV2,
-                                            open_pack)
+from repro_torch.serialization.pack import (DEFAULT_CHUNK_BYTES, PackWriter,
+                                            PackWriterV2, open_pack)
 
 MANIFEST = "MANIFEST.json"
 
@@ -95,21 +95,31 @@ class SnapshotWriter:
     def __init__(self, run_dir: str, step: int, host_id: int = 0,
                  compress: bool = False,
                  prev_manifest: Optional[Dict[str, Any]] = None,
+                 pack_format: int = 2,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
                  stripes: int = 2, io_threads: int = 0):
+        if pack_format not in (1, 2):
+            raise ValueError(f"pack_format must be 1 or 2, got {pack_format}")
         self.run_dir = run_dir
         self.step = step
+        self.format = pack_format
         self.dir = snapshot_dir(run_dir, step)
         os.makedirs(self.dir, exist_ok=True)
         self.pack_name = f"host{host_id:04d}.pack"
         self._loc = os.path.join(f"step_{step:08d}", self.pack_name)
-        self._writer = PackWriterV2(os.path.join(self.dir, self.pack_name),
-                                    compress=compress,
-                                    chunk_bytes=chunk_bytes, stripes=stripes,
-                                    workers=io_threads or auto_io_threads())
-        self.files = [f"{self.pack_name}.{k}" for k in range(stripes)]
+        base = os.path.join(self.dir, self.pack_name)
+        if pack_format == 1:
+            self._writer: Any = PackWriter(base, compress=compress)
+            self.files = [self.pack_name]
+        else:
+            self._writer = PackWriterV2(base, compress=compress,
+                                        chunk_bytes=chunk_bytes,
+                                        stripes=stripes,
+                                        workers=io_threads
+                                        or auto_io_threads())
+            self.files = [f"{self.pack_name}.{k}" for k in range(stripes)]
         self.chunk_bytes = chunk_bytes
-        self.stripes = stripes
+        self.stripes = stripes if pack_format == 2 else 1
         self.locations: Dict[str, str] = {}
         self.meta: Dict[str, Any] = {}
         # incremental: entry -> (crc, location) in the parent image
@@ -189,6 +199,16 @@ class SnapshotWriter:
         self.restore_order.append(name)
         self.entry_bytes[name] = int(raw.nbytes)
         prev = self._prev.get(name)
+        if self.format == 1:
+            # v1: whole-entry reuse only; the entry CRC is of the raw
+            # bytes (the pack index's CRC covers the stored ones)
+            c = self._whole_crc(flat)
+            if prev is not None and prev["crc"] == c:
+                self._reuse(name, c, raw.nbytes, None)
+                return
+            self._writer.add(name, raw, dtype=dtype)
+            self._record_written(name, raw, crc=c)
+            return
         parent = self._parent_entry(name) if prev is not None else None
         if parent is not None:
             crcs = self._chunk_crcs(flat)
@@ -214,8 +234,10 @@ class SnapshotWriter:
         self._record_written(name, raw)
         self.spec_crcs[name] = self._writer.raw_crcs(name)
 
-    def _record_written(self, name: str, raw: np.ndarray) -> None:
-        self.entry_crcs[name] = self._writer.entry_crc(name)
+    def _record_written(self, name: str, raw: np.ndarray,
+                        crc: Optional[int] = None) -> None:
+        self.entry_crcs[name] = (crc if crc is not None
+                                 else self._writer.entry_crc(name))
         self.locations[name] = self._loc
         self.written_bytes += raw.nbytes
 
@@ -262,7 +284,8 @@ class SnapshotWriter:
         """Drain the pack pipeline without closing it: every speculated
         chunk record is populated, the stripe set stays open for
         re-capture (concurrent capture's validate/patch boundary)."""
-        self._writer.flush()
+        if self.format == 2:
+            self._writer.flush()
 
     def reput_state_entry(self, state: str, path: str,
                           e: Dict[str, Any]) -> int:
@@ -321,7 +344,7 @@ class SnapshotWriter:
 
     @property
     def superseded_bytes(self) -> int:
-        return self._writer.superseded_bytes
+        return getattr(self._writer, "superseded_bytes", 0)
 
     def write_host_state(self, host_state: Dict[str, Any]) -> None:
         blob = pack_host_blob(host_state)
@@ -345,15 +368,16 @@ class SnapshotWriter:
             self.locations["__meta__"] = self._loc
             self._writer.close()
             self._close_parent_packs()
-            reused_chunks = self._writer.reused_chunk_bytes
+            reused_chunks = getattr(self._writer, "reused_chunk_bytes", 0)
             self.written_bytes -= reused_chunks
             self.reused_bytes += reused_chunks
             # every step this image's bytes live in (locations = entry
             # reuse; chunk refs = chunk reuse): GC keeps them all
             ref_steps = {_loc_step(loc) for loc in self.locations.values()}
-            ref_steps.update(_loc_step(loc) for loc in self._writer.ref_locs)
+            ref_steps.update(_loc_step(loc)
+                             for loc in getattr(self._writer, "ref_locs", ()))
             manifest = {
-                "format": 2,
+                "format": self.format,
                 "step": self.step,
                 "timestamp": time.time(),
                 "topology": topology,
@@ -369,9 +393,10 @@ class SnapshotWriter:
                 "ref_steps": sorted(ref_steps),
                 "restore_order": self.restore_order,
                 "entry_bytes": self.entry_bytes,
-                "chunk_bytes": self.chunk_bytes,
-                "stripes": self.stripes,
             }
+            if self.format == 2:
+                manifest["chunk_bytes"] = self.chunk_bytes
+                manifest["stripes"] = self.stripes
             if extra:
                 manifest.update(extra)
             if chaos_hooks.INJECTOR is not None:
@@ -395,11 +420,11 @@ class SnapshotWriter:
         """Caller-thread time spent CRC-ing raw bytes (the dedup pass and
         the pack writer's chunk and entry CRCs); compress workers' CRCs of
         the stored bytes are in neither this nor io_s."""
-        return self._hash_s + self._writer.hash_s
+        return self._hash_s + getattr(self._writer, "hash_s", 0.0)
 
     @property
     def stripe_bytes(self) -> List[int]:
-        return list(self._writer.stripe_bytes)
+        return list(getattr(self._writer, "stripe_bytes", ()))
 
     def abort(self) -> None:
         self._close_parent_packs()

@@ -10,11 +10,16 @@ Histograms are summaries (count/sum/min/max), not bucketed: the journal
 stores one snapshot per plane lifetime and the consumers (bench tables,
 ``repro metrics``) want totals and extremes, not percentiles.
 
+``warn_once`` is the one piece that works without installation: it
+flags configuration holes (a replicator with no ``last_stats``) exactly
+once per process instead of silently dropping counters.
+
 No other ``repro_torch`` imports — every layer may depend on this module.
 """
 from __future__ import annotations
 
 import threading
+import warnings
 from typing import Any, Dict, Optional
 
 REGISTRY: Optional["MetricsRegistry"] = None
@@ -30,6 +35,14 @@ METRIC_SCHEMA: Dict[str, tuple] = {
                              "(PendingWriteStalled)"),
     "pack.chunks": ("counter", "chunks", "chunks through the pipeline"),
     "restore.count": ("counter", "restores", "restores completed"),
+    "replica.push_count": ("counter", "pushes",
+                           "replication pushes attempted"),
+    "replica.missing_stats": ("counter", "pushes",
+                              "pushes whose replicator exposed no "
+                              "last_stats (silent-loss guard)"),
+    # replica.<k> mirrors every numeric counter a replicator reports in
+    # last_stats (bytes_sent, chunks_reused, ...): dynamic keys, one row
+    "replica.*": ("counter", "mixed", "replicator last_stats mirror"),
 }
 
 
@@ -87,6 +100,20 @@ def observe(name: str, v: float) -> None:
     reg = REGISTRY
     if reg is not None:
         reg.observe(name, v)
+
+
+_warned: set = set()
+_warned_lock = threading.Lock()
+
+
+def warn_once(key: str, message: str) -> None:
+    """Emit ``message`` as a RuntimeWarning once per process per key,
+    with or without an installed registry."""
+    with _warned_lock:
+        if key in _warned:
+            return
+        _warned.add(key)
+    warnings.warn(message, RuntimeWarning, stacklevel=3)
 
 
 def install(registry: MetricsRegistry) -> None:

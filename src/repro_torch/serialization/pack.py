@@ -1,8 +1,9 @@
 """Pack formats for snapshot payloads, byte-compatible with the JAX package.
 
 v1 — single file:  [8-byte magic "RPRPACK1"][8-byte LE index offset]
-[blob...][msgpack index].  Read here (images written by older code);
-the port writes v2 only.
+[blob...][msgpack index].  The index maps entry name -> {offset, nbytes,
+crc32, dtype, shape, codec, meta}.  Written by :class:`PackWriter` (the
+serial-compat ``pack_format=1``), read by :class:`PackReader`.
 
 v2 — chunked + striped:  an entry's raw bytes are split into fixed-size
 chunks; each chunk carries its own CRC and codec and is appended to one of
@@ -21,6 +22,12 @@ pack, :class:`PackWriterV2` writes a chunk whose raw CRC matches the
 parent's as a ``ref`` record and no bytes.  It runs a bounded pipeline
 (caller thread chunks + hashes -> compress/CRC workers -> one appender
 thread per stripe), so compression overlaps file I/O.
+
+The chunk is also the unit of cross-host transfer:
+:meth:`PackReaderV2.own_chunks` lists the chunks a pack stores itself,
+:meth:`PackReaderV2.read_stored_chunk` reads one as stored, and
+:func:`write_pack_v2_from_chunks` rebuilds a stripe set byte for byte from
+its footer and a chunk source.
 
 Differences from the reference: indexes go through the port's own
 ``msgpack_lite`` (the same bytes); the codec is zlib only, and a
@@ -117,13 +124,34 @@ def stripe_path(base: str, stripe: int) -> str:
     return f"{base}.{stripe}"
 
 
+def pack_exists(base: str) -> bool:
+    return os.path.exists(base) or os.path.exists(stripe_path(base, 0))
+
+
+def pack_files(base: str) -> List[str]:
+    """Physical files of the pack at `base` (v1: one file; v2: stripes)."""
+    if os.path.exists(base):
+        return [base]
+    out = []
+    k = 0
+    while os.path.exists(stripe_path(base, k)):
+        out.append(stripe_path(base, k))
+        k += 1
+    if not out:
+        raise FileNotFoundError(f"no pack at {base} (nor {base}.0)")
+    return out
+
+
 def _remove_stale_layout(base: str, stripes: int) -> None:
-    """After committing a v2 pack, remove a stale v1 single file and
-    surplus stripes left by an earlier write of the same step."""
-    try:
-        os.remove(base)
-    except OSError:
-        pass
+    """After committing a pack, remove files of the other layout (and
+    surplus stripes) left by an earlier write of the same step: the
+    existence-sniffing reader must never find a stale sibling.
+    `stripes=0` means a v1 single-file pack was just committed."""
+    if stripes > 0:
+        try:
+            os.remove(base)                          # stale v1 single file
+        except OSError:
+            pass
     k = stripes
     while True:
         try:
@@ -131,6 +159,99 @@ def _remove_stale_layout(base: str, stripes: int) -> None:
         except OSError:
             return
         k += 1
+
+
+class PackWriter:
+    """v1 single-file serial writer (``pack_format=1``): byte-identical to
+    the reference's writer for raw entries; compressed entries use zlib
+    (the reference picks zstd when it is installed)."""
+
+    def __init__(self, path: str, compress: bool = False, level: int = 3):
+        self.path = path
+        self.tmp = path + ".tmp"
+        self._f = open(self.tmp, "wb")
+        self._f.write(MAGIC)
+        self._f.write(struct.pack("<Q", 0))          # index placeholder
+        self._index: Dict[str, Dict[str, Any]] = {}
+        self._compress = compress
+        self._level = level
+        self._closed = False
+        self.compress_s = 0.0
+        self.io_s = 0.0
+
+    def _append(self, name: str, raw, dtype: Optional[str],
+                shape: Optional[list], codec: str) -> None:
+        if self._closed:
+            raise RuntimeError(f"{self.path}: pack already closed")
+        t0 = time.perf_counter()
+        off = self._f.tell()
+        self._f.write(raw)
+        self.io_s += time.perf_counter() - t0
+        self._index[name] = {
+            "offset": off, "nbytes": len(raw), "crc32": crc32(raw),
+            "dtype": dtype, "shape": shape, "codec": codec, "meta": {},
+        }
+
+    def add(self, name: str, array: np.ndarray,
+            dtype: Optional[str] = None) -> None:
+        """Append one array; `dtype` overrides the stored dtype name (a
+        bf16 tensor arrives as uint16 bits with dtype ``"bfloat16"``)."""
+        arr = np.asarray(array, order="C")   # (keeps a 0-d array 0-d)
+        raw = arr.tobytes()
+        codec = "raw"
+        if self._compress:
+            # the reference's zlib branch: v1 doubles the level (tuned for
+            # ratio; the v2 pipeline maps it 1:1 for speed)
+            t0 = time.perf_counter()
+            comp = zlib.compress(raw, min(self._level * 2, 9))
+            self.compress_s += time.perf_counter() - t0
+            if len(comp) < len(raw) * 0.9:
+                raw, codec = comp, "zlib"
+        self._append(name, raw, dtype or dtype_to_str(arr.dtype),
+                     list(arr.shape), codec)
+
+    def add_bytes(self, name: str, raw: bytes) -> None:
+        self._append(name, raw, None, None, "raw")
+
+    def entry_crc(self, name: str) -> int:
+        return self._index[name]["crc32"]
+
+    def close(self) -> Dict[str, Any]:
+        if self._closed:
+            raise RuntimeError(f"{self.path}: pack already closed")
+        idx = msgpack_lite.packb(self._index)
+        idx_off = self._f.tell()
+        self._f.write(idx)
+        self._f.seek(len(MAGIC))
+        self._f.write(struct.pack("<Q", idx_off))
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        os.rename(self.tmp, self.path)
+        _remove_stale_layout(self.path, 0)
+        self._closed = True
+        return self._index
+
+    def abort(self) -> None:
+        """Failed write: close and remove the temp file, commit nothing."""
+        if self._closed:
+            return
+        self._closed = True
+        self._f.close()
+        try:
+            os.remove(self.tmp)
+        except OSError:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            if not self._closed:
+                self.close()
+        else:
+            self.abort()
 
 
 class PackReader:
@@ -170,6 +291,12 @@ class PackReader:
 
     def close(self):
         self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # ------------------------------------------------------------------ v2
@@ -594,8 +721,10 @@ class PackReaderV2:
                 self._all_handles.append(f)
         return f
 
-    def _read_stored(self, name: str, c: Dict[str, Any]) -> bytes:
-        """One chunk's stored bytes, length- and CRC-checked."""
+    def _read_stored(self, name: str, c: Dict[str, Any],
+                     verify: Optional[bool] = None) -> bytes:
+        """One chunk's stored bytes, length-checked, and CRC-checked
+        unless `verify` (default: the reader's setting) is False."""
         path = self._chunk_file(c)
         t0 = time.perf_counter()
         try:
@@ -613,7 +742,8 @@ class PackReaderV2:
             raise IOError(
                 f"{path}:{name}: chunk truncated at offset {c['offset']} "
                 f"(got {len(data)} of {c['nbytes']} bytes)")
-        if self._verify and crc32(data) != c["crc32"]:
+        if (self._verify if verify is None else verify) \
+                and crc32(data) != c["crc32"]:
             raise IOError(
                 f"{path}:{name}: chunk CRC mismatch at offset "
                 f"{c['offset']} (torn write?)")
@@ -662,6 +792,19 @@ class PackReaderV2:
         buf = self._read_raw(name)
         return buf.view(dtype_from_str(rec["dtype"])).reshape(rec["shape"])
 
+    def read_stored_chunk(self, c: Dict[str, Any]) -> bytes:
+        """The stored (possibly compressed) bytes of one chunk record, the
+        unit of cross-host transfer, CRC-checked so a torn stripe never
+        ships."""
+        return self._read_stored("<chunk>", c, verify=True)
+
+    def own_chunks(self) -> List[Tuple[str, int, Dict[str, Any]]]:
+        """(entry, chunk index, record) for every chunk stored in THIS
+        pack's stripes (``ref`` chunks live in another pack and are that
+        pack's to export)."""
+        return [(name, j, c) for name, rec in self.index.items()
+                for j, c in enumerate(rec["chunks"]) if not c.get("ref")]
+
     def verify_entry(self, name: str) -> None:
         """Integrity-check one entry without decoding it (chunk CRCs
         cover the stored bytes)."""
@@ -678,6 +821,12 @@ class PackReaderV2:
                 f.close()
             self._all_handles.clear()
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
 
 def open_pack(base: str, verify: bool = True, executor=None):
     """Open the pack at `base`, sniffing v1 (single file) vs v2 (stripe
@@ -687,3 +836,72 @@ def open_pack(base: str, verify: bool = True, executor=None):
     if os.path.exists(stripe_path(base, 0)):
         return PackReaderV2(base, verify=verify, executor=executor)
     raise FileNotFoundError(f"no pack at {base} (nor {base}.0)")
+
+
+# ------------------------------------------------------------ v2 assembly
+HEADER_BYTES = len(MAGIC2) + 8        # magic + index-offset placeholder
+
+
+def write_pack_v2_from_chunks(base: str, footer: Dict[str, Any],
+                              fetch) -> None:
+    """Re-materialize a v2 pack from its logical index plus a chunk
+    source: the receive side of a cross-host transfer.
+
+    `footer` is the stripe-0 footer of the source pack (``entries`` with
+    every chunk's stripe/offset/nbytes/crc32); ``fetch(chunk_record)``
+    returns that chunk's stored bytes.  Stripes are rebuilt byte for byte
+    at the recorded offsets, so children whose ``ref`` chunks point into
+    this pack keep resolving and every CRC in the index stays valid.
+    Stripe 0's footer is re-encoded from `footer` (``msgpack_lite``
+    round-trips every footer either package writes byte for byte).  As
+    in :class:`PackWriterV2`, every stripe is written to ``*.tmp`` and
+    fsynced, and stripe 0 (the index) is renamed last.
+    """
+    stripes = footer["stripes"]
+    per_stripe: List[List[Dict[str, Any]]] = [[] for _ in range(stripes)]
+    for rec in footer["entries"].values():
+        for c in rec["chunks"]:
+            if not c.get("ref"):
+                per_stripe[c["stripe"]].append(c)
+    files = []
+    try:
+        for k in range(stripes):
+            f = open(stripe_path(base, k) + ".tmp", "wb")
+            files.append(f)
+            f.write(MAGIC2)
+            f.write(struct.pack("<Q", 0))
+            pos = HEADER_BYTES
+            for c in sorted(per_stripe[k], key=lambda c: c["offset"]):
+                if c["offset"] != pos:
+                    raise IOError(
+                        f"{base}.{k}: non-contiguous chunk layout "
+                        f"(offset {c['offset']}, expected {pos}): the "
+                        f"source index is corrupt")
+                data = fetch(c)
+                if len(data) != c["nbytes"] or crc32(data) != c["crc32"]:
+                    raise IOError(
+                        f"{base}.{k}: fetched chunk does not match the "
+                        f"index at offset {c['offset']} (corrupt source "
+                        f"or chunk store)")
+                f.write(data)
+                pos += c["nbytes"]
+            f.write(msgpack_lite.packb(
+                footer if k == 0 else {"format": 2, "stripe": k}))
+            f.seek(len(MAGIC2))
+            f.write(struct.pack("<Q", pos))
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+    except BaseException:
+        for f in files:
+            f.close()
+        for k in range(stripes):
+            try:
+                os.remove(stripe_path(base, k) + ".tmp")
+            except OSError:
+                pass
+        raise
+    for k in range(stripes - 1, -1, -1):
+        p = stripe_path(base, k)
+        os.rename(p + ".tmp", p)
+    _remove_stale_layout(base, stripes)

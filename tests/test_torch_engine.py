@@ -61,7 +61,7 @@ def test_check_and_capabilities(tmp_path):
     assert rep.ok, rep.summary()
     caps = capabilities()
     assert {"torch", "host"} <= set(caps["backends"])
-    assert caps["pack_formats"] == {"write": [2], "read": [1, 2]}
+    assert caps["pack_formats"] == {"write": [1, 2], "read": [1, 2]}
     s = CheckpointSession(str(tmp_path / "r2"), device="cpu")
     assert s.check().ok
     assert s.capabilities()["session"]["device"] == "cpu"

@@ -26,7 +26,10 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.optim.schedule", "repro_torch.data",
                "repro_torch.data.pipeline", "repro_torch.runtime.fault",
                "repro_torch.runtime.trainer", "repro_torch.core.dirty",
-               "repro_torch.core.lazy", "repro_torch.core.engine"]
+               "repro_torch.core.lazy", "repro_torch.core.engine",
+               "repro_torch.core.replication", "repro_torch.core.multihost",
+               "repro_torch.transfer", "repro_torch.transfer.cas",
+               "repro_torch.transfer.delta", "repro_torch.transfer.precopy"]
 
 
 def _env():

@@ -3,9 +3,14 @@
 ``msgpack_lite`` must produce the bytes of ``msgpack.packb(...,
 use_bin_type=True)``; an image the port writes must pass the JAX
 package's reader and ``repro verify``; an image the JAX package writes must
-restore in the port; bf16 crosses both ways bit-exact.
+restore in the port; bf16 crosses both ways bit-exact.  The v1 writer
+writes the reference's bytes, and the chunk-level surface transfer uses
+(``own_chunks``, ``read_stored_chunk``, ``write_pack_v2_from_chunks``)
+agrees with the reference's, with every footer round-tripping through
+``msgpack_lite`` byte for byte.
 """
 import os
+import struct
 
 import jax.numpy as jnp
 import msgpack
@@ -188,3 +193,179 @@ def test_keep_gcs_old_images(tmp_path):
     for step in range(4):
         s.checkpoint(step)
     assert s.store.list_steps() == [2, 3]
+
+
+# ------------------------------------------------ chunk-level surface, v1
+def _footers(run):
+    """Every footer / index the images under `run` hold, as stored."""
+    out = []
+    for root, _d, files in os.walk(os.path.join(run, "snapshots")):
+        for f in sorted(files):
+            if f == "MANIFEST.json":
+                continue
+            with open(os.path.join(root, f), "rb") as fh:
+                raw = fh.read()
+            (off,) = struct.unpack("<Q", raw[8:16])
+            out.append(raw[off:])
+    return out
+
+
+def _images_of_both_packages(tmp_path):
+    """Images the footers of which the round-trip test reads: each
+    package's incremental v2 chain (``ref`` chunks), compressed v2, and
+    each package's v1."""
+    x = np.arange(1 << 19, dtype=np.float32)      # 2 MiB: 2 chunks of 1 MiB
+    runs = {}
+    for pkg in ("jax", "torch"):
+        for name, kw in (("inc", dict(incremental=True, chunk_mb=1)),
+                         ("zlib", dict(compress=True)),
+                         ("v1", dict(pack_format=1))):
+            if pkg == "jax" and name == "zlib":
+                continue                   # the reference writes zstd here
+            run = str(tmp_path / f"{pkg}-{name}")
+            for step in (0, 1):
+                y = x.copy()
+                y[:8] = step
+                if pkg == "jax":
+                    s = JaxSession(run, JaxOptions(**kw))
+                    s.attach(lambda: {"st": {"x": jnp.asarray(y), "b":
+                                             jnp.ones(70, jnp.bfloat16)}})
+                else:
+                    s = CheckpointSession(run, CheckpointOptions(**kw),
+                                          device="cpu")
+                    s.attach(lambda: {"st": {
+                        "x": torch.from_numpy(y),
+                        "b": torch.ones(70, dtype=torch.bfloat16)}})
+                s.register_host_state("cursor", lambda: {"pos": 300},
+                                      lambda v: None)
+                s.checkpoint(step)
+            runs[f"{pkg}-{name}"] = run
+    return runs
+
+
+def test_msgpack_lite_round_trips_every_pack_footer(tmp_path):
+    """``write_pack_v2_from_chunks`` re-encodes the source footer: the
+    rebuilt stripe 0 is byte-identical only if decode + encode is the
+    identity on every footer either package writes (int widths, ``ref``
+    records, key order)."""
+    footers = [f for run in _images_of_both_packages(tmp_path).values()
+               for f in _footers(run)]
+    assert any(b"ref" in f for f in footers) and len(footers) > 12
+    for raw in footers:
+        assert msgpack_lite.packb(msgpack_lite.unpackb(raw)) == raw
+
+
+def _v1_entries():
+    g = np.random.default_rng(0)
+    return [("w", g.standard_normal((64, 33)).astype(np.float32), None),
+            ("z", np.zeros(4096, np.float32), None),           # compresses
+            ("i", np.arange(7, dtype=np.int32), None),
+            ("s", np.float32(2.5) * np.ones((), np.float32), None),
+            ("b", (np.arange(300) % 7).astype(np.uint16), "bfloat16")]
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_v1_writer_bytes_equal_reference(tmp_path, monkeypatch, compress):
+    """The port's PackWriter writes the reference's bytes; compressed
+    entries go through the reference's zlib branch (zstd switched off)."""
+    import ml_dtypes
+    from repro.serialization import pack as jpack
+    from repro_torch.serialization.pack import PackReader, PackWriter
+    monkeypatch.setattr(jpack, "_ZSTD", False)
+    paths = {k: str(tmp_path / f"{k}.pack") for k in ("torch", "jax")}
+    with PackWriter(paths["torch"], compress=compress) as w:
+        for name, arr, dt in _v1_entries():
+            w.add(name, arr, dtype=dt)
+        w.add_bytes("__host__", b"\x80")
+    with jpack.PackWriter(paths["jax"], compress=compress) as w:
+        for name, arr, dt in _v1_entries():
+            w.add(name, arr.view(ml_dtypes.bfloat16) if dt else arr)
+        w.add_bytes("__host__", b"\x80")
+    raw = {k: open(p, "rb").read() for k, p in paths.items()}
+    assert raw["torch"] == raw["jax"]
+    if compress:
+        assert b"zlib" in raw["torch"]
+    # each package reads the other's
+    r, jr = PackReader(paths["jax"]), jpack.PackReader(paths["torch"])
+    try:
+        for name, arr, dt in _v1_entries():
+            np.testing.assert_array_equal(r.read_array(name), arr)
+            got = jr.read_array(name)
+            np.testing.assert_array_equal(
+                got.view(np.uint16) if dt else got, arr)
+    finally:
+        r.close()
+        jr.close()
+
+
+def test_port_v1_images_restore_in_both_packages(tmp_path):
+    """``pack_format=1`` through the session: a single-file pack per
+    image, whole-entry incremental reuse, ``repro verify`` clean, and
+    both packages restore the chain."""
+    run = str(tmp_path / "run")
+    holder = {"st": {"x": torch.arange(4096, dtype=torch.float32),
+                     "b": torch.ones(8, dtype=torch.bfloat16)}}
+    s = CheckpointSession(run, CheckpointOptions(pack_format=1,
+                                                 incremental=True,
+                                                 compress=True),
+                          device="cpu")
+    s.attach(lambda: dict(holder))
+    s.checkpoint(0)
+    holder["st"] = dict(holder["st"], b=torch.full((8,), 2.0,
+                                                   dtype=torch.bfloat16))
+    s.checkpoint(1)
+    man = s.store.manifest(1)
+    assert man["format"] == 1 and man["files"] == ["host0000.pack"]
+    assert "stripes" not in man and "chunk_bytes" not in man
+    assert man["locations"]["st::x::s0"].startswith("step_00000000/")
+    assert man["reused_bytes"] == 4096 * 4
+    assert sorted(os.listdir(os.path.join(run, "snapshots",
+                                          "step_00000001"))) == \
+        ["MANIFEST.json", "host0000.pack"]
+    assert repro_cli.main(["verify", run]) == 0
+    out = CheckpointSession(run, device="cpu").restore()["st"]
+    assert torch.equal(out["x"], holder["st"]["x"])
+    assert torch.equal(out["b"], holder["st"]["b"])
+    js = JaxSession(run, JaxOptions())
+    js.attach(lambda: {"st": None})
+    jout = js.restore()["st"]
+    np.testing.assert_array_equal(np.asarray(jout["x"]),
+                                  holder["st"]["x"].numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jout["b"]).view(np.uint16),
+        holder["st"]["b"].view(torch.int16).numpy().view(np.uint16))
+
+
+def test_chunk_surface_and_rebuild_match_reference(tmp_path):
+    """``own_chunks`` / ``read_stored_chunk`` / ``pack_files`` /
+    ``pack_exists`` give the reference's answers on an incremental
+    child, and ``write_pack_v2_from_chunks`` rebuilds its stripes byte
+    for byte (the ``ref`` chunks are not the child's to write)."""
+    from repro.serialization import pack as jpack
+    from repro_torch.serialization import pack as tpack
+    run = _images_of_both_packages(tmp_path)["torch-inc"]
+    base = os.path.join(run, "snapshots", "step_00000001", "host0000.pack")
+    assert tpack.pack_files(base) == jpack.pack_files(base)
+    assert tpack.pack_exists(base) and not tpack.pack_exists(base + "x")
+    with tpack.open_pack(base) as r, jpack.open_pack(base) as jr:
+        own = r.own_chunks()
+        assert own == jr.own_chunks()
+        assert 0 < len(own) < sum(len(e["chunks"])
+                                  for e in r.index.values())
+        for _n, _j, c in own:
+            assert r.read_stored_chunk(c) == jr.read_stored_chunk(c)
+        footer = {"format": 2, "stripes": r.stripes,
+                  "chunk_bytes": r.chunk_bytes, "entries": r.index}
+        out = str(tmp_path / "rebuilt" / "host0000.pack")
+        os.makedirs(os.path.dirname(out))
+        tpack.write_pack_v2_from_chunks(out, footer, r.read_stored_chunk)
+    for src, dst in zip(tpack.pack_files(base), tpack.pack_files(out)):
+        assert open(src, "rb").read() == open(dst, "rb").read()
+    # a stored chunk that fails its CRC is never shipped
+    c = own[0][2]
+    with open(tpack.stripe_path(base, c["stripe"]), "r+b") as f:
+        f.seek(c["offset"])
+        f.write(b"\x00\x01\x02\x03")
+    with tpack.open_pack(base, verify=False) as r:
+        with pytest.raises(IOError, match="CRC"):
+            r.read_stored_chunk(c)

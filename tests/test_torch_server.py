@@ -180,10 +180,19 @@ def test_pad_cache_pads_only_attention_kv():
 
 
 def test_unported_options_are_rejected(tmp_path):
-    for bad in (dict(replicate_to=str(tmp_path / "peer")),
-                dict(transfer_policy=object()),
-                dict(pack_format=1)):
-        with pytest.raises(OptionsError, match="not ported"):
+    """Replication, transfer policies and the v1 writer are ported: the
+    options take them, and reject malformed values as the reference
+    does."""
+    from repro_torch.api import TransferPolicy
+    opts = CheckpointOptions(replicate_to=str(tmp_path / "peer"),
+                             transfer_policy=TransferPolicy(mode="delta"),
+                             pack_format=1)
+    assert opts.transfer_policy.mode == "delta" and opts.pack_format == 1
+    assert CheckpointOptions().transfer_policy == TransferPolicy()
+    for bad, match in ((dict(replicate_to=""), "replicate_to"),
+                       (dict(transfer_policy=object()), "TransferPolicy"),
+                       (dict(pack_format=3), "pack_format")):
+        with pytest.raises(OptionsError, match=match):
             CheckpointOptions(**bad)
 
 
