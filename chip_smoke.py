@@ -17,8 +17,14 @@ out each kernel's bound: the larger of (bytes moved / 3.35 TB/s) and
 (operations / peak rate for their type: 989 TFLOP/s bf16, 67 TFLOP/s
 f32), H100 SXM data sheet.  Timings only: flash attention and the SSD
 scan at long prompts, both RMSNorm designs at 2048 x 2560 and 2048 x 5120
-in turns, and both SSD kernels at mamba2's prefill shape in turns.  On a small input (each path's smoke config, f32)
-the card's kernel path must match the CPU plain path to 1e-3.
+in turns, and both SSD kernels at mamba2's prefill shape in turns.  Each
+kernel is also checked and timed at the shapes of phase 2b (bf16): flash
+attention at h2o-danube's prefill (hd 80, the window of 4096 binding at
+S = 4608; SDPA under the same mask as the library time), at qwen3-moe's
+(hd 128, 32 query heads over 4) and at jamba's; the SSD scan at jamba's
+(nh 128, P 64, N 16); RMSNorm at each path's rows and widths.  On a small
+input (each serving path's smoke config, f32) the card's kernel path must
+match the CPU plain path to 1e-3.
 
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
@@ -39,6 +45,24 @@ counters are zeroed just before each path's serving run and read just
 after it.  Each path's bf16 kernel logits are then held against its f32
 plain path (mamba2's over its first 4 layers), and one prefill and a few
 decode steps are profiled.
+
+Phase 2b serves the decoder zoo at its published widths, bf16 compute,
+kernels on, each path with one sync image mid-decode that a fresh server
+cold-restores and must continue token-exact: h2o-danube-1.8b at all 24
+layers over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
+window binds in prefill, the SWA ring of 4096 wraps in decode),
+qwen3-moe-30b-a3b at 12 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
+experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
+jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
+in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
+path runs in a process of its own (the script runs itself with
+``--zoo-path``, waits for it and reads its launches back), so its pinned
+host buffers are gone before the next path, and its image is deleted
+after it.  Flash attention and, for jamba, the SSD
+scan must run on the tensor-core kernels alone; the kernel path's forward
+logits over every position must be no further from the f32 plain path, on
+average, than LOGIT_SLACK times the bf16 plain path's (danube and qwen3 at
+4 layers of the full-width params).
 
 Phase 1 also holds each kernel's autograd Function (kernel forward,
 oracle backward) against plain autograd through its oracle on the card,
@@ -175,6 +199,19 @@ SSD_INVARIANCE = [((1, 96, 2, 16, 32), 96, (16, 32, 48), "torch.float32"),
                    "torch.bfloat16")]
 SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
 SSD_H_TOL = 1e-4
+# the decoder zoo's serving shapes (bf16, phase 2b): flash attention at
+# h2o-danube's prefill (hd 80, the window of 4096 binding at S = 4608),
+# qwen3-moe's (hd 128, 32 query heads over 4) and jamba's; the SSD scan at
+# jamba's (nh 128, P 64, N 16); RMSNorm at each path's prefill rows x
+# d_model, qwen3-moe's and jamba's decode rows (the one-row design;
+# danube's (2, 2560) is that of (4, 2560) above) and jamba's gated norm
+# (d_inner 8192) at prefill and decode
+ZOO_ATTN = [(2, 4608, 4608, 32, 8, 80, True, 4096),
+            (4, 512, 512, 32, 4, 128, True, 0),
+            (2, 1024, 1024, 32, 8, 128, True, 0)]
+ZOO_SSD = [(2, 1024, 128, 64, 16, 128)]
+ZOO_NORM = [(9216, 2560), (2048, 2048), (2048, 4096), (2048, 8192),
+            (4, 2048), (2, 4096), (2, 8192)]
 
 
 def log(*a):
@@ -513,6 +550,25 @@ def phase_kernels(seed: int) -> dict:
             if case == SSD_SLICE:
                 rows[f"ssd_scan/{r['variant']}"] = r
     failed += ssd_chunk_invariance(gen)
+    zoo = rows["zoo"] = {}
+    for name, cases, case_fn in (
+            ("flash_attention", ZOO_ATTN, attention_case),
+            ("ssd_scan", ZOO_SSD, ssd_case),
+            ("rmsnorm", ZOO_NORM, rmsnorm_case)):
+        zoo[name] = []
+        for case in cases:
+            r = case_fn(case, torch.bfloat16, gen)
+            variant = r.get("variant", "triton")
+            lib = r["library_ms"]
+            log(f"[kernels] {name} ({variant}) zoo {case} bf16: "
+                f"ok={r['ok']} err={r['max_abs_err']:.3g} ms={r['ms']:.5f} "
+                f"plain={r['plain_ms']:.4f} library="
+                f"{'none' if lib is None else f'{lib:.5f}'} "
+                f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
+            if not r["ok"]:
+                failed.append((name, case, "bf16"))
+            zoo[name].append(dict(case=list(case), variant=variant,
+                                  **{k: r[k] for k in TIMES}))
     r = ssd_case(SSD_LONG, torch.bfloat16, gen, timing_only=True)
     log(f"[kernels] ssd_scan ({r['variant']}) long {SSD_LONG} bf16, timing "
         f"only: ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
@@ -815,7 +871,6 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
 
-    counters = _counters()
     _zero_counters()                  # this path's launches start here
     for mode in modes:
         run = os.path.join(workdir, mode)
@@ -877,9 +932,20 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         del srv, fresh
         shutil.rmtree(run)            # one image set on the disk at a time
         torch.cuda.empty_cache()
-    launches = {name: mod.launches for name, mod in counters.items()}
+    launches, variants = path_launches(cfg, kernels, "serve")
+    check_logits(cfg, params, prompts, check_layers, "serve")
+    profile_serving(model, params, prompts, dev)
+    return launches, variants
+
+
+def path_launches(cfg, kernels, tag: str) -> tuple:
+    """The kernels' launches since the counters were zeroed, in all and
+    by variant; fails if a kernel of the path did not run, or if bf16
+    flash attention or the SSD scan ran on anything but the tensor-core
+    kernel."""
+    launches = {name: mod.launches for name, mod in _counters().items()}
     variants = _variants()
-    log(f"[serve] {cfg.name}: kernel launches on the serving path: "
+    log(f"[{tag}] {cfg.name}: kernel launches on the serving path: "
         f"{launches}; by variant: {variants}")
     if not all(launches[k] for k in kernels):
         raise SystemExit(f"{cfg.name}: a kernel of the path was not "
@@ -890,8 +956,21 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         if name in kernels and not (v["tc"] and not v["fma"]):
             raise SystemExit(f"{cfg.name}: bf16 {name} did not go through "
                              f"the tensor-core kernel alone: {v}")
+    return launches, variants
 
-    # kernel path against the plain path at full width (not counted)
+
+def check_logits(cfg, params, prompts, check_layers, tag: str,
+                 every_position: bool = False) -> None:
+    """The bf16 kernel path's prefill logits at full width against the f32
+    plain path, no further from it than LOGIT_SLACK times the bf16 plain
+    path (launches not counted): the largest error at the last position,
+    or with `every_position` the mean error over every position of the
+    forward (a MoE layer's top-k flips at near ties in either bf16 path,
+    which moves a few logits by O(1) at random: the mean is the stable
+    measure there)."""
+    import torch
+    from repro_torch.models.lm import LM
+    dev = torch.device("cuda")
     ccfg, cparams = cfg, params
     if check_layers:
         ccfg = dataclasses.replace(cfg, num_layers=check_layers)
@@ -907,38 +986,45 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
                                  device=dev)),
                     ("f32", LM(ccfg, compute_dtype=torch.float32,
                                device=dev))):
-        out[name] = m.prefill(cparams, batch)[0][:, :cfg.vocab_size].float()
+        with torch.no_grad():
+            logits = (m.forward(cparams, batch) if every_position
+                      else m.prefill(cparams, batch)[0])
+        out[name] = logits[..., :cfg.vocab_size].float()
     ref = out["f32"]
-    err = {k: (out[k] - ref).abs().max().item() for k in ("kernels", "plain")}
+    diff = {k: (out[k] - ref).abs() for k in ("kernels", "plain")}
+    err = {k: d.max().item() for k, d in diff.items()}
+    mean = {k: d.mean().item() for k, d in diff.items()}
     agree = {k: (out[k].argmax(-1) == ref.argmax(-1)).float().mean().item()
              for k in ("kernels", "plain")}
-    log(f"[serve] {cfg.name} ({ccfg.num_layers} layers) prefill logits "
+    log(f"[{tag}] {cfg.name} ({ccfg.num_layers} layers) "
+        f"{'forward' if every_position else 'prefill'} logits "
         f"{tuple(ref.shape)} (|logit| max {ref.abs().max().item():.3g}) "
         f"against the f32 plain path: bf16 kernels max err "
-        f"{err['kernels']:.3g}, argmax agreement {agree['kernels']:.2f}; "
-        f"bf16 plain max err {err['plain']:.3g}, argmax agreement "
-        f"{agree['plain']:.2f}; bf16 kernels vs bf16 plain max diff "
+        f"{err['kernels']:.3g}, mean {mean['kernels']:.3g}, argmax "
+        f"agreement {agree['kernels']:.3f}; bf16 plain max err "
+        f"{err['plain']:.3g}, mean {mean['plain']:.3g}, argmax agreement "
+        f"{agree['plain']:.3f}; bf16 kernels vs bf16 plain max diff "
         f"{(out['kernels'] - out['plain']).abs().max().item():.3g}")
+    held = mean if every_position else err
     if not (torch.isfinite(out["kernels"]).all()
-            and err["kernels"] <= LOGIT_SLACK * err["plain"]):
+            and held["kernels"] <= LOGIT_SLACK * held["plain"]):
         raise SystemExit(f"{cfg.name}: full-width kernel path is further "
                          f"from the f32 reference than the plain bf16 path")
-    del out, ref, cparams
-    profile_serving(model, params, prompts, dev)
-    return launches, variants
 
 
-def profile_serving(model, params, prompts, dev) -> None:
+def profile_serving(model, params, prompts, dev,
+                    max_seq: int = SERVE_MAX) -> None:
     """torch.profiler over one prefill and a few decode steps (outside the
     counted window): device busy share and the ops that take its time."""
     import torch
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
-    cache = model.init_cache(prompts.shape[0], SERVE_MAX)
+    cache = model.init_cache(prompts.shape[0], max_seq)
     last = tokens[:, -1]
+    S = prompts.shape[1]
     runs = {
         "prefill": (1, lambda i: model.prefill(params, {"tokens": tokens})),
         "decode": (4, lambda i: model.decode_step(params, cache, last,
-                                                  SERVE_S + i)),
+                                                  S + i)),
     }
     for name, (steps, fn) in runs.items():
         fn(0)                                                  # warm
@@ -966,6 +1052,134 @@ def profile_serving(model, params, prompts, dev) -> None:
             log(f"[profile]   {e.key[:60]}: "
                 f"{e.self_device_time_total / steps / 1e3:.3f} ms/step "
                 f"x{e.count // steps}")
+
+
+# ---------------------------------------------------------------- phase 2b
+# The decoder zoo at its published widths, bf16 compute, kernels on: (arch,
+# layers kept (None: all), param dtype, batch, prompt, max_seq, tokens
+# decoded, kernels of the path, depth of the logit check (None: every
+# layer)).  Depth and param dtype are cut only where
+# the card's memory or the run's time forces it: qwen3-moe-30b-a3b's 48
+# layers are 61 GB of bf16 params (their image too slow to write for this
+# run), so 12 of them; jamba-v0.1-52b's 32 layers are 105 GB, so one whole
+# period of 8 (7 Mamba, 1 attention, 4 MoE, 4 dense MLP).  h2o-danube's
+# prompt of 4608 puts the window (4096) inside the prefill and wraps the
+# ring in decode.  As for mamba2, the logit check keeps 4 layers where
+# many random layers carry both bf16 paths O(1) logits away from f32, so
+# that a wrong kernel would not show; jamba keeps its one period of 8.
+ZOO_PATHS = (
+    ("h2o-danube-1.8b", None, "float32", 2, 4608, 4672, 48,
+     ("flash_attention", "rmsnorm"), 4),
+    ("qwen3-moe-30b-a3b", 12, "bfloat16", 4, 512, 576, 32,
+     ("flash_attention", "rmsnorm"), 4),
+    ("jamba-v0.1-52b", 8, "bfloat16", 2, 1024, 1088, 32,
+     ("flash_attention", "rmsnorm", "ssd_scan"), None),
+)
+
+
+def host_available_gib() -> float:
+    """MemAvailable of the host, GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_zoo(path, seed: int, workdir: str, card: str) -> tuple:
+    """Serve one zoo path at full width: prefill, decode half its tokens,
+    a sync image, the other half; a fresh server cold-restores the image
+    and must decode the same tokens.  Returns the path's launches, in all
+    and by variant (counted from before the prefill to after the fresh
+    server's decode)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer
+
+    arch, layers, pdtype, B, S, max_seq, n_tok, kernels, check_layers = path
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16,
+               param_dtype=getattr(torch, pdtype), use_kernels=True,
+               device=dev)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.nbytes for t in _leaves(params))
+    log(f"[zoo] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"(cut: {'none' if layers is None else 'depth'}), pattern "
+        f"{cfg.layer_pattern}, d={cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} x {cfg.head_dim}, window {cfg.sliding_window},"
+        f" experts {cfg.moe_num_experts} top-{cfg.moe_top_k} x "
+        f"{cfg.moe_d_ff}, SSM N={cfg.ssm_state} P={cfg.ssm_headdim}; "
+        f"{n_params} {pdtype} params ({nbytes / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s; B={B}, prompt {S}, max_seq "
+        f"{max_seq}, {n_tok} tokens")
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    run = os.path.join(workdir, "sync")
+    opts = CheckpointOptions(mode="sync")
+    _zero_counters()                  # this path's launches start here
+    srv = DecodeServer(cfg, run, max_seq=max_seq, options=opts, device=dev,
+                       model=model)
+    srv.load(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.start({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    # an SWA layer's cache is a ring of the window, not of max_seq
+    want = {f"pos{j}": (min(max_seq, cfg.sliding_window) if kind == "swa"
+                        else max_seq)
+            for j, kind in enumerate(cfg.layer_pattern) if kind != "mamba"}
+    got = {p: srv.cache[p]["k"].shape[2] for p in want}
+    if got != want:
+        raise SystemExit(f"{arch}: KV cache lengths {got}, want {want}")
+    half = n_tok // 2
+    t0 = time.perf_counter()
+    srv.decode(half)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / half
+    image = serve_image(srv, card)
+    expected = srv.decode(n_tok - half).copy()
+
+    avail = host_available_gib()
+    t0 = time.perf_counter()
+    fresh = DecodeServer(cfg, run, max_seq=max_seq, options=opts,
+                         device=dev, model=model)
+    fresh.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tokens = fresh.decode(n_tok - half)
+    same = fresh.pos == srv.pos and np.array_equal(tokens, expected)
+    cache_b = sum(t.nbytes for t in _leaves(srv.cache))
+    log(f"[zoo] {arch}: prefill {prefill_ms:.1f} ms (B={B}, S={S}); "
+        f"decode {decode_ms:.2f} ms/token; KV lengths {got} (the last "
+        f"write at pos {srv.pos - 1}); sync image at pos {image['step']}: "
+        f"freeze (lock + D2H) {image['freeze_ms']:.1f} ms, write "
+        f"{image['write_s']:.2f} s (hash_s {image['hash_s']:.2f}), image "
+        f"{image['image']} bytes (cache {cache_b}); eager cold restore "
+        f"{restore_s:.2f} s (host MemAvailable {avail:.1f} GiB before it, "
+        f"{host_available_gib():.1f} after); continuation token-exact: "
+        f"{same}; {card}")
+    if not same:
+        raise SystemExit(f"{arch}: cold-restored server diverged")
+    del srv, fresh
+    shutil.rmtree(run)                # the image goes before the next path
+    torch.cuda.empty_cache()
+    launches, variants = path_launches(cfg, kernels, "zoo")
+    check_logits(cfg, params, prompts, check_layers, "zoo",
+                 every_position=True)
+    torch.cuda.empty_cache()
+    profile_serving(model, params, prompts, dev, max_seq)
+    return launches, variants
 
 
 def _leaves(tree):
@@ -1943,7 +2157,8 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     """The `kernels` line: one row per kernel (its slice case, its launches
     on the serving paths); flash attention's and the SSD scan's variants
     (tc at the bf16 slice, fma at the f32 slice) and long-prompt timings;
-    RMSNorm at d = 5120 and its two designs."""
+    RMSNorm at d = 5120 and its two designs; each kernel at the zoo
+    paths' shapes."""
     out = []
     for name, route, source, replaces in KERNEL_ROWS:
         row = dict(name=name, route=route, source=source, replaces=replaces,
@@ -1977,12 +2192,39 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     rn_row["wide"] = dict(shape=list(NORM_DESIGN_SHAPE), **{
         k: rows[f"rmsnorm/{NORM_DESIGN_SHAPE[1]}"][k] for k in TIMES})
     rn_row["designs_ms"] = rows["rmsnorm/designs"]
+    for row in out:
+        row["zoo"] = rows["zoo"][row["name"]]
     return out
+
+
+def run_zoo_path(path, seed: int) -> tuple:
+    """`phase_zoo` in a process of its own, waited for; its launches, in
+    all and by variant.  torch's caching host allocator keeps every dump's
+    pinned buffers for reuse, so one process that served every path would
+    hold them all (the host has 96 GiB; jamba's dump and restore alone
+    pin about twice its 26.6 GB image): each path's buffers go back to the
+    OS when its process exits."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        out = os.path.join(workdir, "launches.json")
+        rc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--seed",
+             str(seed), "--zoo-path", path[0], "--out", out],
+            timeout=1000).returncode
+        if rc:
+            raise SystemExit(f"{path[0]}: the zoo path's process failed "
+                             f"(exit {rc})")
+        with open(out) as f:
+            res = json.load(f)
+    return res["launches"], res["variants"]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--zoo-path", help="(the script's own child process) "
+                    "serve this ZOO_PATHS model only and write its "
+                    "launches to --out")
+    ap.add_argument("--out", help="with --zoo-path: the launches' JSON")
     args = ap.parse_args()
 
     import torch
@@ -2003,13 +2245,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.zoo_path:
+        path = {p[0]: p for p in ZOO_PATHS}[args.zoo_path]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            launches, variants = phase_zoo(path, args.seed, workdir,
+                                           card_line())
+        with open(args.out, "w") as f:
+            json.dump({"launches": launches, "variants": variants}, f)
+        return 0
+
     t_start = time.perf_counter()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; {card}")
     rows = phase_kernels(args.seed)
     phase_grads(args.seed)
-    for arch, *_ in SERVE_PATHS:
+    for arch in [p[0] for p in SERVE_PATHS + ZOO_PATHS]:
         check_small_reference(arch, args.seed)
     by_path = {}
     for arch, modes, kernels, check_layers in SERVE_PATHS:
@@ -2017,6 +2268,8 @@ def main() -> int:
             by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
                                           args.seed, workdir, card)
         torch.cuda.empty_cache()
+    for path in ZOO_PATHS:
+        by_path[path[0]] = run_zoo_path(path, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path[f"{TRAIN_ARCH} train"] = phase_training(args.seed, workdir,
                                                         card)

@@ -129,6 +129,13 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """Per-head q/k norm (Qwen3): x (..., hd), scale (hd,).  Plain torch:
+    the reference computes it outside any kernel too."""
+    return rmsnorm({"scale": scale}, x, eps)
+
+
 # ======================================================================
 # Rotary embeddings
 # ======================================================================
@@ -169,13 +176,17 @@ def attention_specs(cfg) -> Dict[str, ParamSpec]:
         s["bq"] = ParamSpec((H * hd,), ("heads",), init="zeros")
         s["bk"] = ParamSpec((KV * hd,), ("kv_heads",), init="zeros")
         s["bv"] = ParamSpec((KV * hd,), ("kv_heads",), init="zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+        s["k_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
     return s
 
 
 def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
          rope: bool = True):
-    """Project to q (B,S,H,hd), k/v (B,S,KV,hd) with RoPE applied.
-    (The reference's Qwen3 q/k norm and M-RoPE are not ported yet.)"""
+    """Project to q (B,S,H,hd), k/v (B,S,KV,hd), q/k-normed per head
+    (Qwen3) when the config asks, with RoPE applied.  (The reference's
+    M-RoPE is not ported yet.)"""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -189,6 +200,9 @@ def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -1,28 +1,36 @@
 """Decoder LM: training forward and loss, prefill and decode over a
 stacked-layer param tree.
 
-Port of the JAX package's ``models/lm.py`` for models whose every layer is
-a dense ``"attn"`` block (qwen1.5, phi3, deepseek) or whose every layer is
-a ``"mamba"`` block (mamba2): param specs with the reference's paths
-(``blocks/pos0/attn/wq``, ``blocks/pos0/mamba/w_x``, with a leading
-stacked-layer dim), ``forward`` and ``loss`` (full-length next-token
-cross-entropy), ``prefill``, ``decode_step`` and the cache per layer kind:
-``pos0/{k,v}`` of (L, B, S, KV, hd) for attention,
-``pos0/{h,conv_x,conv_B,conv_C}`` for Mamba (h (L, B, nh, P, N) in f32,
-the conv tails (L, B, W-1, ·) in the compute dtype).  Layers run as a
-Python loop over the stacked dim where the reference scans; with ``remat``
-each layer (a super-block of the all-attn and all-mamba patterns) is
-recomputed in the backward (``torch.utils.checkpoint``), as the reference
-rematerialises each super-block.
+Port of the JAX package's ``models/lm.py`` for every decoder-only
+pattern of the zoo: dense attention (qwen1.5, phi3, deepseek),
+sliding-window attention (``"swa"``, h2o-danube), pure Mamba (mamba2),
+the Mamba/attention hybrid (jamba) and MoE FFNs with Qwen3's q/k-norm
+(qwen3-moe).  Param specs keep the reference's paths
+(``blocks/pos0/attn/wq``, ``blocks/pos1/moe/w_gate``,
+``blocks/pos0/mamba/w_x``, with a leading stacked-layer dim: a pattern of
+length P stacks ``num_layers / P`` layers per ``pos{j}``); ``forward`` and
+``loss`` (full-length next-token cross-entropy plus 0.01 x the MoE aux
+loss summed over layers), ``prefill``, ``decode_step`` and the cache per
+layer kind: ``pos{j}/{k,v}`` of (L, B, S, KV, hd) for attention, where an
+SWA layer's S is ``min(max_seq, window)`` and is a ring (position p at
+slot ``p % S``), and ``pos{j}/{h,conv_x,conv_B,conv_C}`` for Mamba (h
+(L, B, nh, P, N) in f32, the conv tails (L, B, W-1, ·) in the compute
+dtype).  Layers run as a Python loop over the stacked dim where the
+reference scans; with ``remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), returning its MoE aux beside x so the aux's
+gradient flows, as the reference rematerialises each super-block.
+Encoder-decoder (whisper) and VLM (qwen2-vl: M-RoPE, vision embeddings)
+configs are not ported.
 
 ``use_kernels`` routes training and prefill attention through the
-flash-attention kernel, their SSD scan through the SSD-scan kernel, and
-the block, final and gated norms through the RMSNorm kernel
-(``repro_torch.kernels.ops``, differentiable: kernel forward, oracle
-backward); those compute the same functions as the plain layers.  Decode
-attention reads the whole cache for one query per sequence, and the decode
-SSM step is one recurrence step: both stay plain ``torch`` math, as in the
-reference.
+flash-attention kernel (with the window of an SWA layer), their SSD scan
+through the SSD-scan kernel, and the block, final and gated norms through
+the RMSNorm kernel (``repro_torch.kernels.ops``, differentiable: kernel
+forward, oracle backward); those compute the same functions as the plain
+layers.  Decode attention reads the whole cache for one query per
+sequence, and the decode SSM step is one recurrence step: both stay plain
+``torch`` math, as in the reference; so do the MoE router and experts and
+the q/k-norm, which the reference computes outside any kernel.
 
 Unlike the reference, ``decode_step`` writes the new K/V, SSM state and
 conv tails into the cache in place (no second cache per token) and
@@ -39,9 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
+ATTN_KINDS = ("attn", "swa")
 
 
 # ======================================================================
@@ -54,11 +64,13 @@ def _layer_specs(cfg: ModelConfig, pos: int) -> Dict[str, Any]:
         "pre_mixer_norm": L.rmsnorm_spec(cfg.d_model),
         "pre_mlp_norm": L.rmsnorm_spec(cfg.d_model),
     }
-    if cfg.layer_kind(pos) == "attn":
+    if cfg.layer_kind(pos) in ATTN_KINDS:
         s["attn"] = L.attention_specs(cfg)
     else:
         s["mamba"] = M.mamba_specs(cfg)
-    if cfg.d_ff > 0:
+    if cfg.is_moe_layer(pos):
+        s["moe"] = MOE.moe_specs(cfg)
+    elif cfg.d_ff > 0:
         s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
     return s
 
@@ -83,18 +95,12 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers dense attention-only and pure-Mamba decoders so
-    far."""
-    kinds = set(cfg.layer_pattern)
-    if kinds not in ({"attn"}, {"mamba"}):
+    """The port covers every decoder-only config; encoder-decoder and VLM
+    configs are not ported yet."""
+    if cfg.encoder_layers or cfg.mrope or cfg.vision_stub:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}; only all-'attn' or "
-            f"all-'mamba' patterns are ported (SWA and hybrids come later)")
-    if cfg.moe_num_experts or cfg.encoder_layers or cfg.mrope \
-            or cfg.vision_stub or cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE, encoder-decoder, VLM and q/k-norm configs "
-            f"are not ported yet")
+            f"{cfg.name}: encoder-decoder and VLM configs (encoder layers, "
+            f"M-RoPE, vision embeddings) are not ported yet")
 
 
 def _unstack(tree: PyTree, n: int) -> List[PyTree]:
@@ -147,10 +153,17 @@ class LM:
             w = params["lm_head"].to(x.dtype)
         return L.mask_padded_vocab(x @ w, self.cfg)
 
-    def _ffn(self, lp, x):
-        if "mlp" not in lp:
-            return x                        # pure-SSM archs: no FFN
-        return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x))
+    def _ffn(self, lp, x, dropless: bool = False):
+        """x + the layer's FFN, and the MoE aux (None without MoE)."""
+        if "moe" in lp:
+            f, aux = MOE.moe_block(lp["moe"], self.cfg,
+                                   self._norm(lp["pre_mlp_norm"], x),
+                                   dropless=dropless)
+            return x + f, aux
+        if "mlp" in lp:
+            return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x)), \
+                None
+        return x, None                      # pure-SSM archs: no FFN
 
     def _layers(self, params) -> Dict[str, List[PyTree]]:
         """pos{j} -> the params of each of its stacked layers."""
@@ -167,35 +180,43 @@ class LM:
 
     # ---------------- forward / loss (training) ----------------
     def _block(self, lp, j: int, x, positions):
+        """One layer: (x, its MoE aux or None)."""
         h = self._norm(lp["pre_mixer_norm"], x)
-        if self.cfg.layer_kind(j) == "attn":
-            o = self._attn(lp, h, positions)[0]
+        if self.cfg.layer_kind(j) in ATTN_KINDS:
+            o = self._attn(lp, j, h, positions)[0]
         else:
             o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
         return self._ffn(lp, x + o)
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Logits (B, S, padded_vocab) in the compute dtype."""
+    def _forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits, the MoE aux summed over layers, f32)."""
         x = self._embed(params, batch["tokens"])
         positions = self._positions(batch)
         layers = self._layers(params)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self._n_sb):
             for j in range(self._P):
                 lp = layers[f"pos{j}"][i]
                 if self.remat:
-                    x = checkpoint(self._block, lp, j, x, positions,
-                                   use_reentrant=False)
+                    x, a = checkpoint(self._block, lp, j, x, positions,
+                                      use_reentrant=False)
                 else:
-                    x = self._block(lp, j, x, positions)
+                    x, a = self._block(lp, j, x, positions)
+                if a is not None:
+                    aux = aux + a
         x = self._norm(params["final_norm"], x)
-        return self._head(params, x)
+        return self._head(params, x), aux
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Logits (B, S, padded_vocab) in the compute dtype."""
+        return self._forward(params, batch)[0]
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-length next-token loss: targets are the tokens rolled by
         one, the last position masked (S stays whole, as in the
-        reference).  ``total = loss + 0.01 * aux``; aux is 0 (no MoE
-        yet)."""
-        logits = self.forward(params, batch)
+        reference).  ``total = loss + 0.01 * aux``, aux the MoE layers'
+        load-balance losses summed (0 without MoE)."""
+        logits, aux = self._forward(params, batch)
         tokens = batch["tokens"]
         targets = torch.roll(tokens, -1, dims=1)
         mask = batch.get("loss_mask")
@@ -204,7 +225,6 @@ class LM:
                 else mask.float().clone())
         mask[:, -1] = 0.0
         loss, ntok = L.softmax_xent_sharded(logits, targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         total = loss + 0.01 * aux
         return total, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
@@ -213,8 +233,12 @@ class LM:
         cfg = self.cfg
         out = {}
         for j in range(self._P):
-            if cfg.layer_kind(j) == "attn":
-                shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            kind = cfg.layer_kind(j)
+            if kind in ATTN_KINDS:
+                # an SWA layer keeps a ring of its window's positions
+                S = (min(max_seq, cfg.sliding_window) if kind == "swa"
+                     else max_seq)
+                shp = (batch, S, cfg.num_kv_heads, cfg.head_dim)
                 leaf = {k: torch.empty(shp, dtype=self.compute_dtype,
                                        device="meta") for k in ("k", "v")}
             else:
@@ -236,7 +260,9 @@ class LM:
     @torch.no_grad()
     def prefill(self, params, batch) -> Tuple[torch.Tensor, PyTree]:
         """Forward over a prompt, returning last-position logits (B, V)
-        and the populated KV/SSM cache (KV length == prompt length)."""
+        and the populated KV/SSM cache (KV length == prompt length; an
+        SWA layer keeps its last `window` positions, position p at slot
+        ``p % window``)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         positions = self._positions(batch)
@@ -247,13 +273,19 @@ class LM:
             for j in range(self._P):
                 lp = layers[f"pos{j}"][i]
                 h = self._norm(lp["pre_mixer_norm"], x)
-                if cfg.layer_kind(j) == "attn":
-                    o, nc = self._attn(lp, h, positions)
+                if cfg.layer_kind(j) in ATTN_KINDS:
+                    o, nc = self._attn(lp, j, h, positions)
+                    window = self._window(j)
+                    S = nc["k"].shape[1]
+                    if window and window < S:
+                        # ring-buffer alignment: position p at slot p % window
+                        nc = {n: torch.roll(t[:, -window:], S % window, 1)
+                              for n, t in nc.items()}
                 else:
                     o, hfin, nc = M.mamba_prefill(lp["mamba"], cfg, h,
                                                   self.use_kernels)
                     nc = {"h": hfin, **nc}
-                x = self._ffn(lp, x + o)
+                x = self._ffn(lp, x + o)[0]
                 for k, t in nc.items():
                     caches[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
@@ -262,35 +294,46 @@ class LM:
                  for p, leaves in caches.items()}
         return logits, cache
 
-    def _attn(self, lp, h, positions):
-        """Causal self-attention over a sequence: (out, {k, v})."""
+    def _window(self, j: int) -> int:
+        """The attention window of pattern position j (0: none)."""
+        return self.cfg.sliding_window if self.cfg.layer_kind(j) == "swa" \
+            else 0
+
+    def _attn(self, lp, j: int, h, positions):
+        """Causal self-attention over a sequence, windowed for an SWA
+        layer: (out, {k, v})."""
         cfg = self.cfg
         B, S = h.shape[:2]
+        window = self._window(j)
         q, k, v = L._qkv(lp["attn"], cfg, h, positions)
         if self.use_kernels:
             from repro_torch.kernels import ops
-            o = ops.attention(q, k, v, causal=True)
+            o = ops.attention(q, k, v, causal=True, window=window)
         else:
-            o = L.self_attention(q, k, v, causal=True)
+            o = L.self_attention(q, k, v, causal=True, window=window)
         o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
         return o @ lp["attn"]["wo"].to(h.dtype), {"k": k, "v": v}
 
     # ---------------- decode ----------------
-    def _decode_attn(self, lp, x, k_cache, v_cache, pos: int):
-        """x (B, d); k/v_cache (B, S_c, KV, hd), updated in place at pos."""
+    def _decode_attn(self, lp, j: int, x, k_cache, v_cache, pos: int):
+        """x (B, d); k/v_cache (B, S_c, KV, hd), updated in place at pos,
+        or at slot ``pos % S_c`` of an SWA layer's ring."""
         cfg = self.cfg
         B = x.shape[0]
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         S_c = k_cache.shape[1]
+        ring = bool(self._window(j))
         posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         q, k_new, v_new = L._qkv(lp["attn"], cfg, x[:, None, :], posv)
-        k_cache[:, pos] = k_new[:, 0]
-        v_cache[:, pos] = v_new[:, 0]
+        slot = pos % S_c if ring else pos
+        k_cache[:, slot] = k_new[:, 0]
+        v_cache[:, slot] = v_new[:, 0]
 
         qg = q.reshape(B, 1, KV, H // KV, hd)
         scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache) / math.sqrt(hd)
         scores = scores.float()
-        valid = torch.arange(S_c, device=x.device) <= pos
+        idx = torch.arange(S_c, device=x.device)
+        valid = idx < min(pos + 1, S_c) if ring else idx <= pos
         scores = torch.where(valid, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         o = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache)
@@ -300,7 +343,8 @@ class LM:
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
                     ) -> Tuple[torch.Tensor, PyTree]:
         """One serving step: tokens (B,) int, pos the write position (it
-        bounds only attention caches: an SSM state has no length)."""
+        bounds only full attention caches: an SSM state has no length and
+        an SWA ring no end)."""
         for j in range(self._P):
             if self.cfg.layer_kind(j) == "attn":
                 S_c = cache[f"pos{j}"]["k"].shape[2]
@@ -315,11 +359,11 @@ class LM:
                 lp = layers[f"pos{j}"][i]
                 lc = caches[f"pos{j}"][i]
                 h = self._norm(lp["pre_mixer_norm"], x)
-                if self.cfg.layer_kind(j) == "attn":
-                    o = self._decode_attn(lp, h, lc["k"], lc["v"], pos)
+                if self.cfg.layer_kind(j) in ATTN_KINDS:
+                    o = self._decode_attn(lp, j, h, lc["k"], lc["v"], pos)
                 else:
                     o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
                                        self.use_kernels)
-                x = self._ffn(lp, x + o)
+                x = self._ffn(lp, x + o, dropless=True)[0]   # MoE: no drops
         x = self._norm(params["final_norm"], x)
         return self._head(params, x), cache

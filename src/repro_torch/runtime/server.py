@@ -74,7 +74,8 @@ class DecodeServer:
 
     # ------------------------------------------------------------- serving
     def start(self, batch: Dict[str, Any]) -> None:
-        """Prefill a batch of prompts; the cache is padded to max_seq."""
+        """Prefill a batch of prompts; the cache is padded to the one the
+        model declares for max_seq."""
         prompt = np.asarray(batch["tokens"], np.int32)
         B, S = prompt.shape
         if S >= self.max_seq:
@@ -84,28 +85,35 @@ class DecodeServer:
             self.params,
             {"tokens": torch.as_tensor(prompt, dtype=torch.long,
                                        device=self.device)})
-        self.cache = self._pad_cache(cache, self.max_seq)
+        self.cache = self._pad_cache(
+            cache, self.model.cache_abstract(B, self.max_seq))
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self.tokens = np.concatenate([prompt, nxt[:, None]], axis=1)
         self.pos = S
 
     @staticmethod
-    def _pad_cache(cache, max_seq: int):
+    def _pad_cache(cache, template):
         """Pad the *attention* KV seq dim (axis 2 of (L, B, S, KV, hd)) to
-        max_seq.  Keyed by leaf name, as in the reference: an SSM state h
-        (L, B, nh, P, N) is 5-D too and must not be touched."""
-        def pad(leaf):
-            if leaf.dim() == 5 and leaf.shape[2] < max_seq:
-                return F.pad(leaf, (0, 0, 0, 0, 0, max_seq - leaf.shape[2]))
+        that of the matching leaf of `template`, the cache the model
+        declares (``LM.cache_abstract``): max_seq, or for an SWA ring
+        ``min(max_seq, window)`` (the reference pads the ring to max_seq,
+        which loses the window once max_seq exceeds it).  Keyed by leaf
+        name, as in the reference: an SSM state h (L, B, nh, P, N) is 5-D
+        too and must not be touched."""
+        def pad(leaf, length):
+            if leaf.dim() == 5 and leaf.shape[2] < length:
+                return F.pad(leaf, (0, 0, 0, 0, 0, length - leaf.shape[2]))
             return leaf
 
-        def walk(node):
+        def walk(node, tmpl):
             if isinstance(node, dict):
-                return {k: (pad(v) if k in ("k", "v", "self_k", "self_v")
-                            and isinstance(v, torch.Tensor) else walk(v))
+                return {k: (pad(v, tmpl[k].shape[2]) if k in (
+                            "k", "v", "self_k", "self_v")
+                            and isinstance(v, torch.Tensor)
+                            else walk(v, tmpl[k]))
                         for k, v in node.items()}
             return node
-        return walk(cache)
+        return walk(cache, template)
 
     def decode_until(self, target_pos: int,
                      preempt: Optional[Callable[[], bool]] = None,

@@ -18,6 +18,7 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.kernels", "repro_torch.kernels.flash_attention",
                "repro_torch.kernels.rmsnorm", "repro_torch.kernels.build",
                "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
+               "repro_torch.models.moe",
                "repro_torch.models.lm", "repro_torch.models.convert",
                "repro_torch.configs", "repro_torch.runtime.server",
                "repro_torch.serialization.pack", "repro_torch.obs",

@@ -5,7 +5,12 @@ restore, sync and async dumps) and crosses the packages: a generation
 snapshotted by the JAX server resumes in the port with the JAX
 continuation's tokens, and the other way round; with the same numpy params
 both packages pick the same greedy tokens in f32.  Each runs for the dense
-(qwen1.5, KV cache) and the pure-SSM (mamba2, SSM cache) smoke configs.
+(qwen1.5, KV cache) and the pure-SSM (mamba2, SSM cache) smoke configs;
+the images cross the packages for the jamba hybrid too.  The sliding-window
+server (h2o-danube, window 16) agrees with the JAX server while max_seq
+stays within the window; past it, where the JAX server pads the ring to
+max_seq and loses the window, the port's greedy tokens follow its own
+windowed forward.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,9 @@ from repro_torch.runtime.server import DecodeServer
 
 ARCH = "qwen1.5-0.5b"
 ARCHS = ["qwen1.5-0.5b", "mamba2-2.7b"]
+# across the packages also the hybrid: K/V beside SSM states, MoE FFNs
+CROSS_ARCHS = ARCHS + ["jamba-v0.1-52b"]
+SWA_ARCH = "h2o-danube-1.8b"
 POLICY = get_policy("baseline")
 MAX_SEQ = 64
 
@@ -43,17 +51,21 @@ def _prompt(B=2, S=12, arch=ARCH):
     return TokenPipeline(jax_smoke_config(arch), B, S, seed=9).next()
 
 
-def _server(run_dir, params=None, mode="sync", arch=ARCH):
-    srv = DecodeServer(get_smoke_config(arch), run_dir, max_seq=MAX_SEQ,
+def _server(run_dir, params=None, mode="sync", arch=ARCH, max_seq=MAX_SEQ):
+    srv = DecodeServer(get_smoke_config(arch), run_dir, max_seq=max_seq,
                        options=CheckpointOptions(mode=mode), device="cpu")
     if params is not None:
         srv.load(params_from_numpy(params, "cpu"))
     return srv
 
 
-def _jax_server(run_dir, mesh, params=None, arch=ARCH):
+def _jax_server(run_dir, mesh, params=None, arch=ARCH, max_seq=MAX_SEQ):
+    if jax_smoke_config(arch).moe_num_experts:
+        # the reference's MoE block wants an expert-parallel "model" axis
+        from repro.launch.mesh import make_mesh
+        mesh = make_mesh((1, 1), ("data", "model"))
     srv = JaxDecodeServer(jax_smoke_config(arch), POLICY, mesh, run_dir,
-                          max_seq=MAX_SEQ)
+                          max_seq=max_seq)
     if params is not None:
         srv.load(jax.tree.map(jnp.asarray, params))
     return srv
@@ -120,7 +132,7 @@ def test_crash_mid_generation_resumes_token_exact(arch, tmp_path):
     np.testing.assert_array_equal(fresh.tokens, want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
 def test_greedy_tokens_match_jax(arch, tmp_path, mesh1):
     params = _np_params(arch=arch)
     batch = _prompt(arch=arch)
@@ -132,7 +144,7 @@ def test_greedy_tokens_match_jax(arch, tmp_path, mesh1):
     np.testing.assert_array_equal(ts.decode(5), want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
 def test_jax_image_cold_boots_in_port(arch, tmp_path, mesh1):
     run = str(tmp_path / "srv")
     js = _jax_server(run, mesh1, _np_params(arch=arch), arch)
@@ -146,7 +158,7 @@ def test_jax_image_cold_boots_in_port(arch, tmp_path, mesh1):
     np.testing.assert_array_equal(ts.decode(4), expected)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
 def test_port_image_cold_boots_in_jax(arch, tmp_path, mesh1):
     run = str(tmp_path / "srv")
     ts = _server(run, _np_params(arch=arch), arch=arch)
@@ -161,22 +173,62 @@ def test_port_image_cold_boots_in_jax(arch, tmp_path, mesh1):
 
 
 def test_pad_cache_pads_only_attention_kv():
-    """The KV seq dim is padded to max_seq; an SSM state h (L,B,nh,P,N) is
-    5-D too, with nh below max_seq, and stays as it is (keyed by leaf name,
-    as in src/repro/runtime/server.py:88-106)."""
-    L, B, S, max_seq = 2, 3, 5, 16
+    """The KV seq dim is padded to that of the model's declared cache:
+    max_seq, and an SWA ring only to its window; an SSM state h
+    (L,B,nh,P,N) is 5-D too, with nh below max_seq, and stays as it is
+    (keyed by leaf name, as in src/repro/runtime/server.py:88-106)."""
+    L, B, S, max_seq, window = 2, 3, 5, 16, 8
     kv = torch.randn(L, B, S, 2, 8)
     h = torch.randn(L, B, 4, 16, 32)                 # nh=4 < max_seq
     conv = torch.randn(L, B, 3, 64)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+    template = {"pos0": {n: meta(L, B, max_seq, 2, 8) for n in "kv"},
+                "pos1": {"h": meta(*h.shape), "conv_x": meta(*conv.shape)},
+                "pos2": {n: meta(L, B, window, 2, 8) for n in "kv"}}
     out = DecodeServer._pad_cache(
         {"pos0": {"k": kv, "v": kv.clone()},
-         "pos1": {"h": h, "conv_x": conv}}, max_seq)
-    for name in ("k", "v"):
-        assert out["pos0"][name].shape == (L, B, max_seq, 2, 8)
-        torch.testing.assert_close(out["pos0"][name][:, :, :S], kv)
-        assert not out["pos0"][name][:, :, S:].any()
+         "pos1": {"h": h, "conv_x": conv},
+         "pos2": {"k": kv.clone(), "v": kv.clone()}}, template)
+    for pos, length in (("pos0", max_seq), ("pos2", window)):
+        for name in ("k", "v"):
+            assert out[pos][name].shape == (L, B, length, 2, 8)
+            torch.testing.assert_close(out[pos][name][:, :, :S], kv)
+            assert not out[pos][name][:, :, S:].any()
     assert out["pos1"]["h"] is h
     assert out["pos1"]["conv_x"] is conv
+
+
+def test_swa_server_matches_jax_within_the_window(tmp_path, mesh1):
+    """max_seq 16 = the window: both servers hold the same ring and pick
+    the same greedy tokens."""
+    params = _np_params(arch=SWA_ARCH)
+    batch = _prompt(S=8, arch=SWA_ARCH)
+    js = _jax_server(str(tmp_path / "jax"), mesh1, params, SWA_ARCH, 16)
+    js.start(batch)
+    ts = _server(str(tmp_path / "torch"), params, arch=SWA_ARCH, max_seq=16)
+    ts.start(batch)
+    assert ts.cache["pos0"]["k"].shape[2] == 16
+    np.testing.assert_array_equal(ts.decode(7), js.decode(7))
+
+
+@pytest.mark.parametrize("prompt", [8, 24])
+def test_swa_server_past_the_window_follows_its_forward(prompt, tmp_path):
+    """max_seq 40 > the window (16): the ring stays 16 slots long, and
+    every greedy token is the argmax of the windowed forward over the
+    tokens before it, also once decode wraps the ring (the case the JAX
+    server gets wrong, ROADMAP C)."""
+    params = _np_params(arch=SWA_ARCH)
+    ts = _server(str(tmp_path / "torch"), params, arch=SWA_ARCH, max_seq=40)
+    ts.start(_prompt(S=prompt, arch=SWA_ARCH))
+    assert ts.cache["pos0"]["k"].shape[2] == 16
+    tokens = ts.decode(39 - prompt).copy()
+    with torch.no_grad():
+        logits = ts.model.forward(ts.params, {"tokens": torch.as_tensor(
+            tokens).long()})
+    want = logits[:, prompt - 1:-1, :].argmax(-1).numpy()
+    np.testing.assert_array_equal(tokens[:, prompt:], want)
 
 
 def test_unported_options_are_rejected(tmp_path):
