@@ -125,6 +125,35 @@ bitwise.  Each round's bytes sent and
 reused, its wall time and the decision, the blackout (the residual
 push) and every replicate_s are printed as ``[replicate]`` and
 ``[migrate]`` lines.
+Phase 6 drives the orchestrator, the interception baseline and the
+serving fleet (``repro_torch.orchestrator``, ``repro_torch.baselines``)
+on qwen1.5-0.5b at full width (bf16 over f32 masters, kernels, remat;
+phase 3's training shape, phase 2's serving shape), in a process of its
+own (``--orch``): (a) preemption on one device slot: ``lo`` is mid-run
+when ``hi`` arrives, checkpoints on the signal and is evicted; device
+memory at the eviction must fall by lo's params + AdamW state (its grads
+are freed at each step's end) and from lo's peak by params + AdamW +
+grads; hi runs to done, lo restores and finishes, and each job's digest
+must equal an uninterrupted run's; (b) a serving job crashes at token 4,
+the heartbeat detects it, and it restores from its newest image
+token-exact; (c) a serving job migrates live by pre-copy between 2 hosts
+and is token-exact at the destination; (d) one training run is imaged by
+the engine and logged by ``InterceptionCheckpointer`` (the step wrapped,
+AdamW in place) at 4 and 16 steps: replay must reproduce the engine's
+restore (and at 16 the live state) bitwise; replay's whole restore must
+grow with the log (by over half the 12 extra steps' bare time) and the
+engine's (the faster of two restores of each image, taken in turns) must
+move by under half that growth, either way; then the MLP ``intercept``
+scenario runs to done; (e) one serving image fans out to 4 replicas over
+2 hosts with lazy boots: every replica token-exact against the solo
+server, a host's second replica shipping under 5% of its first's bytes,
+and a trace that scales up and drains.
+The heartbeat deadlines are 1.0 s (training) and 0.25 s (serving), for
+full-width slices; each part's recovery breakdown, goodput, rounds,
+restore times, TTFTs and bytes are printed as ``[orch]`` lines.  The
+launch counters are zeroed just before each part's own run (the
+scenario, the logged training run, the fleet) and read just after it,
+before the reference runs, replays and timed turns that check it.
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
 power limit.
@@ -1084,6 +1113,24 @@ def host_available_gib() -> float:
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) / 2**20
     raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def free_memory(tag: str) -> None:
+    """Before a child process takes the card: collect the reference
+    cycles (a trainer or server and its session) that still hold tensors,
+    return the cached device blocks and, where torch offers it, the
+    cached pinned host blocks; log what this process still holds."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    log(f"[memory] before {tag}: this process holds "
+        f"{torch.cuda.memory_allocated()} B allocated, "
+        f"{torch.cuda.memory_reserved()} B reserved on the card; host "
+        f"MemAvailable {host_available_gib():.1f} GiB")
 
 
 def phase_zoo(path, seed: int, workdir: str, card: str) -> tuple:
@@ -2129,6 +2176,528 @@ def phase_migrate_training(seed: int, workdir: str, card: str) -> tuple:
     return launches, variants
 
 
+# ----------------------------------------------------------------- phase 6
+ORCH_ARCH = "qwen1.5-0.5b"
+ORCH_TRAIN_STEPS = 6          # preemption: lo 6 steps, hi 3
+ORCH_SERVE_STEPS = 6          # failure: a crash at step 4 (total//2 + 1)
+ORCH_MIGRATE_STEPS = 12       # pre-copy migration from step 6
+# heartbeat deadlines that fit the full-width slices (2 steps of ~0.4 s,
+# 2 tokens of ~0.06 s); the reference's 0.05 s assumes smoke steps
+ORCH_TRAIN_DEADLINE_S = 1.0
+ORCH_SERVE_DEADLINE_S = 0.25
+REPLAY_LENGTHS = (4, 16)      # interception logs replayed against images
+FLEET_REPLICAS, FLEET_HOSTS = 4, 2
+FLEET_TRACE = [1, 12, 0, 0, 0]
+ORCH_KERNELS = ("flash_attention", "rmsnorm")
+
+
+def _orch_workload():
+    """qwen1.5-0.5b at full width, bf16 compute over f32 masters, the
+    kernels, remat; phase 3's training shape and phase 2's serving
+    shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.orchestrator.workloads import WorkloadConfig
+    return WorkloadConfig(model=get_config(ORCH_ARCH),
+                          compute_dtype=torch.bfloat16, use_kernels=True,
+                          remat=True, train_batch=TRAIN_B, train_seq=TRAIN_S,
+                          lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          serve_batch=SERVE_B, prompt_len=SERVE_S,
+                          max_seq=SERVE_MAX)
+
+
+def _state_bytes(tree) -> int:
+    from repro_torch.core.device_plugin import flatten_with_paths
+    return sum(t.nbytes for t in flatten_with_paths(tree).values())
+
+
+def _undisturbed_digest(kind, total, run, w, dev, options=None) -> str:
+    """Digest of the same job (seed 0) run to `total` in slices of 2 with
+    nothing injected; its device state is released after."""
+    from repro_torch.orchestrator import JobSpec
+    from repro_torch.orchestrator.workloads import WORKLOADS
+    wl = WORKLOADS[kind](JobSpec("ref", kind=kind, total_steps=total), run,
+                         device=dev, options=options, workload=w)
+    wl.start()
+    while not wl.done:
+        wl.run_slice(2)
+    wl.finish()
+    digest = wl.digest()
+    wl.release()
+    shutil.rmtree(run, ignore_errors=True)
+    return digest
+
+
+def _orchestrate(name, run, kind, total, config, options, w, dev,
+                 cls=None):
+    from repro_torch.orchestrator import (Orchestrator, make_workload_factory,
+                                          scenario_specs)
+    orch = (cls or Orchestrator)(
+        run, scenario_specs(name, total_steps=total, kind=kind),
+        workload_factory=make_workload_factory(run, options=options,
+                                               device=dev, workload=w),
+        config=config)
+    return orch, orch.run()
+
+
+def _incident_line(inc) -> str:
+    return ", ".join(f"{k} {inc[k]:.3f}" for k in (
+        "detect_s", "transfer_s", "schedule_s", "restore_s", "replay_s",
+        "total_s") if inc.get(k) is not None)
+
+
+def orch_preemption(dev, w, workdir, card) -> tuple:
+    """(a) lo (6 steps) is mid-run when hi (3 steps, priority 5) arrives
+    at tick 2 on one device slot: lo checkpoints on the signal and is
+    evicted, hi runs to done, lo restores and finishes.  Device memory at
+    lo's eviction falls by its params + AdamW state (its grads are
+    transient, freed at every step's end), and from lo's peak by params +
+    AdamW state + grads.  Each job's digest equals an uninterrupted run
+    of it, bitwise."""
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.core.snapshot_io import snapshot_dir
+    from repro_torch.orchestrator import Orchestrator, OrchestratorConfig
+
+    drops = []
+
+    class Measured(Orchestrator):
+        def _drop(self, job_id):
+            wl = self.workloads.get(job_id)
+            if wl is None or wl.trainer.params is None:
+                return super()._drop(job_id)
+            params = _state_bytes(wl.trainer.params)
+            opt = _state_bytes(wl.trainer.opt_state)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            peak = torch.cuda.max_memory_allocated()
+            super()._drop(job_id)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            drops.append(dict(job=job_id,
+                              state=self.records[job_id].state.value,
+                              params=params, opt=opt, grads=params,
+                              before=before, after=after, peak=peak))
+            torch.cuda.reset_peak_memory_stats()
+
+    run = os.path.join(workdir, "preempt")
+    config = OrchestratorConfig(capacity=1, slice_steps=2,
+                                heartbeat_deadline_s=ORCH_TRAIN_DEADLINE_S)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    orch, summary = _orchestrate(
+        "preemption", run, "train", ORCH_TRAIN_STEPS, config,
+        CheckpointOptions(mode="sync"), w, dev, cls=Measured)
+    wall = time.perf_counter() - t0
+    launches = path_launches(w.model_config(), ORCH_KERNELS, "orch")
+    lo, hi = summary["jobs"]["lo"], summary["jobs"]["hi"]
+    (inc,) = [i for i in lo["recovery"] if i["cause"] == "preemption"]
+    image = _image_bytes(snapshot_dir(os.path.join(run, "job_lo"),
+                                      orch.records["lo"].last_ckpt_step))
+    for d in drops:
+        log(f"[orch] (a) drop of {d['job']} ({d['state']}): device memory "
+            f"{d['before']} -> {d['after']} B (fell "
+            f"{d['before'] - d['after']} B; params {d['params']} + AdamW "
+            f"{d['opt']} = {d['params'] + d['opt']} B); from the job's peak "
+            f"{d['peak']} B it fell {d['peak'] - d['after']} B (params + "
+            f"AdamW + grads {d['params'] + d['opt'] + d['grads']} B); "
+            f"baseline before the run {base} B; {card}")
+    evicted = [d for d in drops if d["state"] == "preempted"]
+    ref_lo = _undisturbed_digest("train", ORCH_TRAIN_STEPS,
+                                 os.path.join(workdir, "ref_lo"), w, dev)
+    ref_hi = _undisturbed_digest("train", max(ORCH_TRAIN_STEPS // 2, 2),
+                                 os.path.join(workdir, "ref_hi"), w, dev)
+    same = (lo["digest"] == ref_lo, hi["digest"] == ref_hi)
+    log(f"[orch] (a) preemption, train, capacity 1: all done "
+        f"{summary['all_done']}; lo step {lo['step']}, restarts "
+        f"{lo['restarts']}; recovery (s): {_incident_line(inc)} (restore "
+        f"{inc['meta'].get('restore_wall_s', 0.0):.3f} s of it the image "
+        f"read, steps replayed {inc['steps_replayed']}); cluster_goodput "
+        f"{summary['cluster_goodput']:.4f}, lo goodput {lo['goodput']:.4f};"
+        f" lo's image {image} B; scenario wall {wall:.1f} s; digests equal "
+        f"to uninterrupted runs (lo, hi): {same}; {card}")
+    if not (summary["all_done"] and lo["restarts"] >= 1 and all(same)):
+        raise SystemExit("orchestration (a): the preempted job did not "
+                         "recover bitwise")
+    if len(evicted) != 1:
+        raise SystemExit(f"orchestration (a): expected one eviction, got "
+                         f"{drops}")
+    d = evicted[0]
+    if not (d["before"] - d["after"] >= d["params"] + d["opt"]
+            and d["peak"] - d["after"]
+            >= d["params"] + d["opt"] + d["grads"]):
+        raise SystemExit(f"orchestration (a): the eviction did not free the "
+                         f"job's device memory: {d}")
+    shutil.rmtree(run)
+    return launches
+
+
+def orch_failure(dev, w, workdir, card) -> tuple:
+    """(b) A serving job with an image every 2 tokens crashes at token 4:
+    the heartbeat deadline detects it, it restores from its newest image
+    and continues token-exact against an uninterrupted server."""
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.orchestrator import OrchestratorConfig
+
+    run = os.path.join(workdir, "failure")
+    config = OrchestratorConfig(capacity=1, slice_steps=2,
+                                heartbeat_deadline_s=ORCH_SERVE_DEADLINE_S)
+    _zero_counters()
+    t0 = time.perf_counter()
+    orch, summary = _orchestrate("failure", run, "serve", ORCH_SERVE_STEPS,
+                                 config, CheckpointOptions(mode="sync"), w,
+                                 dev)
+    wall = time.perf_counter() - t0
+    launches = path_launches(w.model_config(), ORCH_KERNELS, "orch")
+    j = summary["jobs"]["crashy"]
+    (inc,) = j["recovery"]
+    rec_inc = orch.records["crashy"].recovery.incidents[0]
+    ref = _undisturbed_digest("serve", ORCH_SERVE_STEPS,
+                              os.path.join(workdir, "ref_serve"), w, dev)
+    same = j["digest"] == ref
+    log(f"[orch] (b) failure, serve: crash at token "
+        f"{orch.records['crashy'].spec.fail_at_step}, detected by heartbeat"
+        f" (deadline {ORCH_SERVE_DEADLINE_S} s); recovery (s): "
+        f"{_incident_line(inc)}; restored step {rec_inc['restored_step']} "
+        f"(newest image {j['last_ckpt_step']}), steps replayed "
+        f"{inc['steps_replayed']}; checkpoints {j['checkpoints']}; scenario"
+        f" wall {wall:.1f} s; token-exact vs an uninterrupted server: "
+        f"{same}; {card}")
+    if not (summary["all_done"] and j["restarts"] == 1 and same
+            and inc["cause"] == "failure" and inc["detect_s"] > 0):
+        raise SystemExit("orchestration (b): the crashed server did not "
+                         "recover token-exact")
+    shutil.rmtree(run)
+    return launches
+
+
+def orch_migration(dev, w, workdir, card) -> tuple:
+    """(c) A serving job on 2 hosts migrates live by pre-copy from token 6
+    (incremental sync images every 2 tokens; a round per tick, the
+    controller of TransferPolicy(mode="delta", precopy_rounds=4)
+    deciding); at the destination it is step-exact and token-exact."""
+    from repro_torch.api import CheckpointOptions, TransferPolicy
+    from repro_torch.orchestrator import OrchestratorConfig
+
+    run = os.path.join(workdir, "migrate")
+    config = OrchestratorConfig(
+        capacity=1, slice_steps=2, hosts=2,
+        heartbeat_deadline_s=ORCH_SERVE_DEADLINE_S,
+        transfer_policy=TransferPolicy(mode="delta", precopy_rounds=4))
+    _zero_counters()
+    t0 = time.perf_counter()
+    orch, summary = _orchestrate(
+        "migrate", run, "serve", ORCH_MIGRATE_STEPS, config,
+        CheckpointOptions(mode="sync", incremental=True), w, dev)
+    wall = time.perf_counter() - t0
+    launches = path_launches(w.model_config(), ORCH_KERNELS, "orch")
+    j = summary["jobs"]["mover"]
+    mig = j["migration"]
+    decisions = [e for e in orch.records["mover"].events
+                 if "precopy_round" in e]
+    for r, e in zip(mig["rounds"], decisions + [None] * len(mig["rounds"])):
+        what = ("residual round: the blackout push" if r.get("residual")
+                else f"decision {e['decision'] if e else '?'}")
+        log(f"[orch] (c) round {r['round']}: bytes_sent {r['bytes_sent']}, "
+            f"wall_s {r['wall_s']:.3f}; {what}; {card}")
+    (inc,) = [i for i in j["recovery"] if i["cause"] == "migration"]
+    ref = _undisturbed_digest("serve", ORCH_MIGRATE_STEPS,
+                              os.path.join(workdir, "ref_mig"), w, dev)
+    same = j["digest"] == ref
+    log(f"[orch] (c) migration, serve, 2 hosts, pre-copy: {mig['from']} -> "
+        f"{mig['to']}, {mig['state']}, outcome {mig['outcome']} "
+        f"({mig.get('decision_reason')}); blackout "
+        f"{mig.get('blackout_s', 0.0):.3f} s, residual "
+        f"{mig.get('residual_bytes')} B, pre-copy "
+        f"{mig.get('precopy_bytes')} B; recovery (s): "
+        f"{_incident_line(inc)}; step {j['step']}; scenario wall "
+        f"{wall:.1f} s; token-exact at the destination: {same}; {card}")
+    if not (summary["all_done"] and mig["state"] == "transferred"
+            and j["host"] == mig["to"] and j["step"] == ORCH_MIGRATE_STEPS
+            and same):
+        raise SystemExit("orchestration (c): the migrated server is not "
+                         "token-exact at the destination")
+    shutil.rmtree(run)
+    return launches
+
+
+def orch_replay(dev, w, workdir, card, seed: int) -> tuple:
+    """(d) One full-width training run checkpointed two ways at each of
+    REPLAY_LENGTHS: by the engine (async images) and by the interception
+    baseline wrapping the step (in place: AdamW updates its inputs).  A
+    replay must reproduce the engine's restored state at that step, and
+    the live one at the last, bitwise.  Replay's whole restore grows with
+    the log, the engine's (the faster of two in turns) does not.  Then the
+    `intercept` scenario (the MLP) runs to done."""
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.baselines.interception import InterceptionCheckpointer
+    from repro_torch.orchestrator import JobSpec, run_scenario
+    from repro_torch.orchestrator.workloads import InterceptionWorkload
+    from repro_torch.runtime.trainer import (TrainConfig, Trainer,
+                                             loss_and_grads)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = w.model_config()
+    model = w.build_model(dev)
+    tcfg = TrainConfig(batch_size=w.train_batch, seq_len=w.train_seq,
+                       lr=w.lr, warmup_steps=w.warmup_steps,
+                       total_steps=REPLAY_LENGTHS[-1], seed=seed,
+                       compute_dtype=w.compute_dtype,
+                       ckpt=CheckpointOptions(mode="async"))
+    eng_run = os.path.join(workdir, "engine")
+    ic_run = os.path.join(workdir, "intercept")
+    live = Trainer(cfg, tcfg, eng_run, device=dev, model=model)
+    live.initialize()
+    opt = live.opt
+
+    def step_fn(params, opt_state, batch):
+        """One training step on host `batch`, params and moments updated
+        in place (the trainer's step as a function of its state)."""
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        b["tokens"] = b["tokens"].long()
+        _, grads = loss_and_grads(model, params, b)
+        opt.update(grads, opt_state, params)
+        return params, opt_state
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ic = InterceptionCheckpointer(ic_run)
+    _, register_s = timed(lambda: ic.register_initial_state(
+        "train", {"params": live.params, "opt": live.opt_state}))
+    wrapped = ic.wrap(step_fn, "step")
+    wrapped_s, paths, ckpt_s = [], {}, {}
+    _zero_counters()
+    for s in range(1, REPLAY_LENGTHS[-1] + 1):
+        batch = live.pipeline.next()
+        _, dt = timed(lambda: wrapped(live.params, live.opt_state, batch))
+        wrapped_s.append(dt)
+        live.step = s
+        if s in REPLAY_LENGTHS:
+            live.session.checkpoint(s)               # async engine image
+            paths[s], ckpt_s[s] = timed(lambda: ic.checkpoint(s))
+    live.session.wait_pending()
+    launches = path_launches(cfg, ORCH_KERNELS, "orch")
+
+    # the engine restores each image twice, in turns (4, 16, 4, 16), and
+    # each step's faster restore is compared: in a whole run of this
+    # script the part's first restore is slow (8.2-10.3 s against 4.8-5.7
+    # s for the others, and so even with its image read through just
+    # before it), a one-time cost of the process that the phase run alone
+    # does not show; the replay's loads do not show it
+    engine = {s: [] for s in REPLAY_LENGTHS}
+    for s in REPLAY_LENGTHS:
+        fresh = Trainer(cfg, tcfg, eng_run, device=dev, model=model)
+        engine[s].append(timed(lambda: fresh.restore(step=s))[1])
+        fresh.release()
+        del fresh
+        torch.cuda.empty_cache()
+    rows = {}
+    for s in REPLAY_LENGTHS:
+        fresh = Trainer(cfg, tcfg, eng_run, device=dev, model=model)
+        engine[s].append(timed(lambda: fresh.restore(step=s))[1])
+        engine_s = min(engine[s])
+        rc = InterceptionCheckpointer(ic_run)
+        results, st = rc.restore(paths[s], {"step": step_fn}, device=dev)
+        replayed = rc.replayed_tree(results, "train")
+        same = (_tree_equal(replayed["params"], fresh.params)
+                and _tree_equal(replayed["opt"], fresh.opt_state))
+        if s == REPLAY_LENGTHS[-1]:
+            same = same and _tree_equal(replayed["params"], live.params) \
+                and _tree_equal(replayed["opt"], live.opt_state)
+        rows[s] = dict(engine_s=engine_s, same=same, **st)
+        also = " and the live state" if s == REPLAY_LENGTHS[-1] else ""
+        log(f"[orch] (d) at step {s}: replay restore_s {st['restore_s']:.3f}"
+            f" (load {st['load_s']:.3f} + re-execution {st['replay_s']:.3f}"
+            f", replayed_calls {st['replayed_calls']}); engine restore "
+            f"{engine_s:.3f} s (the faster of {engine[s][0]:.3f} and "
+            f"{engine[s][1]:.3f} s, in turns); interception "
+            f"checkpoint {ckpt_s[s]:.3f} s ({os.path.getsize(paths[s])} B); "
+            f"replay bitwise equal to the engine's restore{also}: {same}; "
+            f"{card}")
+        fresh.release()
+        del fresh, results, replayed, rc
+        torch.cuda.empty_cache()
+    # wrapped and bare steps in turns, after the checks (the host's noise
+    # between two stretches of one call is as large as the effect)
+    turns = {"bare": [], "wrapped": []}
+    for _ in range(3):
+        for kind, fn in (("bare", step_fn), ("wrapped", wrapped)):
+            batch = live.pipeline.next()
+            _, dt = timed(lambda: fn(live.params, live.opt_state, batch))
+            turns[kind].append(dt)
+    wrapped_med = sorted(turns["wrapped"])[1]
+    bare_med = sorted(turns["bare"])[1]
+    logged = sorted(wrapped_s[1:])
+    logged_med = logged[len(logged) // 2]
+    # whole restores: replay's grows with the log, the engine's reads the
+    # same bytes at both steps
+    short, long_ = (rows[s] for s in REPLAY_LENGTHS)
+    grow = long_["restore_s"] - short["restore_s"]
+    engine_grow = long_["engine_s"] - short["engine_s"]
+    extra = REPLAY_LENGTHS[-1] - REPLAY_LENGTHS[0]
+    log(f"[orch] (d) step in turns: wrapped {wrapped_med * 1e3:.1f} ms, "
+        f"bare {bare_med * 1e3:.1f} ms (medians of 3; the logged run's "
+        f"wrapped steps {logged_med * 1e3:.1f} ms, the first "
+        f"{wrapped_s[0] * 1e3:.1f} ms; intercept_s "
+        f"{ic.stats['intercept_s']:.4f} over {ic.stats['intercepted_calls']}"
+        f" calls, logged H2D {ic.stats['logged_bytes']} B); registering the "
+        f"initial state {register_s:.3f} s; replay's restore_s grew "
+        f"{grow:.3f} s over {extra} more calls (its re-execution "
+        f"{long_['replay_s'] - short['replay_s']:.3f} s), the engine's "
+        f"restore {engine_grow:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B; {card}")
+    if not all(r["same"] for r in rows.values()):
+        raise SystemExit("orchestration (d): replay did not reproduce the "
+                         "state bitwise")
+    if not (grow > 0.5 * extra * bare_med
+            and abs(engine_grow) < 0.5 * grow):
+        raise SystemExit("orchestration (d): replay did not grow with the "
+                         "log, or the engine's restore moved as much")
+    live.release()
+    del live, ic, wrapped
+    shutil.rmtree(eng_run)
+    shutil.rmtree(ic_run)
+    torch.cuda.empty_cache()
+
+    run = os.path.join(workdir, "intercept_scenario")
+    summary = run_scenario("preemption", run, device=dev,
+                           total_steps=ORCH_TRAIN_STEPS, kind="intercept")
+    ref = InterceptionWorkload(JobSpec("ref", kind="intercept",
+                                       total_steps=ORCH_TRAIN_STEPS),
+                               os.path.join(workdir, "ref_mlp"), device=dev)
+    ref.start()
+    while not ref.done:
+        ref.run_slice(2)
+    same = summary["jobs"]["lo"]["digest"] == ref.digest()
+    log(f"[orch] (d) intercept scenario (the MLP): all done "
+        f"{summary['all_done']}, lo restarts "
+        f"{summary['jobs']['lo']['restarts']}, bitwise equal to an "
+        f"uninterrupted run: {same}; {card}")
+    if not (summary["all_done"] and same):
+        raise SystemExit("orchestration (d): the intercept scenario failed")
+    return launches
+
+
+def orch_fleet(dev, w, workdir, card) -> tuple:
+    """(e) One serving image fans out to FLEET_REPLICAS replicas over
+    FLEET_HOSTS hosts with lazy boot: every replica's tokens equal the
+    solo server's, a host's second replica ships under 5% of its first's
+    bytes; then a short trace scales up and drains."""
+    import numpy as np
+    from repro_torch.orchestrator import FleetConfig, ServingFleet
+
+    run = os.path.join(workdir, "fleet")
+    _zero_counters()
+    t0 = time.perf_counter()
+    fleet = ServingFleet(run, FleetConfig(
+        replicas=FLEET_REPLICAS, hosts=FLEET_HOSTS, restore_mode="lazy",
+        batch=w.serve_batch, prompt_len=w.prompt_len, warm_tokens=4,
+        max_seq=w.max_seq, scale_up_depth=2, drain_idle_ticks=1,
+        min_replicas=1, workload=w), device=dev)
+    img = fleet.build_source_image()
+    fleet.boot_fleet()
+    served = [rep.server.decode(4).copy() if rep.status == "serving"
+              else None for rep in fleet.replicas]
+    stats = fleet.serve_trace(FLEET_TRACE)
+    wall = time.perf_counter() - t0
+    launches = path_launches(w.model_config(), ORCH_KERNELS, "orch")
+    # the reference: the solo server decodes on from the image's position
+    solo = fleet.source.decode(5).copy()
+    exact = [t is not None and np.array_equal(t, solo) for t in served]
+    for rep in fleet.replicas:
+        b = rep.recovery.breakdown()[0]
+        log(f"[orch] (e) replica {rep.rid} on {rep.host}: TTFT "
+            f"{rep.ttft_s:.3f} s (transfer {b['transfer_s']:.3f}, restore "
+            f"to resume {b['restore_s']:.3f}, first token "
+            f"{b['replay_s']:.3f}), bytes_sent {rep.transfer['bytes_sent']},"
+            f" chunks reused {rep.transfer['chunks_reused']}; {card}")
+    by_host = {}
+    for rep in fleet.replicas:
+        by_host.setdefault(rep.host, []).append(rep.transfer["bytes_sent"])
+    second_ok = all(len(v) > 1 and v[1] < 0.05 * v[0]
+                    for v in by_host.values())
+    s = fleet.summary()
+    log(f"[orch] (e) fleet: image {img['bytes']} B at pos {img['step']}; "
+        f"{len(fleet.replicas)} replicas; bytes sent by host "
+        f"{by_host}; TTFT p50 {s['ttft_p50_s']:.3f} s; trace {FLEET_TRACE}:"
+        f" served {stats['requests_served']}, unserved "
+        f"{stats['requests_unserved']}, autoscale boots "
+        f"{stats['autoscale_boots']}, drains {stats['drains']}, goodput "
+        f"{stats['goodput_requests_per_replica_tick']:.3f} requests per "
+        f"replica-tick; wall {wall:.1f} s; every replica"
+        f" token-exact: {all(exact)}; {card}")
+    if not (all(exact) and second_ok):
+        raise SystemExit("orchestration (e): a replica diverged or a host's "
+                         "second replica shipped 5% or more of its first's")
+    if not (stats["requests_unserved"] == 0 and stats["autoscale_boots"] >= 1
+            and stats["drains"] >= 1):
+        raise SystemExit(f"orchestration (e): the trace did not scale up and "
+                         f"drain: {stats}")
+    del fleet
+    shutil.rmtree(run)
+    return launches
+
+
+ORCH_PARTS = (("(a) preempt", orch_preemption), ("(b) failure", orch_failure),
+              ("(c) migrate", orch_migration), ("(d) replay", orch_replay),
+              ("(e) fleet", orch_fleet))
+
+
+def phase_orchestration(seed: int, workdir: str, card: str) -> dict:
+    """Phase 6: the orchestrator, the interception baseline and the fleet
+    on qwen1.5-0.5b at full width.  Each part returns its path's launches:
+    the kernels' counters are zeroed just before its orchestrated run (the
+    scenario, the logged training run, the fleet) and read just after,
+    before any reference run, replay or timing.  Returns {path:
+    (launches, variants)}."""
+    import gc
+    import torch
+    dev = torch.device("cuda")
+    w = _orch_workload()
+    out = {}
+    t_phase = time.perf_counter()
+    for name, part in ORCH_PARTS:
+        sub = os.path.join(workdir, name.split()[0].strip("()"))
+        os.makedirs(sub)
+        t0 = time.perf_counter()
+        args = (seed,) if part is orch_replay else ()
+        out[f"{ORCH_ARCH} orchestration {name}"] = part(dev, w, sub, card,
+                                                        *args)
+        log(f"[orch] {name}: {time.perf_counter() - t0:.1f} s; {card}")
+        shutil.rmtree(sub, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[orch] phase 6 wall {time.perf_counter() - t_phase:.1f} s; {card}")
+    return out
+
+
+def run_orchestration(seed: int) -> dict:
+    """`phase_orchestration` in a process of its own (its dumps' pinned
+    host buffers go back to the OS when it exits), waited for; its paths'
+    launches."""
+    free_memory("phase 6")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        out = os.path.join(workdir, "launches.json")
+        rc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--seed",
+             str(seed), "--orch", "--out", out], timeout=1000).returncode
+        if rc:
+            raise SystemExit(f"orchestration: the phase's process failed "
+                             f"(exit {rc})")
+        with open(out) as f:
+            res = json.load(f)
+    return {k: tuple(v) for k, v in res.items()}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -2204,6 +2773,7 @@ def run_zoo_path(path, seed: int) -> tuple:
     hold them all (the host has 96 GiB; jamba's dump and restore alone
     pin about twice its 26.6 GB image): each path's buffers go back to the
     OS when its process exits."""
+    free_memory(path[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         out = os.path.join(workdir, "launches.json")
         rc = subprocess.run(
@@ -2224,7 +2794,11 @@ def main() -> int:
     ap.add_argument("--zoo-path", help="(the script's own child process) "
                     "serve this ZOO_PATHS model only and write its "
                     "launches to --out")
-    ap.add_argument("--out", help="with --zoo-path: the launches' JSON")
+    ap.add_argument("--orch", action="store_true", help="(the script's own "
+                    "child process) run phase 6 only and write its paths' "
+                    "launches to --out")
+    ap.add_argument("--out", help="with --zoo-path or --orch: the "
+                    "launches' JSON")
     args = ap.parse_args()
 
     import torch
@@ -2254,12 +2828,23 @@ def main() -> int:
             json.dump({"launches": launches, "variants": variants}, f)
         return 0
 
+    if args.orch:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            paths = phase_orchestration(args.seed, workdir, card_line())
+        with open(args.out, "w") as f:
+            json.dump(paths, f)
+        return 0
+
     t_start = time.perf_counter()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; {card}")
+    def mark(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     rows = phase_kernels(args.seed)
     phase_grads(args.seed)
+    mark("phase 1")
     for arch in [p[0] for p in SERVE_PATHS + ZOO_PATHS]:
         check_small_reference(arch, args.seed)
     by_path = {}
@@ -2268,19 +2853,28 @@ def main() -> int:
             by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
                                           args.seed, workdir, card)
         torch.cuda.empty_cache()
+        mark(f"phase 2 {arch}")
+    mark("phase 2")
     for path in ZOO_PATHS:
         by_path[path[0]] = run_zoo_path(path, args.seed)
+        mark(f"phase 2b {path[0]}")
+    mark("phase 2b")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path[f"{TRAIN_ARCH} train"] = phase_training(args.seed, workdir,
                                                         card)
         by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
             phase_training_mamba(args.seed, workdir, card)
+        mark("phase 3")
         phase_session_race(args.seed, workdir, card)
+    mark("phase 4")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path[f"{REPL_ARCH} replicate/migrate"] = phase_replication(
             args.seed, workdir, card)
         by_path[f"{TRAIN_ARCH} migrate ({MIG_LAYERS} layers)"] = \
             phase_migrate_training(args.seed, workdir, card)
+    mark("phase 5")
+    by_path.update(run_orchestration(args.seed))
+    mark("phase 6")
     log(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s;"
         f" {card}")
     print(json.dumps({"kernels": kernel_rows(rows, by_path)}))

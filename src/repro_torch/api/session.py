@@ -65,7 +65,8 @@ class CheckpointSession:
                  options: Optional[CheckpointOptions] = None, *,
                  device: DeviceLike = None,
                  plugins: Optional[List[Any]] = None,
-                 backend: str = "torch"):
+                 backend: str = "torch",
+                 planner=None):
         from repro_torch.core.engine import SnapshotEngine
         self.run_dir = run_dir
         self.options = options if options is not None else CheckpointOptions()
@@ -74,6 +75,23 @@ class CheckpointSession:
         self.engine = SnapshotEngine(run_dir, plugins=plugins,
                                      options=self.options, backend=backend,
                                      device=self.device)
+        self._planner = planner
+
+    # ------------------------------------------------------- constructors
+    @classmethod
+    def from_engine(cls, engine) -> "CheckpointSession":
+        """Wrap an already-built SnapshotEngine."""
+        self = cls.__new__(cls)
+        self.run_dir = engine.run_dir
+        self.options = engine.options
+        # registry name stamped by create_backend ("torch"/"host"), not
+        # the plugin's own .name ("device")
+        self.backend_name = getattr(engine.device_plugin, "backend_name",
+                                    "torch")
+        self.device = getattr(engine.device_plugin, "device", None)
+        self.engine = engine
+        self._planner = None
+        return self
 
     # ------------------------------------------------------- preflight
     def capabilities(self) -> Dict[str, Any]:
@@ -99,15 +117,33 @@ class CheckpointSession:
                             setter: Callable[[Any], None]) -> None:
         self.engine.register_host_state(name, getter, setter)
 
+    def add_plugin(self, plugin) -> None:
+        self.engine.add_plugin(plugin)
+
+    def set_planner(self, planner) -> None:
+        """Attach an :class:`repro_torch.runtime.interval.IntervalPlanner`:
+        every committed dump's measured frozen-window cost
+        (``engine.last_stats``) is fed into ``planner.observe(...)``, so
+        the checkpoint interval adapts to the engine in use."""
+        self._planner = planner
+
+    def _feed_planner(self) -> None:
+        if self._planner is not None and self.engine.last_stats:
+            self._planner.observe(self.engine.last_stats)
+
     # ------------------------------------------------------- lifecycle
     def checkpoint(self, step: int) -> str:
-        return self.engine.checkpoint(step)
+        path = self.engine.checkpoint(step)
+        self._feed_planner()
+        return path
 
     def checkpoint_running(self, step: int) -> str:
         """Commit a snapshot while minimizing the pause the job observes:
         under ``capture="concurrent"`` the job is only paused for the pin
         and validate windows; otherwise an ordinary checkpoint."""
-        return self.engine.snapshot_while_running(step)
+        path = self.engine.snapshot_while_running(step)
+        self._feed_planner()
+        return path
 
     def checkpoint_begin(self, step: int):
         """Start a soft-freeze capture (requires
@@ -124,7 +160,9 @@ class CheckpointSession:
         handle = self.engine.concurrent_capture
         if handle is None:
             return None
-        return handle.finalize()
+        path = handle.finalize()
+        self._feed_planner()
+        return path
 
     @property
     def concurrent_capture(self):
@@ -133,7 +171,8 @@ class CheckpointSession:
     @contextlib.contextmanager
     def frozen(self, step: int):
         """Freeze, yield the in-memory capture, commit (or abort) on exit.
-        An exception in the body aborts the dump and propagates."""
+        An exception in the body aborts the dump and propagates; an
+        aborted dump feeds the planner no sample."""
         snap = FrozenCheckpoint(self.engine, self.engine.freeze(step))
         try:
             yield snap
@@ -142,6 +181,8 @@ class CheckpointSession:
             raise
         if not snap._done:
             snap.commit()
+        if snap.path is not None:              # committed (not aborted)
+            self._feed_planner()
 
     def restore(self, step: Optional[int] = None,
                 verify: Optional[bool] = None,
@@ -190,6 +231,14 @@ class CheckpointSession:
     def last_commit_step(self) -> Optional[int]:
         """Step of the newest image committed by this session."""
         return self.engine.last_commit_step
+
+    @property
+    def frozen_window_s(self) -> Optional[float]:
+        """Blocked-window cost of the last dump in seconds: how long the
+        job was frozen (async: the device-to-host copy only; sync: the
+        whole dump and write).  This is the δ that drives τ*."""
+        from repro_torch.runtime.interval import frozen_window_s
+        return frozen_window_s(self.engine.last_stats)
 
     def latest_step(self) -> Optional[int]:
         return self.engine.latest_step()

@@ -156,6 +156,9 @@ class SnapshotEngine:
                             setter: Callable[[Any], None]) -> None:
         self.registry.add(CallbackPlugin(name, getter, setter))
 
+    def add_plugin(self, plugin) -> None:
+        self.registry.add(plugin)
+
     def _topology(self) -> Dict[str, Any]:
         return mesh_fingerprint(None, getattr(self.device_plugin, "device",
                                               None))
@@ -694,6 +697,24 @@ class SnapshotEngine:
     def lazy_pending(self) -> bool:
         """True while a background restore stream is still outstanding."""
         return self._lazy is not None
+
+    def release(self) -> None:
+        """Forget every device tensor this engine references: the job's
+        state is going away (evicted, crashed or done).  A lazy stream
+        still running is cancelled and waited for, an async write in
+        flight is joined (its failure is not raised: the job is gone), a
+        soft-freeze capture still open is discarded, and the last
+        restored tree and the state provider are dropped, so nothing
+        here keeps the job's tensors alive."""
+        self._abandon_lazy()
+        try:
+            self.wait_pending()
+        except Exception:                       # noqa: BLE001
+            pass
+        if self._concurrent is not None:
+            self._concurrent.abort()
+        self._last_restored = None
+        self._provider = None
 
     @staticmethod
     def retree(template: PyTree, raw_tree: Any) -> PyTree:

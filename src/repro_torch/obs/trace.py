@@ -141,6 +141,18 @@ class Tracer:
         if self.sink is not None:
             self.sink(sp)
 
+    def record(self, name: str, t_start: float, t_end: float,
+               attrs: Dict[str, Any]) -> Span:
+        """Retroactive span from explicit (tracer-clock) timestamps."""
+        sp = Span(self, name, dict(attrs), next(self._ids), None)
+        sp.t_start = t_start
+        sp.t_end = max(t_start, t_end)
+        with self._lock:
+            self.spans.append(sp)
+        if self.sink is not None:
+            self.sink(sp)
+        return sp
+
     # ------------------------------------------------------------ context
     class _Ctx:
         __slots__ = ("_tracer", "_saved")
@@ -179,6 +191,13 @@ def span(name: str, **attrs: Any):
     if tr is None:
         return NOOP_SPAN
     return tr.begin(name, attrs)
+
+
+def record(name: str, t_start: float, t_end: float, **attrs: Any) -> None:
+    """Emit a retroactive span (no-op when tracing is off)."""
+    tr = TRACER
+    if tr is not None:
+        tr.record(name, t_start, t_end, attrs)
 
 
 def context(**attrs: Any):

@@ -219,6 +219,13 @@ class DecodeServer:
         self.cache = restored["cache"]
         return self.pos
 
+    def release(self) -> None:
+        """Drop every reference this server and its engine hold to its
+        device state (params, cache, a lazy template), so it is freed at
+        once."""
+        self.params = self.cache = self._pending_cache_template = None
+        self.session.engine.release()
+
     def _finish_lazy_restore(self) -> None:
         """Join the background stream and adopt the streamed cache."""
         if self._pending_cache_template is None:

@@ -192,6 +192,14 @@ class Trainer:
         self.opt_state = self.session.engine.retree(
             template, full["train_state"]["opt"])
 
+    def release(self) -> None:
+        """Drop every reference this trainer and its engine hold to the
+        job's device state (params, optimizer state, a lazy template), so
+        it is freed at once: the session's state provider otherwise keeps
+        the trainer in a reference cycle until a garbage collection."""
+        self.params = self.opt_state = self._pending_opt_template = None
+        self.engine.release()
+
     def _batch(self) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(v).to(self.device)
                for k, v in self.pipeline.next().items()}

@@ -30,7 +30,17 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.core.lazy", "repro_torch.core.engine",
                "repro_torch.core.replication", "repro_torch.core.multihost",
                "repro_torch.transfer", "repro_torch.transfer.cas",
-               "repro_torch.transfer.delta", "repro_torch.transfer.precopy"]
+               "repro_torch.transfer.delta", "repro_torch.transfer.precopy",
+               "repro_torch.runtime.interval", "repro_torch.baselines",
+               "repro_torch.baselines.interception",
+               "repro_torch.orchestrator", "repro_torch.orchestrator.signals",
+               "repro_torch.orchestrator.recovery",
+               "repro_torch.orchestrator.job",
+               "repro_torch.orchestrator.scheduler",
+               "repro_torch.orchestrator.workloads",
+               "repro_torch.orchestrator.orchestrator",
+               "repro_torch.orchestrator.scenarios",
+               "repro_torch.orchestrator.fleet"]
 
 
 def _env():
