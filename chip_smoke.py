@@ -22,14 +22,21 @@ kernel is also checked and timed at the shapes of phase 2b (bf16): flash
 attention at h2o-danube's prefill (hd 80, the window of 4096 binding at
 S = 4608; SDPA under the same mask as the library time), at qwen3-moe's
 (hd 128, 32 query heads over 4) and at jamba's; the SSD scan at jamba's
-(nh 128, P 64, N 16); RMSNorm at each path's rows and widths.  On a small
-input (each serving path's smoke config, f32) the card's kernel path must
-match the CPU plain path to 1e-3.
+(nh 128, P 64, N 16); RMSNorm at each path's rows and widths; and at the
+shapes of phase 2c: flash attention at whisper-tiny's encoder (non-causal
+over 1500 frames, a partial last key tile), its prefill cross-attention (4
+queries against 1500 keys), its decoder's causal self-attention over the
+4-token prompt and qwen2-vl-7b's prefill (a GQA group of 7, hd 128),
+RMSNorm at d 384 and 3584.  On a small input (each serving
+path's smoke config, f32, with whisper's frames and qwen2-vl's vision
+embeddings and image positions) the card's kernel path must match the CPU
+plain path to 1e-3.
 
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
 (KV cache; flash attention + RMSNorm) with a sync and an async snapshot,
-then mamba2-2.7b (SSM cache; SSD scan + RMSNorm) with a sync snapshot.
+then mamba2-2.7b at 16 of its 64 layers, cut for the run's time budget
+(SSM cache; SSD scan + RMSNorm) with a sync snapshot.
 Each prefills a batch of prompts, decodes greedily, snapshots
 mid-generation, and a fresh server cold-restores the image and carries on
 token-exact; each image is deleted once checked.  The sync paths write
@@ -55,14 +62,28 @@ qwen3-moe-30b-a3b at 12 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
 experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
 jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
 in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
-path runs in a process of its own (the script runs itself with
-``--zoo-path``, waits for it and reads its launches back), so its pinned
-host buffers are gone before the next path, and its image is deleted
-after it.  Flash attention and, for jamba, the SSD
-scan must run on the tensor-core kernels alone; the kernel path's forward
-logits over every position must be no further from the f32 plain path, on
-average, than LOGIT_SLACK times the bf16 plain path's (danube and qwen3 at
+path runs in a child process, waited for, that hands its launches back
+(forked from a server process that imported torch once, so no child pays
+the import again), so its pinned host buffers are gone before the next
+path, and its image is deleted after it.  Flash attention and, for
+jamba, the SSD scan must run on the tensor-core kernels alone; the kernel
+path's forward logits over every position must be no further from the
+f32 plain path, on average, than LOGIT_SLACK times the bf16 plain path's (danube and qwen3 at
 4 layers of the full-width params).
+
+Phase 2c serves the encoder-decoder and the VLM at their published
+widths, bf16 compute, kernels on, each in a process of its own as in
+phase 2b: whisper-tiny uncut over f32 masters (B 16 x 1500 frames, the
+4-token start-of-transcript prompt, max_seq 448, 96 tokens: a sync image
+at token 48, an incremental image 24 tokens later that must write the
+self cache alone, every param and cross_k / cross_v entry staying in the
+first image) and qwen2-vl-7b at all 28 layers in bf16 (B 2 x
+1280: one 32 x 32 image of 1024 vision embeddings with its M-RoPE
+positions, then 256 text tokens; max_seq 1344, 32 tokens, one sync
+image).  A fresh
+server cold-restores each image and must decode the same tokens; flash
+attention must run on the tensor-core kernel alone, RMSNorm must run; the
+logit check of phase 2b follows (qwen2-vl at 4 layers).
 
 Phase 1 also holds each kernel's autograd Function (kernel forward,
 oracle backward) against plain autograd through its oracle on the card,
@@ -128,8 +149,8 @@ push) and every replicate_s are printed as ``[replicate]`` and
 Phase 6 drives the orchestrator, the interception baseline and the
 serving fleet (``repro_torch.orchestrator``, ``repro_torch.baselines``)
 on qwen1.5-0.5b at full width (bf16 over f32 masters, kernels, remat;
-phase 3's training shape, phase 2's serving shape), in a process of its
-own (``--orch``): (a) preemption on one device slot: ``lo`` is mid-run
+phase 3's training shape, phase 2's serving shape), in a child process
+(alone: ``--orch``): (a) preemption on one device slot: ``lo`` is mid-run
 when ``hi`` arrives, checkpoints on the signal and is evicted; device
 memory at the eviction must fall by lo's params + AdamW state (its grads
 are freed at each step's end) and from lo's peak by params + AdamW +
@@ -156,7 +177,12 @@ scenario, the logged training run, the fleet) and read just after it,
 before the reference runs, replays and timed turns that check it.
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
-power limit.
+power limit; the ``[time]`` marks count from the process's start, as a
+limit on the command's time does.
+
+``--path ARCH --out F`` serves one path alone, as the script serves it
+(``--layers N``: at N layers; ``tools/cut_ab.py`` times such a depth cut
+against the path's own depth, in turns).
 
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
@@ -241,10 +267,34 @@ ZOO_ATTN = [(2, 4608, 4608, 32, 8, 80, True, 4096),
 ZOO_SSD = [(2, 1024, 128, 64, 16, 128)]
 ZOO_NORM = [(9216, 2560), (2048, 2048), (2048, 4096), (2048, 8192),
             (4, 2048), (2, 4096), (2, 8192)]
+# the shapes of phase 2c (bf16): flash attention at whisper-tiny's encoder
+# (non-causal over 1500 frames, not a multiple of the key tile), at its
+# prefill cross-attention (4 prompt tokens against 1500 frames: one query
+# tile, 124 of its rows padding), at its decoder's causal self-attention
+# over the 4-token prompt (one 4 x 4 causal tile: 124 query rows and every
+# key past 4 padding) and at qwen2-vl-7b's prefill (28 query heads over 4:
+# a GQA group of 7); RMSNorm at whisper's encoder, prefill and decode rows
+# (d 384) and at qwen2-vl's prefill and decode rows (d 3584)
+MM_ATTN = [(16, 1500, 1500, 6, 6, 64, False, 0),
+           (16, 4, 1500, 6, 6, 64, False, 0),
+           (16, 4, 4, 6, 6, 64, True, 0),
+           (2, 1280, 1280, 28, 4, 128, True, 0)]
+MM_NORM = [(24000, 384), (64, 384), (16, 384), (2560, 3584), (2, 3584)]
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def process_age_s() -> float:
+    """Seconds since this process started (Linux ``/proc``): the
+    interpreter's start and the imports included, as a time limit on the
+    command sees them."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def card_line() -> str:
@@ -511,6 +561,37 @@ def ssd_chunk_invariance(gen) -> list:
     return failed
 
 
+def path_shape_cases(rows: dict, gen) -> list:
+    """Each kernel checked and timed (bf16) at the shapes of the zoo
+    (phase 2b) and of the encoder-decoder and VLM paths (phase 2c), into
+    rows["zoo"] and rows["mm"]; the cases that failed."""
+    import torch
+    failed = []
+    for group, attn, ssd, norm in (("zoo", ZOO_ATTN, ZOO_SSD, ZOO_NORM),
+                                   ("mm", MM_ATTN, [], MM_NORM)):
+        rows[group] = {}
+        for name, cases, case_fn in (
+                ("flash_attention", attn, attention_case),
+                ("ssd_scan", ssd, ssd_case),
+                ("rmsnorm", norm, rmsnorm_case)):
+            rows[group][name] = []
+            for case in cases:
+                r = case_fn(case, torch.bfloat16, gen)
+                variant = r.get("variant", "triton")
+                lib = r["library_ms"]
+                log(f"[kernels] {name} ({variant}) {group} {case} bf16: "
+                    f"ok={r['ok']} err={r['max_abs_err']:.3g} "
+                    f"ms={r['ms']:.5f} plain={r['plain_ms']:.4f} library="
+                    f"{'none' if lib is None else f'{lib:.5f}'} "
+                    f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
+                if not r["ok"]:
+                    failed.append((name, case, "bf16"))
+                rows[group][name].append(dict(case=list(case),
+                                              variant=variant,
+                                              **{k: r[k] for k in TIMES}))
+    return failed
+
+
 def tensor_core_instructions(library) -> int:
     """HGMMA (wgmma) instructions in a built library's SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -579,25 +660,7 @@ def phase_kernels(seed: int) -> dict:
             if case == SSD_SLICE:
                 rows[f"ssd_scan/{r['variant']}"] = r
     failed += ssd_chunk_invariance(gen)
-    zoo = rows["zoo"] = {}
-    for name, cases, case_fn in (
-            ("flash_attention", ZOO_ATTN, attention_case),
-            ("ssd_scan", ZOO_SSD, ssd_case),
-            ("rmsnorm", ZOO_NORM, rmsnorm_case)):
-        zoo[name] = []
-        for case in cases:
-            r = case_fn(case, torch.bfloat16, gen)
-            variant = r.get("variant", "triton")
-            lib = r["library_ms"]
-            log(f"[kernels] {name} ({variant}) zoo {case} bf16: "
-                f"ok={r['ok']} err={r['max_abs_err']:.3g} ms={r['ms']:.5f} "
-                f"plain={r['plain_ms']:.4f} library="
-                f"{'none' if lib is None else f'{lib:.5f}'} "
-                f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
-            if not r["ok"]:
-                failed.append((name, case, "bf16"))
-            zoo[name].append(dict(case=list(case), variant=variant,
-                                  **{k: r[k] for k in TIMES}))
+    failed += path_shape_cases(rows, gen)
     r = ssd_case(SSD_LONG, torch.bfloat16, gen, timing_only=True)
     log(f"[kernels] ssd_scan ({r['variant']}) long {SSD_LONG} bf16, timing "
         f"only: ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
@@ -737,12 +800,13 @@ def phase_grads(seed: int) -> None:
 # ----------------------------------------------------------------- phase 2
 SERVE_B, SERVE_S, SERVE_MAX = 4, 512, 1024
 SERVE_TOKENS = 16
-# each serving path: its config, its snapshot modes, the kernels it must
-# launch, and the depth of its logit check (None: every layer)
+# each serving path: its config, the layers kept (None: all), its
+# snapshot modes, the kernels it must launch, and the depth of its logit
+# check (None: every layer)
 SERVE_PATHS = (
-    ("qwen1.5-0.5b", ("sync", "async"), ("flash_attention", "rmsnorm"),
+    ("qwen1.5-0.5b", None, ("sync", "async"), ("flash_attention", "rmsnorm"),
      None),
-    ("mamba2-2.7b", ("sync",), ("ssd_scan", "rmsnorm"), 4),
+    ("mamba2-2.7b", 16, ("sync",), ("ssd_scan", "rmsnorm"), 4),
 )
 # At full width the bf16 kernel path and the bf16 plain path round at
 # different places (the kernels keep attention scores and probabilities in
@@ -793,27 +857,49 @@ def _variants() -> dict:
 
 def check_small_reference(arch: str, seed: int) -> None:
     """The card's kernel path agrees with the CPU plain path on a small
-    input (the smoke config, f32, the same params): logits to 1e-3."""
-    import numpy as np
+    input (the smoke config, f32, the same params, the batch of
+    ``serve_batch``: whisper's frames, qwen2-vl's vision embeddings and
+    image positions): logits to 1e-3."""
     import torch
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.lm import LM
+    from repro_torch.models.encdec import build_model
     cfg = get_smoke_config(arch)
-    cpu = LM(cfg, compute_dtype=torch.float32, device="cpu")
-    gpu = LM(cfg, compute_dtype=torch.float32, use_kernels=True,
-             device="cuda")
+    cpu = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    gpu = build_model(cfg, compute_dtype=torch.float32, use_kernels=True,
+                      device="cuda")
     params = cpu.init(seed)
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (2, 24)))
-    want, _ = cpu.prefill(params, {"tokens": toks})
+    batch = serve_batch(cfg, 2, 24, seed)
+    want, _ = cpu.prefill(params, _device_batch(batch, "cpu"))
     got, _ = gpu.prefill(_map(lambda t: t.cuda(), params),
-                         {"tokens": toks.cuda()})
+                         _device_batch(batch, "cuda"))
     err = (got.cpu() - want).abs()[:, :cfg.vocab_size].max().item()
     log(f"[reference] {cfg.name}, card kernels vs CPU plain: max logit "
         f"err {err:.3g} (tol 1e-3)")
     if not err <= 1e-3:
         raise SystemExit(f"{arch}: card path disagrees with the CPU "
                          f"reference")
+
+
+def serve_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A batch of B prompts of S tokens from `seed`, as numpy: random
+    tokens; an encoder-decoder's frames (B, num_audio_frames, d); a VLM's
+    prompts open with one image of ``cfg.num_patches`` vision embeddings
+    on a square grid (the reference pipeline's scale, 0.02), with its
+    M-RoPE positions (``layers.image_positions``)."""
+    import numpy as np
+    from repro_torch.models.layers import image_positions
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(0, 0.1, (
+            B, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.vision_stub:
+        side = int(round(cfg.num_patches ** 0.5))
+        batch["vision_embeds"] = rng.normal(0, 0.02, (
+            B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        batch["positions"] = image_positions(B, S, (side, side)).numpy()
+    return batch
 
 
 def _map(fn, tree):
@@ -874,8 +960,8 @@ def check_delta_image(srv, images, params) -> None:
                          f"a delta of the first")
 
 
-def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
-                  workdir: str, card: str) -> dict:
+def phase_serving(arch: str, layers, modes, kernels, check_layers,
+                  seed: int, workdir: str, card: str) -> dict:
     """Serve `arch` at full width with snapshots; returns the kernels'
     launches on this serving path, and those of flash attention and the SSD
     scan by variant."""
@@ -886,7 +972,9 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
     from repro_torch.models.lm import LM
     from repro_torch.runtime.server import DecodeServer
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
     dev = torch.device("cuda")
     model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
                device=dev)
@@ -894,7 +982,8 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
     params = model.init(seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+    log(f"[serve] {cfg.name}: {cfg.num_layers} of {full.num_layers} "
+        f"layers, d={cfg.d_model}, "
         f"vocab {cfg.padded_vocab}; {n_params} f32 params "
         f"({n_params * 4 / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(seed).integers(
@@ -962,8 +1051,8 @@ def phase_serving(arch: str, modes, kernels, check_layers, seed: int,
         shutil.rmtree(run)            # one image set on the disk at a time
         torch.cuda.empty_cache()
     launches, variants = path_launches(cfg, kernels, "serve")
-    check_logits(cfg, params, prompts, check_layers, "serve")
-    profile_serving(model, params, prompts, dev)
+    check_logits(cfg, params, {"tokens": prompts}, check_layers, "serve")
+    profile_serving(model, params, {"tokens": prompts}, dev)
     return launches, variants
 
 
@@ -988,7 +1077,7 @@ def path_launches(cfg, kernels, tag: str) -> tuple:
     return launches, variants
 
 
-def check_logits(cfg, params, prompts, check_layers, tag: str,
+def check_logits(cfg, params, batch, check_layers, tag: str,
                  every_position: bool = False) -> None:
     """The bf16 kernel path's prefill logits at full width against the f32
     plain path, no further from it than LOGIT_SLACK times the bf16 plain
@@ -998,7 +1087,7 @@ def check_logits(cfg, params, prompts, check_layers, tag: str,
     which moves a few logits by O(1) at random: the mean is the stable
     measure there)."""
     import torch
-    from repro_torch.models.lm import LM
+    from repro_torch.models.encdec import build_model
     dev = torch.device("cuda")
     ccfg, cparams = cfg, params
     if check_layers:
@@ -1006,15 +1095,15 @@ def check_logits(cfg, params, prompts, check_layers, tag: str,
         n_sb = check_layers // len(cfg.layer_pattern)
         cparams = dict(params, blocks=_map(lambda t: t[:n_sb],
                                            params["blocks"]))
-    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
-                                       device=dev)}
+    batch = _device_batch(batch, dev)
     out = {}
-    for name, m in (("kernels", LM(ccfg, compute_dtype=torch.bfloat16,
-                                   use_kernels=True, device=dev)),
-                    ("plain", LM(ccfg, compute_dtype=torch.bfloat16,
-                                 device=dev)),
-                    ("f32", LM(ccfg, compute_dtype=torch.float32,
-                               device=dev))):
+    for name, m in (("kernels", build_model(
+                        ccfg, compute_dtype=torch.bfloat16,
+                        use_kernels=True, device=dev)),
+                    ("plain", build_model(ccfg, compute_dtype=torch.bfloat16,
+                                          device=dev)),
+                    ("f32", build_model(ccfg, compute_dtype=torch.float32,
+                                        device=dev))):
         with torch.no_grad():
             logits = (m.forward(cparams, batch) if every_position
                       else m.prefill(cparams, batch)[0])
@@ -1041,17 +1130,17 @@ def check_logits(cfg, params, prompts, check_layers, tag: str,
                          f"from the f32 reference than the plain bf16 path")
 
 
-def profile_serving(model, params, prompts, dev,
+def profile_serving(model, params, batch, dev,
                     max_seq: int = SERVE_MAX) -> None:
     """torch.profiler over one prefill and a few decode steps (outside the
     counted window): device busy share and the ops that take its time."""
     import torch
-    tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
-    cache = model.init_cache(prompts.shape[0], max_seq)
-    last = tokens[:, -1]
-    S = prompts.shape[1]
+    inputs = _device_batch(batch, dev)
+    B, S = inputs["tokens"].shape
+    cache = model.init_cache(B, max_seq)
+    last = inputs["tokens"][:, -1]
     runs = {
-        "prefill": (1, lambda i: model.prefill(params, {"tokens": tokens})),
+        "prefill": (1, lambda i: model.prefill(params, inputs)),
         "decode": (4, lambda i: model.decode_step(params, cache, last,
                                                   S + i)),
     }
@@ -1133,100 +1222,166 @@ def free_memory(tag: str) -> None:
         f"MemAvailable {host_available_gib():.1f} GiB")
 
 
-def phase_zoo(path, seed: int, workdir: str, card: str) -> tuple:
-    """Serve one zoo path at full width: prefill, decode half its tokens,
-    a sync image, the other half; a fresh server cold-restores the image
-    and must decode the same tokens.  Returns the path's launches, in all
-    and by variant (counted from before the prefill to after the fresh
-    server's decode)."""
+def phase_zoo(path, seed: int, workdir: str, card: str,
+              tag: str = "zoo") -> tuple:
+    """Serve one ZOO_PATHS or MM_PATHS path at full width: prefill (the
+    prompts of ``serve_batch``), decode half its tokens, a sync image (an
+    encoder-decoder: a quarter more and an incremental image, which must
+    write its self cache alone), the rest; a fresh server cold-restores
+    each image and must decode the same tokens.  Returns the path's
+    launches, in all and by variant (counted from before the prefill to
+    after the last fresh server's decode)."""
     import numpy as np
     import torch
     from repro_torch.api import CheckpointOptions
     from repro_torch.configs import get_config
-    from repro_torch.models.lm import LM
+    from repro_torch.models.encdec import build_model
     from repro_torch.runtime.server import DecodeServer
 
     arch, layers, pdtype, B, S, max_seq, n_tok, kernels, check_layers = path
     full = get_config(arch)
     cfg = full if layers is None else dataclasses.replace(full,
                                                           num_layers=layers)
+    encdec = cfg.encoder_layers > 0
     dev = torch.device("cuda")
-    model = LM(cfg, compute_dtype=torch.bfloat16,
-               param_dtype=getattr(torch, pdtype), use_kernels=True,
-               device=dev)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=getattr(torch, pdtype), use_kernels=True,
+                        device=dev)
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     nbytes = sum(t.nbytes for t in _leaves(params))
-    log(f"[zoo] {arch}: {cfg.num_layers} of {full.num_layers} layers "
-        f"(cut: {'none' if layers is None else 'depth'}), pattern "
-        f"{cfg.layer_pattern}, d={cfg.d_model}, heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads} x {cfg.head_dim}, window {cfg.sliding_window},"
-        f" experts {cfg.moe_num_experts} top-{cfg.moe_top_k} x "
-        f"{cfg.moe_d_ff}, SSM N={cfg.ssm_state} P={cfg.ssm_headdim}; "
+    batch = serve_batch(cfg, B, S, seed)
+    log(f"[{tag}] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"(cut: {'none' if layers is None else 'depth'}; encoder "
+        f"{cfg.encoder_layers}), pattern {cfg.layer_pattern}, "
+        f"d={cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.head_dim}, window {cfg.sliding_window}, experts "
+        f"{cfg.moe_num_experts} top-{cfg.moe_top_k} x {cfg.moe_d_ff}, SSM "
+        f"N={cfg.ssm_state} P={cfg.ssm_headdim}, M-RoPE {cfg.mrope}; "
         f"{n_params} {pdtype} params ({nbytes / 2**30:.2f} GiB) in "
         f"{time.perf_counter() - t0:.1f} s; B={B}, prompt {S}, max_seq "
-        f"{max_seq}, {n_tok} tokens")
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)
+        f"{max_seq}, {n_tok} tokens; inputs "
+        f"{ {k: v.shape for k, v in batch.items()} }")
 
     run = os.path.join(workdir, "sync")
-    opts = CheckpointOptions(mode="sync")
+    opts = CheckpointOptions(mode="sync", incremental=encdec)
     _zero_counters()                  # this path's launches start here
     srv = DecodeServer(cfg, run, max_seq=max_seq, options=opts, device=dev,
                        model=model)
     srv.load(params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    srv.start({"tokens": prompts})
+    srv.start(batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    # an SWA layer's cache is a ring of the window, not of max_seq
-    want = {f"pos{j}": (min(max_seq, cfg.sliding_window) if kind == "swa"
-                        else max_seq)
-            for j, kind in enumerate(cfg.layer_pattern) if kind != "mamba"}
-    got = {p: srv.cache[p]["k"].shape[2] for p in want}
+    if encdec:                 # the cross cache holds every frame
+        want = {"self_k": max_seq, "cross_k": cfg.num_audio_frames}
+        got = {k: srv.cache[k].shape[2] for k in want}
+    else:                      # an SWA layer's a ring of the window
+        want = {f"pos{j}": (min(max_seq, cfg.sliding_window)
+                            if kind == "swa" else max_seq)
+                for j, kind in enumerate(cfg.layer_pattern)
+                if kind != "mamba"}
+        got = {p: srv.cache[p]["k"].shape[2] for p in want}
     if got != want:
         raise SystemExit(f"{arch}: KV cache lengths {got}, want {want}")
-    half = n_tok // 2
     t0 = time.perf_counter()
-    srv.decode(half)
+    srv.decode(n_tok // 2)
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / half
-    image = serve_image(srv, card)
-    expected = srv.decode(n_tok - half).copy()
-
-    avail = host_available_gib()
-    t0 = time.perf_counter()
-    fresh = DecodeServer(cfg, run, max_seq=max_seq, options=opts,
-                         device=dev, model=model)
-    fresh.restore()
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    tokens = fresh.decode(n_tok - half)
-    same = fresh.pos == srv.pos and np.array_equal(tokens, expected)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (n_tok // 2)
+    images = [serve_image(srv, card)]
+    if encdec:
+        srv.decode(n_tok // 4)
+        images.append(serve_image(srv, card))
+        check_encdec_delta(srv, images, params)
+    srv.decode(S + n_tok - srv.pos)
     cache_b = sum(t.nbytes for t in _leaves(srv.cache))
-    log(f"[zoo] {arch}: prefill {prefill_ms:.1f} ms (B={B}, S={S}); "
+    restores = []
+    for image in images:
+        avail = host_available_gib()
+        t0 = time.perf_counter()
+        fresh = DecodeServer(cfg, run, max_seq=max_seq, options=opts,
+                             device=dev, model=model)
+        fresh.restore(image["step"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        fresh.decode(srv.pos - fresh.pos)
+        same = np.array_equal(fresh.tokens, srv.tokens)
+        restores.append(f"image at pos {image['step']} {restore_s:.2f} s "
+                        f"(host MemAvailable {avail:.1f} GiB before it, "
+                        f"{host_available_gib():.1f} after), continuation "
+                        f"token-exact: {same}")
+        if not same:
+            raise SystemExit(f"{arch}: the server cold-restored from the "
+                             f"image at pos {image['step']} diverged")
+        del fresh
+    first = images[0]
+    log(f"[{tag}] {arch}: prefill {prefill_ms:.1f} ms (B={B}, S={S}); "
         f"decode {decode_ms:.2f} ms/token; KV lengths {got} (the last "
-        f"write at pos {srv.pos - 1}); sync image at pos {image['step']}: "
-        f"freeze (lock + D2H) {image['freeze_ms']:.1f} ms, write "
-        f"{image['write_s']:.2f} s (hash_s {image['hash_s']:.2f}), image "
-        f"{image['image']} bytes (cache {cache_b}); eager cold restore "
-        f"{restore_s:.2f} s (host MemAvailable {avail:.1f} GiB before it, "
-        f"{host_available_gib():.1f} after); continuation token-exact: "
-        f"{same}; {card}")
-    if not same:
-        raise SystemExit(f"{arch}: cold-restored server diverged")
-    del srv, fresh
-    shutil.rmtree(run)                # the image goes before the next path
+        f"write at pos {srv.pos - 1}); sync image at pos {first['step']}: "
+        f"freeze (lock + D2H) {first['freeze_ms']:.1f} ms, write "
+        f"{first['write_s']:.2f} s (hash_s {first['hash_s']:.2f}), image "
+        f"{first['image']} bytes (cache {cache_b}); eager cold restores: "
+        f"{'; '.join(restores)}; {card}")
+    del srv
+    shutil.rmtree(run)                # the images go before the next path
     torch.cuda.empty_cache()
-    launches, variants = path_launches(cfg, kernels, "zoo")
-    check_logits(cfg, params, prompts, check_layers, "zoo",
-                 every_position=True)
+    launches, variants = path_launches(cfg, kernels, tag)
+    check_logits(cfg, params, batch, check_layers, tag, every_position=True)
     torch.cuda.empty_cache()
-    profile_serving(model, params, prompts, dev, max_seq)
+    profile_serving(model, params, batch, dev, max_seq)
     return launches, variants
+
+
+# ---------------------------------------------------------------- phase 2c
+# The encoder-decoder and the VLM at their published widths, bf16 compute,
+# kernels on, each path in a process of its own, served by `phase_zoo`
+# (the fields of ZOO_PATHS).  whisper-tiny uncut over
+# f32 masters: 16 requests of 1500 frames (30 s of audio), the 4-token
+# start-of-transcript prompt, max_seq 448 (the decoder's published
+# context); a sync image after half the tokens and an incremental one a
+# quarter later.  qwen2-vl-7b in bf16 (f32 masters would be 30.5 GB, an
+# image too slow to write in the run, as for qwen3-moe): 2 prompts of one
+# 32 x 32 image (the config's 1024 vision embeddings) and 256 text tokens;
+# its logit check at 4 layers, as for the zoo.  Both uncut.
+MM_PATHS = (
+    ("whisper-tiny", None, "float32", 16, 4, 448, 96,
+     ("flash_attention", "rmsnorm"), None),
+    ("qwen2-vl-7b", None, "bfloat16", 2, 1280, 1344, 32,
+     ("flash_attention", "rmsnorm"), 4),
+)
+
+
+def check_encdec_delta(srv, images, params) -> None:
+    """The encoder-decoder's second image is a delta of the first that
+    writes the self cache alone: every param and cross_k / cross_v entry
+    stays where the first image put it (decode never writes the encoder's
+    K/V), and written_bytes is at most the self cache plus one chunk per
+    entry."""
+    first, second = images
+    man = second["manifest"]
+    self_b = srv.cache["self_k"].nbytes + srv.cache["self_v"].nbytes
+    kept_b = (sum(t.nbytes for t in _leaves(params))
+              + srv.cache["cross_k"].nbytes + srv.cache["cross_v"].nbytes)
+    limit = self_b + len(man["entry_bytes"]) * (4 << 20)
+    kept = [n for n in man["locations"]
+            if "::params/" in n or "::cache/cross_" in n]
+    moved = [n for n in kept if man["locations"][n].startswith(
+        f"step_{second['step']:08d}/")]
+    ok = (man["parent"] == first["step"] and kept and not moved
+          and man["written_bytes"] <= limit
+          and man["reused_bytes"] >= kept_b)
+    log(f"[mm] {srv.cfg.name} delta image: parent {man['parent']} (want "
+        f"{first['step']}), written_bytes {man['written_bytes']} <= self "
+        f"cache {self_b} + {len(man['entry_bytes'])} entries x 4 MiB = "
+        f"{limit}, reused_bytes {man['reused_bytes']} >= params + cross "
+        f"cache {kept_b}; {len(kept)} param and cross-cache entries, "
+        f"{len(moved)} of them written again: {ok}")
+    if not ok:
+        raise SystemExit(f"{srv.cfg.name}: the incremental image wrote "
+                         f"more than the self cache")
 
 
 def _leaves(tree):
@@ -2681,20 +2836,10 @@ def phase_orchestration(seed: int, workdir: str, card: str) -> dict:
 
 
 def run_orchestration(seed: int) -> dict:
-    """`phase_orchestration` in a process of its own (its dumps' pinned
-    host buffers go back to the OS when it exits), waited for; its paths'
+    """`phase_orchestration` in a child process (its dumps' pinned host
+    buffers go back to the OS when it exits), waited for; its paths'
     launches."""
-    free_memory("phase 6")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        out = os.path.join(workdir, "launches.json")
-        rc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--seed",
-             str(seed), "--orch", "--out", out], timeout=1000).returncode
-        if rc:
-            raise SystemExit(f"orchestration: the phase's process failed "
-                             f"(exit {rc})")
-        with open(out) as f:
-            res = json.load(f)
+    res = run_child("phase 6", orchestrate, seed)
     return {k: tuple(v) for k, v in res.items()}
 
 
@@ -2727,7 +2872,7 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     on the serving paths); flash attention's and the SSD scan's variants
     (tc at the bf16 slice, fma at the f32 slice) and long-prompt timings;
     RMSNorm at d = 5120 and its two designs; each kernel at the zoo
-    paths' shapes."""
+    paths' shapes and at those of the encoder-decoder and VLM paths."""
     out = []
     for name, route, source, replaces in KERNEL_ROWS:
         row = dict(name=name, route=route, source=source, replaces=replaces,
@@ -2763,45 +2908,134 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     rn_row["designs_ms"] = rows["rmsnorm/designs"]
     for row in out:
         row["zoo"] = rows["zoo"][row["name"]]
+        row["mm"] = rows["mm"][row["name"]]
     return out
 
 
 def run_zoo_path(path, seed: int) -> tuple:
-    """`phase_zoo` in a process of its own, waited for; its launches, in
-    all and by variant.  torch's caching host allocator keeps every dump's
-    pinned buffers for reuse, so one process that served every path would
-    hold them all (the host has 96 GiB; jamba's dump and restore alone
-    pin about twice its 26.6 GB image): each path's buffers go back to the
-    OS when its process exits."""
-    free_memory(path[0])
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        out = os.path.join(workdir, "launches.json")
-        rc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--seed",
-             str(seed), "--zoo-path", path[0], "--out", out],
-            timeout=1000).returncode
-        if rc:
-            raise SystemExit(f"{path[0]}: the zoo path's process failed "
-                             f"(exit {rc})")
-        with open(out) as f:
-            res = json.load(f)
+    """`phase_zoo` for a ZOO_PATHS or MM_PATHS path in a child process,
+    waited for; its launches, in all and by variant.  torch's caching host
+    allocator keeps every dump's pinned buffers for reuse, so one process
+    that served every path would hold them all (the host has 96 GiB;
+    jamba's dump and restore alone pin about twice its 26.6 GB image):
+    each path's buffers go back to the OS when its process exits."""
+    res = run_child(path[0], serve_one, path[0], seed)
     return res["launches"], res["variants"]
+
+
+def fork_server():
+    """The context of the script's child processes.  Each is forked from
+    one server process that imported torch once (CUDA untouched, so each
+    child sets up its own), so a child skips the import a fresh process
+    pays (the `[time]` lines give both); torch._dynamo too, which
+    ``torch.use_deterministic_algorithms`` imports.  Started at once: the
+    server's imports run beside the parent's work."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "torch._dynamo"])
+    forkserver.ensure_running()
+    return ctx
+
+
+def stop_fork_server() -> None:
+    """Stop the fork server and the resource tracker that multiprocessing
+    started beside it, and wait for both: each would exit by itself once
+    it saw this process gone, but after it, so the script would end with
+    processes of its own still running."""
+    from multiprocessing import forkserver, resource_tracker
+    for server in (forkserver._forkserver, resource_tracker._resource_tracker):
+        server._stop()
+
+
+def torch_settings() -> None:
+    """What every process of the script runs under: deterministic
+    algorithms (bitwise resume) without their NaN fill of each fresh
+    allocation (a debugging aid: one extra kernel per torch.empty;
+    results do not depend on it), and no TF32."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def serve_one(arch: str, seed: int, layers=None) -> dict:
+    """Serve one path of SERVE_PATHS, ZOO_PATHS or MM_PATHS (at `layers`
+    layers in place of its own depth, if given); its launches, in all and
+    by variant."""
+    paths = {p[0]: (p, "serve") for p in SERVE_PATHS}
+    paths.update({p[0]: (p, "zoo") for p in ZOO_PATHS})
+    paths.update({p[0]: (p, "mm") for p in MM_PATHS})
+    path, tag = paths[arch]
+    if layers is not None:
+        path = (path[0], layers, *path[2:])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        if tag == "serve":
+            launches, variants = phase_serving(*path, seed, workdir,
+                                               card_line())
+        else:
+            launches, variants = phase_zoo(path, seed, workdir, card_line(),
+                                           tag)
+    return {"launches": launches, "variants": variants}
+
+
+def orchestrate(seed: int) -> dict:
+    """Phase 6; its paths' launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        return phase_orchestration(seed, workdir, card_line())
+
+
+def _child(asked_at: float, what: str, out: str, fn, *args) -> None:
+    log(f"[time] {what}: the child process works {time.time() - asked_at:.2f}"
+        f" s after it was asked for")
+    torch_settings()
+    res = fn(*args)
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def run_child(what: str, fn, *args):
+    """fn(*args) in a child process from the fork server, waited for (after
+    `free_memory`); what it returned, through a JSON file."""
+    free_memory(what)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        out = os.path.join(workdir, "result.json")
+        proc = CHILDREN.Process(target=_child, args=(time.time(), what, out,
+                                                     fn, *args))
+        proc.start()
+        proc.join(timeout=1000)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        if proc.exitcode:
+            raise SystemExit(f"{what}: the child process failed (exit "
+                             f"{proc.exitcode})")
+        with open(out) as f:
+            return json.load(f)
+
+
+CHILDREN = None      # fork_server()'s context, made by main()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--zoo-path", help="(the script's own child process) "
-                    "serve this ZOO_PATHS model only and write its "
-                    "launches to --out")
-    ap.add_argument("--orch", action="store_true", help="(the script's own "
-                    "child process) run phase 6 only and write its paths' "
-                    "launches to --out")
-    ap.add_argument("--out", help="with --zoo-path or --orch: the "
+    ap.add_argument("--path", help="serve this model of SERVE_PATHS, "
+                    "ZOO_PATHS or MM_PATHS only (as the script serves it) "
+                    "and write its launches to --out")
+    ap.add_argument("--layers", type=int, help="with --path: serve it at "
+                    "this many layers (tools/cut_ab.py times a depth cut)")
+    ap.add_argument("--orch", action="store_true", help="run phase 6 "
+                    "only and write its paths' launches to --out")
+    ap.add_argument("--out", help="with --path or --orch: the "
                     "launches' JSON")
     args = ap.parse_args()
 
+    global CHILDREN
+    t_import = process_age_s()
     import torch
+    t_import = (t_import, process_age_s())
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2811,78 +3045,74 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
-    torch.use_deterministic_algorithms(True)
-    # deterministic mode would also NaN-fill every fresh allocation (a
-    # debugging aid: one extra kernel per torch.empty); results do not
-    # depend on it
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    if args.zoo_path:
-        path = {p[0]: p for p in ZOO_PATHS}[args.zoo_path]
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-            launches, variants = phase_zoo(path, args.seed, workdir,
-                                           card_line())
+    torch_settings()
+    if args.path or args.orch:
+        res = (serve_one(args.path, args.seed, args.layers) if args.path
+               else orchestrate(args.seed))
         with open(args.out, "w") as f:
-            json.dump({"launches": launches, "variants": variants}, f)
+            json.dump(res, f)
         return 0
 
-    if args.orch:
+    CHILDREN = fork_server()
+    try:
+        t_start = time.perf_counter()
+        card = card_line()
+        log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+            f"{torch.__version__} cuda {torch.version.cuda}; {card}")
+        def mark(what):
+            log(f"[time] {what} done at {process_age_s():.1f} s")
+        log(f"[time] import torch took {t_import[1] - t_import[0]:.2f} s in "
+            f"this process (done {t_import[1]:.1f} s after its start)")
+
+        rows = phase_kernels(args.seed)
+        phase_grads(args.seed)
+        mark("phase 1")
+        for arch in [p[0] for p in SERVE_PATHS + ZOO_PATHS + MM_PATHS]:
+            check_small_reference(arch, args.seed)
+        by_path = {}
+        for arch, *path in SERVE_PATHS:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+                by_path[arch] = phase_serving(arch, *path, args.seed, workdir,
+                                              card)
+            torch.cuda.empty_cache()
+            mark(f"phase 2 {arch}")
+        mark("phase 2")
+        for path in ZOO_PATHS:
+            by_path[path[0]] = run_zoo_path(path, args.seed)
+            mark(f"phase 2b {path[0]}")
+        mark("phase 2b")
+        for path in MM_PATHS:
+            by_path[path[0]] = run_zoo_path(path, args.seed)
+            mark(f"phase 2c {path[0]}")
+        mark("phase 2c")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-            paths = phase_orchestration(args.seed, workdir, card_line())
-        with open(args.out, "w") as f:
-            json.dump(paths, f)
+            by_path[f"{TRAIN_ARCH} train"] = phase_training(
+                args.seed, workdir, card)
+            by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
+                phase_training_mamba(args.seed, workdir, card)
+            mark("phase 3")
+            phase_session_race(args.seed, workdir, card)
+        mark("phase 4")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            by_path[f"{REPL_ARCH} replicate/migrate"] = phase_replication(
+                args.seed, workdir, card)
+            by_path[f"{TRAIN_ARCH} migrate ({MIG_LAYERS} layers)"] = \
+                phase_migrate_training(args.seed, workdir, card)
+        mark("phase 5")
+        by_path.update(run_orchestration(args.seed))
+        mark("phase 6")
+        log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
+            f"process started (what the run's time limit and its 960 s "
+            f"budget apply to), {time.perf_counter() - t_start:.1f} s from "
+            f"after the imports; {card}")
+        print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
-
-    t_start = time.perf_counter()
-    card = card_line()
-    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
-        f" cuda {torch.version.cuda}; {card}")
-    def mark(what):
-        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
-
-    rows = phase_kernels(args.seed)
-    phase_grads(args.seed)
-    mark("phase 1")
-    for arch in [p[0] for p in SERVE_PATHS + ZOO_PATHS]:
-        check_small_reference(arch, args.seed)
-    by_path = {}
-    for arch, modes, kernels, check_layers in SERVE_PATHS:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-            by_path[arch] = phase_serving(arch, modes, kernels, check_layers,
-                                          args.seed, workdir, card)
-        torch.cuda.empty_cache()
-        mark(f"phase 2 {arch}")
-    mark("phase 2")
-    for path in ZOO_PATHS:
-        by_path[path[0]] = run_zoo_path(path, args.seed)
-        mark(f"phase 2b {path[0]}")
-    mark("phase 2b")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        by_path[f"{TRAIN_ARCH} train"] = phase_training(args.seed, workdir,
-                                                        card)
-        by_path[f"{MAMBA_ARCH} train ({MAMBA_LAYERS} layers)"] = \
-            phase_training_mamba(args.seed, workdir, card)
-        mark("phase 3")
-        phase_session_race(args.seed, workdir, card)
-    mark("phase 4")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        by_path[f"{REPL_ARCH} replicate/migrate"] = phase_replication(
-            args.seed, workdir, card)
-        by_path[f"{TRAIN_ARCH} migrate ({MIG_LAYERS} layers)"] = \
-            phase_migrate_training(args.seed, workdir, card)
-    mark("phase 5")
-    by_path.update(run_orchestration(args.seed))
-    mark("phase 6")
-    log(f"[done] chip_smoke wall time {time.perf_counter() - t_start:.1f} s;"
-        f" {card}")
-    print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    finally:
+        stop_fork_server()
 
 
 if __name__ == "__main__":

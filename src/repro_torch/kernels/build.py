@@ -24,8 +24,12 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan",
            "ssd_scan_tc")
+# --split-compile=0 optimizes each source's kernels in parallel on every
+# core (flash_attention.cu alone holds 16 template instances);
+# tools/build_times.py times the build with and without it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -82,6 +86,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     (ptxas register / shared-memory report)."""
     names = list(names)
     procs = {n: _start(n) for n in names}
+    for proc in procs.values():
+        if proc is not None:
+            proc.wait()         # every nvcc ends before a failure is raised
     for n in names:
         _finish(n, procs[n])
     return {n: log_path(n).read_text() if log_path(n).exists() else ""

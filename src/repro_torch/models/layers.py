@@ -139,6 +139,32 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 # ======================================================================
 # Rotary embeddings
 # ======================================================================
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """M-RoPE's (temporal, height, width) split of the head_dim/2
+    frequencies, e.g. hd 128 -> (16, 24, 24)."""
+    half = head_dim // 2
+    s = 3 * half // 8
+    return (half - 2 * s, s, s)
+
+
+def image_positions(B: int, S: int, grid: Tuple[int, int]) -> torch.Tensor:
+    """The ``positions`` entry (3, B, S) int32 of a VLM batch whose
+    prompts open with one image's h*w patches on an h x w grid (t = 0,
+    h = row, w = col), text token i at i in all three components: what a
+    caller gives ``DecodeServer.start`` (or ``LM.prefill``) for such a
+    prompt, since decode puts the cache index in all three components
+    and so continues this layout alone."""
+    h, w = grid
+    if h * w > S:
+        raise ValueError(f"a {h}x{w} grid does not fit in {S} tokens")
+    pos = torch.arange(S, dtype=torch.int32).repeat(3, 1)
+    patch = torch.arange(h * w, dtype=torch.int32)
+    pos[0, :h * w] = 0
+    pos[1, :h * w] = patch // w
+    pos[2, :h * w] = patch % w
+    return pos[:, None, :].expand(3, B, S).contiguous()
+
+
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
     """Inverse frequencies in f64, made on `device` (no host->device copy,
     which would stall the launch queue on every call)."""
@@ -147,13 +173,22 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S).  (M-RoPE is not ported.)"""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope: bool = False) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE,
+    where frequency section i (``mrope_sections``) turns by component i."""
     hd = x.shape[-1]
     half = hd // 2
     freqs = rope_freqs(hd, theta, x.device).float()              # (half,)
-    angles = positions.float()[..., None] * freqs                # (B,S,half)
+    if mrope:
+        parts, start = [], 0
+        for i, n in enumerate(mrope_sections(hd)):
+            parts.append(positions[i].float()[..., None]
+                         * freqs[start:start + n])
+            start += n
+        angles = torch.cat(parts, dim=-1)                        # (B,S,half)
+    else:
+        angles = positions.float()[..., None] * freqs            # (B,S,half)
     cos = torch.cos(angles)[:, :, None, :]                       # (B,S,1,half)
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
@@ -185,8 +220,8 @@ def attention_specs(cfg) -> Dict[str, ParamSpec]:
 def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
          rope: bool = True):
     """Project to q (B,S,H,hd), k/v (B,S,KV,hd), q/k-normed per head
-    (Qwen3) when the config asks, with RoPE applied.  (The reference's
-    M-RoPE is not ported yet.)"""
+    (Qwen3) when the config asks, with RoPE (M-RoPE for a ``cfg.mrope``
+    config, positions (3, B, S)) applied."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -204,8 +239,8 @@ def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)
     if rope and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     return q, k, v
 
 
@@ -269,6 +304,42 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, window: int = 0,
+              use_kernels: bool = False) -> torch.Tensor:
+    """Attention over a whole sequence (training, prefill): with
+    ``use_kernels`` through the flash-attention kernel, which computes
+    the same function (``ops.attention``), else ``self_attention``."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        return ops.attention(q, k, v, causal=causal, window=window)
+    return self_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """One query per sequence against a cache: q (B,1,H,hd), k/v
+    (B,S_c,KV,hd), valid (S_c,) bool -> (B, H*hd); scores and softmax in
+    f32, as the reference's decode."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k) / math.sqrt(hd)
+    scores = torch.where(valid, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(B, H * hd)
+
+
+def head(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits over the padded vocab: x times the tied embedding, or the
+    untied ``lm_head``, the padding columns masked."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["tok"].to(x.dtype).T
+    else:
+        w = params["lm_head"].to(x.dtype)
+    return mask_padded_vocab(x @ w, cfg)
+
+
 def mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     """-1e30 out the vocab-padding columns (see ModelConfig.padded_vocab)."""
     if cfg.padded_vocab == cfg.vocab_size:
@@ -291,6 +362,21 @@ def _xent_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     iota = torch.arange(lg.shape[-1], device=lg.device)
     sel = torch.where(iota == targets[..., None], lg, 0.0)
     return lse - sel.sum(dim=-1)
+
+
+def next_token_loss(logits: torch.Tensor, batch
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-length next-token loss and its token count: targets are the
+    tokens rolled by one, the last position masked (S stays whole, as in
+    the reference), times the batch's ``loss_mask`` where it has one."""
+    tokens = batch["tokens"]
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device) if mask is None
+            else mask.float().clone())
+    mask[:, -1] = 0.0
+    return softmax_xent_sharded(logits, targets, mask)
 
 
 def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor,

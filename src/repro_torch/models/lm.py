@@ -4,8 +4,11 @@ stacked-layer param tree.
 Port of the JAX package's ``models/lm.py`` for every decoder-only
 pattern of the zoo: dense attention (qwen1.5, phi3, deepseek),
 sliding-window attention (``"swa"``, h2o-danube), pure Mamba (mamba2),
-the Mamba/attention hybrid (jamba) and MoE FFNs with Qwen3's q/k-norm
-(qwen3-moe).  Param specs keep the reference's paths
+the Mamba/attention hybrid (jamba), MoE FFNs with Qwen3's q/k-norm
+(qwen3-moe) and the VLM (qwen2-vl: M-RoPE over positions (3, B, S),
+and ``vision_embeds`` (B, P, d) in place of the first P token
+embeddings; decode puts the cache index in all three components, as the
+reference does).  Param specs keep the reference's paths
 (``blocks/pos0/attn/wq``, ``blocks/pos1/moe/w_gate``,
 ``blocks/pos0/mamba/w_x``, with a leading stacked-layer dim: a pattern of
 length P stacks ``num_layers / P`` layers per ``pos{j}``); ``forward`` and
@@ -19,8 +22,8 @@ dtype).  Layers run as a Python loop over the stacked dim where the
 reference scans; with ``remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), returning its MoE aux beside x so the aux's
 gradient flows, as the reference rematerialises each super-block.
-Encoder-decoder (whisper) and VLM (qwen2-vl: M-RoPE, vision embeddings)
-configs are not ported.
+Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
+``models.encdec.build_model`` picks the class from the config.
 
 ``use_kernels`` routes training and prefill attention through the
 flash-attention kernel (with the window of an SWA layer), their SSD scan
@@ -38,7 +41,6 @@ returns the same cache object.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -94,15 +96,6 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port covers every decoder-only config; encoder-decoder and VLM
-    configs are not ported yet."""
-    if cfg.encoder_layers or cfg.mrope or cfg.vision_stub:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and VLM configs (encoder layers, "
-            f"M-RoPE, vision embeddings) are not ported yet")
-
-
 def _unstack(tree: PyTree, n: int) -> List[PyTree]:
     """Every layer of a stacked tree (views), by one ``unbind`` per leaf:
     its backward stacks the n layers' grads once, where indexing each
@@ -120,7 +113,9 @@ class LM:
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  param_dtype=torch.float32, remat: bool = True,
                  use_kernels: bool = False, device: DeviceLike = None):
-        check_supported(cfg)
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name} is an encoder-decoder config: "
+                             f"build it with models.encdec.build_model")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
@@ -146,12 +141,18 @@ class LM:
         # gather, then cast: the same values as casting the whole table
         return params["embed"]["tok"][tokens].to(self.compute_dtype)
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            w = params["embed"]["tok"].to(x.dtype).T
-        else:
-            w = params["lm_head"].to(x.dtype)
-        return L.mask_padded_vocab(x @ w, self.cfg)
+    def _embed_batch(self, params, batch) -> torch.Tensor:
+        """The token embeddings, the first P positions replaced by the
+        batch's ``vision_embeds`` (B, P, d) when it has them."""
+        x = self._embed(params, batch["tokens"])
+        ve = batch.get("vision_embeds")
+        if ve is None:
+            return x
+        P, S = ve.shape[1], x.shape[1]
+        if P > S:
+            raise ValueError(f"{P} vision embeddings do not fit in a "
+                             f"sequence of {S} tokens")
+        return torch.cat([ve.to(self.compute_dtype), x[:, P:]], dim=1)
 
     def _ffn(self, lp, x, dropless: bool = False):
         """x + the layer's FFN, and the MoE aux (None without MoE)."""
@@ -171,12 +172,15 @@ class LM:
                 for j in range(self._P)}
 
     def _positions(self, batch) -> torch.Tensor:
+        """The batch's positions as given, else (B, S) of arange, or
+        (3, B, S) of it for M-RoPE."""
         pos = batch.get("positions")
         if pos is not None:
             return pos
         B, S = batch["tokens"].shape
-        return torch.arange(S, dtype=torch.int32,
+        base = torch.arange(S, dtype=torch.int32,
                             device=batch["tokens"].device).expand(B, S)
+        return base.expand(3, B, S) if self.cfg.mrope else base
 
     # ---------------- forward / loss (training) ----------------
     def _block(self, lp, j: int, x, positions):
@@ -190,7 +194,7 @@ class LM:
 
     def _forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, the MoE aux summed over layers, f32)."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_batch(params, batch)
         positions = self._positions(batch)
         layers = self._layers(params)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -205,26 +209,18 @@ class LM:
                 if a is not None:
                     aux = aux + a
         x = self._norm(params["final_norm"], x)
-        return self._head(params, x), aux
+        return L.head(params, x, self.cfg), aux
 
     def forward(self, params, batch) -> torch.Tensor:
         """Logits (B, S, padded_vocab) in the compute dtype."""
         return self._forward(params, batch)[0]
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Full-length next-token loss: targets are the tokens rolled by
-        one, the last position masked (S stays whole, as in the
-        reference).  ``total = loss + 0.01 * aux``, aux the MoE layers'
-        load-balance losses summed (0 without MoE)."""
+        """The next-token loss (``layers.next_token_loss``) plus
+        ``0.01 * aux``, aux the MoE layers' load-balance losses summed (0
+        without MoE)."""
         logits, aux = self._forward(params, batch)
-        tokens = batch["tokens"]
-        targets = torch.roll(tokens, -1, dims=1)
-        mask = batch.get("loss_mask")
-        mask = (torch.ones(tokens.shape, dtype=torch.float32,
-                           device=tokens.device) if mask is None
-                else mask.float().clone())
-        mask[:, -1] = 0.0
-        loss, ntok = L.softmax_xent_sharded(logits, targets, mask)
+        loss, ntok = L.next_token_loss(logits, batch)
         total = loss + 0.01 * aux
         return total, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
@@ -264,7 +260,7 @@ class LM:
         SWA layer keeps its last `window` positions, position p at slot
         ``p % window``)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_batch(params, batch)
         positions = self._positions(batch)
         layers = self._layers(params)
         caches: Dict[str, Dict[str, list]] = {
@@ -289,7 +285,7 @@ class LM:
                 for k, t in nc.items():
                     caches[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
-        logits = self._head(params, x)[:, 0, :]
+        logits = L.head(params, x, self.cfg)[:, 0, :]
         cache = {p: {k: torch.stack(ts) for k, ts in leaves.items()}
                  for p, leaves in caches.items()}
         return logits, cache
@@ -306,11 +302,8 @@ class LM:
         B, S = h.shape[:2]
         window = self._window(j)
         q, k, v = L._qkv(lp["attn"], cfg, h, positions)
-        if self.use_kernels:
-            from repro_torch.kernels import ops
-            o = ops.attention(q, k, v, causal=True, window=window)
-        else:
-            o = L.self_attention(q, k, v, causal=True, window=window)
+        o = L.attention(q, k, v, causal=True, window=window,
+                        use_kernels=self.use_kernels)
         o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
         return o @ lp["attn"]["wo"].to(h.dtype), {"k": k, "v": v}
 
@@ -320,24 +313,20 @@ class LM:
         or at slot ``pos % S_c`` of an SWA layer's ring."""
         cfg = self.cfg
         B = x.shape[0]
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         S_c = k_cache.shape[1]
         ring = bool(self._window(j))
         posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        if cfg.mrope:        # the cache index in all three components
+            posv = posv.expand(3, B, 1)
         q, k_new, v_new = L._qkv(lp["attn"], cfg, x[:, None, :], posv)
         slot = pos % S_c if ring else pos
         k_cache[:, slot] = k_new[:, 0]
         v_cache[:, slot] = v_new[:, 0]
 
-        qg = q.reshape(B, 1, KV, H // KV, hd)
-        scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache) / math.sqrt(hd)
-        scores = scores.float()
         idx = torch.arange(S_c, device=x.device)
         valid = idx < min(pos + 1, S_c) if ring else idx <= pos
-        scores = torch.where(valid, scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache)
-        return o.reshape(B, H * hd) @ lp["attn"]["wo"].to(x.dtype)
+        o = L.decode_attention(q, k_cache, v_cache, valid)
+        return o @ lp["attn"]["wo"].to(x.dtype)
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
@@ -366,4 +355,4 @@ class LM:
                                        self.use_kernels)
                 x = self._ffn(lp, x + o, dropless=True)[0]   # MoE: no drops
         x = self._norm(params["final_norm"], x)
-        return self._head(params, x), cache
+        return L.head(params, x, self.cfg), cache

@@ -75,8 +75,8 @@ class WorkloadConfig:
         return get_smoke_config("qwen1.5-0.5b")
 
     def build_model(self, device: torch.device):
-        from repro_torch.models.lm import LM
-        return LM(self.model_config(), compute_dtype=self.compute_dtype,
+        from repro_torch.models.encdec import build_model
+        return build_model(self.model_config(), compute_dtype=self.compute_dtype,
                   remat=self.remat, use_kernels=self.use_kernels,
                   device=device)
 

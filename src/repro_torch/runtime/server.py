@@ -28,7 +28,7 @@ from repro_torch.api.session import SnapshotWriteFailed
 from repro_torch.core.lazy import covers
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.encdec import build_model
 from repro_torch.runtime.fault import SimulatedFailure
 
 
@@ -37,12 +37,12 @@ class DecodeServer:
                  compute_dtype=torch.float32,
                  options: Optional[CheckpointOptions] = None,
                  device: DeviceLike = None,
-                 model: Optional[LM] = None):
+                 model=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         # `model=` lets servers share one model (e.g. one built with
         # use_kernels=True)
-        self.model = model if model is not None else LM(
+        self.model = model if model is not None else build_model(
             cfg, compute_dtype=compute_dtype, device=self.device)
         self.max_seq = max_seq
         self.params = None
@@ -74,17 +74,21 @@ class DecodeServer:
 
     # ------------------------------------------------------------- serving
     def start(self, batch: Dict[str, Any]) -> None:
-        """Prefill a batch of prompts; the cache is padded to the one the
-        model declares for max_seq."""
+        """Prefill a batch of prompts (``tokens``, and the ``frames`` of
+        an encoder-decoder or the ``vision_embeds`` and ``positions`` of
+        a VLM where the batch has them); the cache is padded to the one
+        the model declares for max_seq."""
         prompt = np.asarray(batch["tokens"], np.int32)
         B, S = prompt.shape
         if S >= self.max_seq:
             raise ValueError(f"prompt length {S} leaves no room in "
                              f"max_seq={self.max_seq}")
-        logits, cache = self.model.prefill(
-            self.params,
-            {"tokens": torch.as_tensor(prompt, dtype=torch.long,
-                                       device=self.device)})
+        inputs = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
+                                            device=self.device)}
+        for key in ("frames", "vision_embeds", "positions"):
+            if batch.get(key) is not None:
+                inputs[key] = torch.as_tensor(batch[key], device=self.device)
+        logits, cache = self.model.prefill(self.params, inputs)
         self.cache = self._pad_cache(
             cache, self.model.cache_abstract(B, self.max_seq))
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
@@ -95,7 +99,7 @@ class DecodeServer:
     def _pad_cache(cache, template):
         """Pad the *attention* KV seq dim (axis 2 of (L, B, S, KV, hd)) to
         that of the matching leaf of `template`, the cache the model
-        declares (``LM.cache_abstract``): max_seq, or for an SWA ring
+        declares (``cache_abstract``): max_seq, or for an SWA ring
         ``min(max_seq, window)`` (the reference pads the ring to max_seq,
         which loses the window once max_seq exceeds it).  Keyed by leaf
         name, as in the reference: an SSM state h (L, B, nh, P, N) is 5-D

@@ -42,7 +42,7 @@ from repro_torch.core.snapshot_io import snapshot_dir
 from repro_torch.data import TokenPipeline
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.encdec import build_model
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
@@ -51,7 +51,7 @@ from repro_torch.runtime.fault import (JITCheckpointPolicy,
 PyTree = Any
 
 
-def loss_and_grads(model: LM, params: PyTree, batch
+def loss_and_grads(model, params: PyTree, batch
                    ) -> Tuple[Dict[str, torch.Tensor], PyTree]:
     """``model.loss``'s metrics and the grads of its total for every
     param (the counterpart of ``jax.value_and_grad``), taken on views of
@@ -83,17 +83,17 @@ class TrainConfig:
 
 
 class Trainer:
-    """`model=` lets a caller pass its own ``LM`` (e.g. one built with
+    """`model=` lets a caller pass its own model (e.g. one built with
     ``use_kernels=True``); its compute dtype and remat then stand in for
     the config's."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, run_dir: str,
                  session: Optional[CheckpointSession] = None, *,
-                 device: DeviceLike = None, model: Optional[LM] = None):
+                 device: DeviceLike = None, model=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
-        self.model = model if model is not None else LM(
+        self.model = model if model is not None else build_model(
             cfg, compute_dtype=tcfg.compute_dtype, remat=tcfg.remat,
             device=self.device)
         self.opt = AdamW(lr=warmup_cosine(tcfg.lr, tcfg.warmup_steps,

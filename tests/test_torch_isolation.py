@@ -19,7 +19,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.kernels.rmsnorm", "repro_torch.kernels.build",
                "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
                "repro_torch.models.moe",
-               "repro_torch.models.lm", "repro_torch.models.convert",
+               "repro_torch.models.lm", "repro_torch.models.encdec",
+               "repro_torch.models.convert",
                "repro_torch.configs", "repro_torch.runtime.server",
                "repro_torch.serialization.pack", "repro_torch.obs",
                "repro_torch.chaos.hooks", "repro_torch.core.streams",

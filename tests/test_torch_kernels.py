@@ -33,6 +33,8 @@ ATTN_CASES = [
     (1, 100, 100, 2, 1, 16, True, 0),      # ragged (padding path)
     (1, 128, 128, 8, 2, 128, True, 0),     # hd 128, GQA (phi3-medium's)
     (1, 96, 96, 8, 2, 80, True, 32),       # hd 80 + window (h2o-danube's)
+    (2, 4, 4, 6, 6, 64, True, 0),          # whisper's 4-token causal prefill
+    (2, 4, 150, 6, 6, 64, False, 0),       # whisper's cross attention
 ]
 NORM_SHAPES = [(8, 64), (3, 7, 96), (1, 384), (130, 256)]
 # (B, S, nh, P, N, chunk): tests/test_kernels.py:70-74

@@ -118,13 +118,18 @@ def test_kernel_path_equals_plain_path_on_cpu(ARCH):
 
 
 def test_unported_layer_kinds_raise():
-    """Every decoder-only pattern is ported (SWA, the Mamba/attention
-    hybrid, MoE); encoder-decoder and VLM configs still raise."""
-    for arch in ("h2o-danube-1.8b", "jamba-v0.1-52b", "qwen3-moe-30b-a3b"):
-        LM(get_smoke_config(arch), device="cpu")
-    for arch in ("whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            LM(get_smoke_config(arch), device="cpu")
+    """Every config builds through ``build_model``: the decoder-only
+    patterns (SWA, the Mamba/attention hybrid, MoE, the VLM) as ``LM``,
+    whisper as ``EncDecLM``; ``LM`` itself refuses an encoder-decoder
+    config and names ``build_model``."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.encdec import build_model as port_build_model
+    for arch in ARCH_IDS:
+        model = port_build_model(get_smoke_config(arch), device="cpu")
+        assert isinstance(model, EncDecLM) == (arch == "whisper-tiny")
+    with pytest.raises(ValueError, match="build_model"):
+        LM(get_smoke_config("whisper-tiny"), device="cpu")
 
 
 def test_mamba_layers_keep_the_reference_entries():

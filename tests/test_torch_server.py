@@ -10,7 +10,11 @@ the images cross the packages for the jamba hybrid too.  The sliding-window
 server (h2o-danube, window 16) agrees with the JAX server while max_seq
 stays within the window; past it, where the JAX server pads the ring to
 max_seq and loses the window, the port's greedy tokens follow its own
-windowed forward.
+windowed forward.  The encoder-decoder (whisper: frames, a self and a
+cross cache) and the VLM (qwen2-vl: vision embeddings over the first
+tokens, the positions of a 4 x 4 image) resume warm and cold and cross
+the packages too, their images naming the same entries
+(``serve_state/cache/{self_k,self_v,cross_k,cross_v}`` for whisper).
 """
 import jax
 import jax.numpy as jnp
@@ -25,12 +29,15 @@ from repro.sharding import get_policy
 from repro_torch.api import CheckpointOptions, OptionsError
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.layers import image_positions
 from repro_torch.runtime.server import DecodeServer
 
 ARCH = "qwen1.5-0.5b"
 ARCHS = ["qwen1.5-0.5b", "mamba2-2.7b"]
+# the encoder-decoder and the VLM: a second input path into prefill
+MM_ARCHS = ["whisper-tiny", "qwen2-vl-7b"]
 # across the packages also the hybrid: K/V beside SSM states, MoE FFNs
-CROSS_ARCHS = ARCHS + ["jamba-v0.1-52b"]
+CROSS_ARCHS = ARCHS + ["jamba-v0.1-52b"] + MM_ARCHS
 SWA_ARCH = "h2o-danube-1.8b"
 POLICY = get_policy("baseline")
 MAX_SEQ = 64
@@ -47,8 +54,17 @@ def _np_params(seed=0, arch=ARCH):
 
 
 def _prompt(B=2, S=12, arch=ARCH):
+    """The reference pipeline's batch (whisper's with frames); a VLM's
+    prompt holds a 4 x 4 image (its 16 vision embeddings) and 4 text
+    tokens, with the image's positions."""
     from repro.data import TokenPipeline
-    return TokenPipeline(jax_smoke_config(arch), B, S, seed=9).next()
+    cfg = jax_smoke_config(arch)
+    if cfg.vision_stub:
+        S = max(S, cfg.num_patches + 4)
+    batch = TokenPipeline(cfg, B, S, seed=9).next()
+    if cfg.vision_stub:
+        batch["positions"] = image_positions(B, S, (4, 4)).numpy()
+    return batch
 
 
 def _server(run_dir, params=None, mode="sync", arch=ARCH, max_seq=MAX_SEQ):
@@ -71,7 +87,7 @@ def _jax_server(run_dir, mesh, params=None, arch=ARCH, max_seq=MAX_SEQ):
     return srv
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MM_ARCHS)
 @pytest.mark.parametrize("mode", ["sync", "async"])
 @pytest.mark.parametrize("boot", ["warm", "cold"])
 def test_snapshot_mid_generation_token_exact(boot, mode, arch, tmp_path):
@@ -256,3 +272,27 @@ def test_server_without_device_needs_cuda(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DecodeServer(get_smoke_config(ARCH), str(tmp_path / "s"))
+
+
+def test_encdec_image_names_self_and_cross_caches(tmp_path):
+    """A whisper server image read by the reference's store: the cache
+    entries are the reference's names, the cross cache at the encoder's
+    frame count."""
+    from repro.core.snapshot_io import SnapshotStore as JaxStore
+    arch = "whisper-tiny"
+    run = str(tmp_path / "srv")
+    ts = _server(run, _np_params(arch=arch), arch=arch)
+    ts.start(_prompt(arch=arch))
+    ts.checkpoint(0)
+    reader = JaxStore(run).reader(0)
+    try:
+        shapes = {key: tuple(reader.load_entry("serve_state", key)["shape"])
+                  for key in reader.entry_names("serve_state")
+                  if key.startswith("cache/")}
+    finally:
+        reader.close()
+    cfg = jax_smoke_config(arch)
+    kv = (cfg.num_layers, 2, MAX_SEQ, cfg.num_kv_heads, cfg.head_dim)
+    cross = kv[:2] + (cfg.num_audio_frames,) + kv[3:]
+    assert shapes == {"cache/self_k": kv, "cache/self_v": kv,
+                      "cache/cross_k": cross, "cache/cross_v": cross}

@@ -267,16 +267,16 @@ PARITY_TCFG = dict(batch_size=2, seq_len=32, total_steps=16, lr=3e-3,
                    warmup_steps=4, remat=False)
 
 
-def _jax_trainer(run_dir, mesh, **kw):
+def _jax_trainer(run_dir, mesh, arch=ARCH, **kw):
     tcfg = JaxTrainConfig(compute_dtype=jnp.float32,
                           **dict(PARITY_TCFG, **kw))
-    return JaxTrainer(jax_smoke_config(ARCH), tcfg, mesh, POLICY, run_dir)
+    return JaxTrainer(jax_smoke_config(arch), tcfg, mesh, POLICY, run_dir)
 
 
-def _port_trainer(run_dir, **kw):
+def _port_trainer(run_dir, arch=ARCH, **kw):
     tcfg = TrainConfig(compute_dtype=torch.float32,
                        **dict(PARITY_TCFG, **kw))
-    return make_trainer(run_dir, tcfg=tcfg)
+    return make_trainer(run_dir, arch, tcfg=tcfg)
 
 
 def _np_state(jt, seed=0):
@@ -313,6 +313,22 @@ def test_trainer_losses_match_jax(tmp_path, mesh1):
                                jt.metrics_history["loss"],
                                rtol=PARITY_RTOL)
     assert int(tt.opt_state.step) == int(jt.opt_state.step) == 9
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
+def test_multimodal_trainer_losses_match_jax(arch, tmp_path, mesh1):
+    """The encoder-decoder (frames) and the VLM (vision embeddings, the
+    loss masked under them): 4 steps of both packages' trainers from the
+    same params and AdamW state."""
+    jt = _jax_trainer(str(tmp_path / "jax"), mesh1, arch)
+    tt = _port_trainer(str(tmp_path / "port"), arch)
+    _load(jt, tt, *_np_state(jt))
+    jt.run(4)
+    tt.run(4)
+    np.testing.assert_allclose(tt.metrics_history["loss"],
+                               jt.metrics_history["loss"],
+                               rtol=PARITY_RTOL)
+    assert int(tt.opt_state.step) == int(jt.opt_state.step) == 7
 
 
 def _image_entries(run, step):

@@ -10,7 +10,8 @@ tests/test_models_smoke.py:76-113 does (2e-4, at the smoke configs'
 no-drop capacity), and against the JAX prefill and decode; a decode chain
 that wraps an SWA ring; the port of test_swa_vs_full_attention_differs;
 and the ``use_kernels`` path against the plain path for every
-architecture the port takes.
+architecture (whisper and qwen2-vl with their frames and vision
+embeddings).
 """
 import dataclasses
 
@@ -27,13 +28,12 @@ from repro.sharding import get_policy
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.device_plugin import flatten_with_paths
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.encdec import build_model as port_build_model
 from repro_torch.models.lm import LM
 from repro_torch.runtime.trainer import loss_and_grads
 
 ZOO = ["h2o-danube-1.8b", "jamba-v0.1-52b", "qwen3-moe-30b-a3b",
        "qwen3-moe-235b-a22b"]
-UNPORTED = ("whisper-tiny", "qwen2-vl-7b")
-PORTED = [a for a in ARCH_IDS if a not in UNPORTED]
 POLICY = get_policy("baseline")
 TOL = dict(rtol=1e-3, atol=1e-3)
 
@@ -239,15 +239,20 @@ def test_swa_vs_full_attention_differs():
     assert (l_swa[:, -1] - l_full[:, -1]).abs().max() > 1e-6
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_use_kernels_path_matches_plain_path(arch):
     """The kernel path (on the CPU: the kernels' plain versions) equals
-    the plain path end to end (tests/test_models_smoke.py:207-221)."""
+    the plain path end to end (tests/test_models_smoke.py:207-221), on
+    the reference pipeline's whole batch (whisper's frames, qwen2-vl's
+    vision embeddings)."""
     cfg = get_smoke_config(arch)
-    m0, m1 = (LM(cfg, compute_dtype=torch.float32, remat=False,
-                 use_kernels=k, device="cpu") for k in (False, True))
+    m0, m1 = (port_build_model(cfg, compute_dtype=torch.float32,
+                               remat=False, use_kernels=k, device="cpu")
+              for k in (False, True))
     params = m0.init(0)
-    batch = {"tokens": torch.as_tensor(_tokens(arch)).long()}
+    batch = {k: torch.as_tensor(v) for k, v in JaxPipeline(
+        jax_smoke_config(arch), 2, 32, seed=1).next().items()}
+    batch["tokens"] = batch["tokens"].long()
     with torch.no_grad():
         l0, l1 = m0.forward(params, batch), m1.forward(params, batch)
     V = cfg.vocab_size

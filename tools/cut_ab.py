@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""What a depth cut of one ``chip_smoke.py`` serving path would save, timed
+in turns on one card.
+
+    python3 tools/cut_ab.py --path ARCH --layers N [--seed S]   # one GPU
+
+Serves the path alone, as the whole script serves it
+(``chip_smoke.py --path ARCH``, a process of its own: prefill, decode,
+images, cold restores, the logit check and the profile), at N layers and
+at the path's own depth, in the order cut, own, own, cut, so a drift of
+the host over the four runs falls on both depths alike.  Each run's time
+is the process's wall time, from its start to its exit.  The kernels are
+built once before the first run.  Prints one line per run and a JSON
+summary (the four times and the saving: the mean time at the path's own
+depth minus the mean time at N layers) with the card's name and power
+limit, and fails if a run fails.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+
+
+def run(arch: str, seed: int, layers) -> float:
+    """Wall seconds of one ``chip_smoke.py --path`` process."""
+    with tempfile.TemporaryDirectory(prefix="cut_ab_") as workdir:
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+               str(seed), "--path", arch, "--out",
+               str(Path(workdir) / "launches.json")]
+        if layers is not None:
+            cmd += ["--layers", str(layers)]
+        t0 = time.perf_counter()
+        rc = subprocess.run(cmd, timeout=900).returncode
+        wall = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"{arch} at {layers or 'its own'} layers failed "
+                         f"(exit {rc})")
+    return wall
+
+
+def main() -> int:
+    paths = [p[0] for p in chip_smoke.SERVE_PATHS + chip_smoke.ZOO_PATHS
+             + chip_smoke.MM_PATHS]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", required=True, choices=paths)
+    ap.add_argument("--layers", type=int, required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("cut_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    build.build_all()
+    times = {"cut": [], "own": []}
+    for cut in (True, False, False, True):
+        wall = run(args.path, args.seed, args.layers if cut else None)
+        times["cut" if cut else "own"].append(wall)
+        print(f"[cut_ab] {args.path} at "
+              f"{args.layers if cut else 'its own'} layers: {wall:.1f} s",
+              flush=True)
+    print(json.dumps(dict(path=args.path, layers=args.layers,
+                          cut_s=times["cut"], own_s=times["own"],
+                          saving_s=(sum(times["own"])
+                                    - sum(times["cut"])) / 2)))
+    print(chip_smoke.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
