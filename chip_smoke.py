@@ -55,10 +55,10 @@ decode steps are profiled.
 
 Phase 2b serves the decoder zoo at its published widths, bf16 compute,
 kernels on, each path with one sync image mid-decode that a fresh server
-cold-restores and must continue token-exact: h2o-danube-1.8b at all 24
-layers over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
+cold-restores and must continue token-exact: h2o-danube-1.8b at 12 of
+its 24 layers (cut for the run's time budget) over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
 window binds in prefill, the SWA ring of 4096 wraps in decode),
-qwen3-moe-30b-a3b at 12 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
+qwen3-moe-30b-a3b at 6 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
 experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
 jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
 in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
@@ -77,7 +77,8 @@ phase 2b: whisper-tiny uncut over f32 masters (B 16 x 1500 frames, the
 4-token start-of-transcript prompt, max_seq 448, 96 tokens: a sync image
 at token 48, an incremental image 24 tokens later that must write the
 self cache alone, every param and cross_k / cross_v entry staying in the
-first image) and qwen2-vl-7b at all 28 layers in bf16 (B 2 x
+first image) and qwen2-vl-7b at 7 of its 28 layers (cut for the
+run's time budget) in bf16 (B 2 x
 1280: one 32 x 32 image of 1024 vision embeddings with its M-RoPE
 positions, then 256 text tokens; max_seq 1344, 32 tokens, one sync
 image).  A fresh
@@ -175,6 +176,26 @@ restore times, TTFTs and bytes are printed as ``[orch]`` lines.  The
 launch counters are zeroed just before each part's own run (the
 scenario, the logged training run, the fleet) and read just after it,
 before the reference runs, replays and timed turns that check it.
+Phase 7 drives the chaos campaigns, the observability plane and the CLI
+(``repro_torch.chaos``, ``repro_torch.obs``, ``repro_torch.cli``) in a
+child process (alone: ``--chaos``), calling ``repro_torch.cli.main`` in
+that process: (a) ``chaos-campaign RUN --jobs 100 --hosts 20 --seed 0
+--faults all=1 --capture sweep`` on the card (each sim job's state 2048
+float64 on it): exit 0, the invariant held in both modes, every planned
+fault injected (11 classes sync, 12 concurrent), each ``dirty_burst`` a
+flipped byte of a CUDA tensor whose dump re-captured it, every recovered
+job's digest its unfaulted replay on the card; (b) the sync campaign on
+the CPU must give the card's rows and per-job outcomes; (c) seed 21
+twice gives one fingerprint on the card, seed 22 another; (d) ``trace
+--chrome``, ``events --class fault`` (one row per injection),
+``metrics --json`` (``chaos.injections`` the injected count) and
+``validate_journal`` on (a)'s sync journal; (e) ``inspect`` and
+``verify`` exit 0 on a job image of (a), ``verify`` exits 1 once a pack
+is torn, ``check --device cuda`` exits 0, and a frozen capture on the
+card carries the leftover-device-bytes warning.  The sim runs no kernel:
+the counters stay at 0 over (a).  ``[chaos]`` and ``[cli]`` lines carry
+each mode's wall_s, ticks and per-class injected / recovered / healed /
+quarantined / MTTR.
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
 power limit; the ``[time]`` marks count from the process's start, as a
@@ -1179,16 +1200,18 @@ def profile_serving(model, params, batch, dev,
 # layer)).  Depth and param dtype are cut only where
 # the card's memory or the run's time forces it: qwen3-moe-30b-a3b's 48
 # layers are 61 GB of bf16 params (their image too slow to write for this
-# run), so 12 of them; jamba-v0.1-52b's 32 layers are 105 GB, so one whole
-# period of 8 (7 Mamba, 1 attention, 4 MoE, 4 dense MLP).  h2o-danube's
-# prompt of 4608 puts the window (4096) inside the prefill and wraps the
-# ring in decode.  As for mamba2, the logit check keeps 4 layers where
+# run), so 6 of them (12 until phase 7 came in: tools/cut_ab.py, the cut
+# to 6 saves 17.2 s); jamba-v0.1-52b's 32 layers are 105 GB, so one whole
+# period of 8 (7 Mamba, 1 attention, 4 MoE, 4 dense MLP; its depth must be
+# a multiple of 8).  h2o-danube at 12 of its 24 layers, cut for the run's
+# time (tools/cut_ab.py: -15.7 s); its prompt of 4608 puts the window
+# (4096) inside the prefill and wraps the ring in decode.  As for mamba2, the logit check keeps 4 layers where
 # many random layers carry both bf16 paths O(1) logits away from f32, so
 # that a wrong kernel would not show; jamba keeps its one period of 8.
 ZOO_PATHS = (
-    ("h2o-danube-1.8b", None, "float32", 2, 4608, 4672, 48,
+    ("h2o-danube-1.8b", 12, "float32", 2, 4608, 4672, 48,
      ("flash_attention", "rmsnorm"), 4),
-    ("qwen3-moe-30b-a3b", 12, "bfloat16", 4, 512, 576, 32,
+    ("qwen3-moe-30b-a3b", 6, "bfloat16", 4, 512, 576, 32,
      ("flash_attention", "rmsnorm"), 4),
     ("jamba-v0.1-52b", 8, "bfloat16", 2, 1024, 1088, 32,
      ("flash_attention", "rmsnorm", "ssd_scan"), None),
@@ -1345,11 +1368,13 @@ def phase_zoo(path, seed: int, workdir: str, card: str,
 # quarter later.  qwen2-vl-7b in bf16 (f32 masters would be 30.5 GB, an
 # image too slow to write in the run, as for qwen3-moe): 2 prompts of one
 # 32 x 32 image (the config's 1024 vision embeddings) and 256 text tokens;
-# its logit check at 4 layers, as for the zoo.  Both uncut.
+# its logit check at 4 layers, as for the zoo.  whisper uncut; qwen2-vl
+# at 7 of its 28 layers, cut for the run's time budget when phase 7 came
+# in (tools/cut_ab.py: 28 -> 14 saves 30.9 s, 14 -> 7 10.6 s).
 MM_PATHS = (
     ("whisper-tiny", None, "float32", 16, 4, 448, 96,
      ("flash_attention", "rmsnorm"), None),
-    ("qwen2-vl-7b", None, "bfloat16", 2, 1280, 1344, 32,
+    ("qwen2-vl-7b", 7, "bfloat16", 2, 1280, 1344, 32,
      ("flash_attention", "rmsnorm"), 4),
 )
 
@@ -2843,6 +2868,265 @@ def run_orchestration(seed: int) -> dict:
     return {k: tuple(v) for k, v in res.items()}
 
 
+# ----------------------------------------------------------------- phase 7
+# the README's campaign: 100 sim jobs over 20 simulated hosts, seed 0, one
+# event of every fault class (the reference's orchestrator config)
+CHAOS_FLEET = ["--jobs", "100", "--hosts", "20", "--seed", "0",
+               "--faults", "all=1"]
+CHAOS_JOBS = 100
+CHAOS_CLASSES = {"sync": 11, "concurrent": 12}    # dirty_burst: concurrent
+# tests/test_chaos.py's reproduction campaign: seed 21 twice, then 22
+CHAOS_REPRO = dict(jobs=5, hosts=2,
+                   faults="commit_kill=1,signal_dup=1,host_kill=1")
+CHAOS_ROW = ("planned", "targets", "injected", "recovered", "healed",
+             "quarantined")
+
+
+def _cli(*argv) -> tuple:
+    """``repro_torch.cli.main(argv)`` in this process (a ``python -m``
+    process would pay torch's import again): its exit code and what it
+    printed on stdout."""
+    import io
+    from repro_torch.cli import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(list(argv))
+    return rc, buf.getvalue()
+
+
+def _check_cli(what: str, rc: int, want: int = 0) -> None:
+    if rc != want:
+        raise SystemExit(f"phase 7: {what} exited {rc}, not {want}")
+
+
+def _fingerprint(out: str) -> str:
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("fingerprint:")]
+    return line.split()[1]
+
+
+def _stable_rows(rows: dict) -> dict:
+    return {c: {k: r[k] for k in CHAOS_ROW} for c, r in rows.items()}
+
+
+def chaos_sweep(run: str, card: str) -> dict:
+    """(a): the README's campaign on the card through the CLI, both
+    capture modes; every planned fault injected, the invariant held,
+    every dirty_burst a flipped byte of a CUDA tensor that the validate
+    pause re-captured, every recovered job's digest its unfaulted replay
+    on the card.  Returns the report."""
+    import glob
+    from repro_torch.chaos.campaign import make_specs
+    from repro_torch.chaos.sim import reference_digest
+    from repro_torch.obs import export
+    t0 = time.perf_counter()
+    rc, out = _cli("chaos-campaign", run, *CHAOS_FLEET, "--capture", "sweep",
+                   "--json", run + ".metrics.json",
+                   "--report", run + ".report.json")
+    wall = time.perf_counter() - t0
+    _check_cli("chaos-campaign --capture sweep", rc)
+    with open(run + ".report.json") as f:
+        rep = json.load(f)
+    for mode, n_classes in CHAOS_CLASSES.items():
+        r = rep[mode]
+        rows = r["rows"]
+        injected = sum(row["injected"] for row in rows.values())
+        planned = sum(row["planned"] for row in rows.values())
+        if not r["ok"] or len(rows) != n_classes or injected != planned:
+            raise SystemExit(f"phase 7 (a) {mode}: ok {r['ok']}, "
+                             f"{len(rows)} classes, {injected}/{planned} "
+                             f"injected; violations {r['violations'][:3]}")
+        log(f"[chaos] (a) {mode}: {CHAOS_JOBS} jobs x 20 hosts, wall_s "
+            f"{r['wall_s']:.3f}, {r['ticks']} ticks, {injected}/{planned} "
+            f"faults injected over {n_classes} classes, invariant held; "
+            f"{card}")
+        for cls, row in sorted(rows.items()):
+            mttr = "-" if row["mttr_s"] is None else f"{row['mttr_s']:.4f}"
+            log(f"[chaos]   {mode} {cls}: injected {row['injected']}/"
+                f"{row['planned']}, recovered {row['recovered']}, healed "
+                f"{row['healed']}, quarantined {row['quarantined']}, "
+                f"MTTR {mttr} s")
+    if "dirty_burst" not in rep["concurrent"]["rows"]:
+        raise SystemExit("phase 7 (a): the concurrent campaign planned no "
+                         "dirty_burst")
+    conc = os.path.join(run, "concurrent")
+    bursts = [e for e in export.load_journal(conc)
+              if e.get("cls") == "fault" and e.get("kind") == "dirty_burst"]
+    if len(bursts) != rep["concurrent"]["rows"]["dirty_burst"]["injected"]:
+        raise SystemExit(f"phase 7 (a): {len(bursts)} dirty_burst records "
+                         f"in the journal")
+    for b in bursts:
+        found = glob.glob(os.path.join(
+            conc, "**", f"job_{b['job']}", "snapshots",
+            f"step_{b['step']:08d}", "MANIFEST.json"), recursive=True)
+        if not str(b.get("device", "")).startswith("cuda") or not found:
+            raise SystemExit(f"phase 7 (a): dirty_burst {b} did not flip a "
+                             f"CUDA tensor of a committed image")
+        with open(found[0]) as f:
+            cs = json.load(f)["capture_stats"]
+        if cs["recaptured_entries"] < 1:
+            raise SystemExit(f"phase 7 (a): dirty_burst {b['key']} of "
+                             f"{b['job']} was not re-captured: {cs}")
+        log(f"[chaos] (a) dirty_burst on {b['job']} step {b['step']}: "
+            f"{b['key']} on {b['device']}; dirty {cs['dirty_entries']}, "
+            f"re-captured {cs['recaptured_entries']} entries "
+            f"({cs['recaptured_bytes']:.0f} B), validate pause "
+            f"{cs['validate_pause_s'] * 1e3:.2f} ms")
+    refs = {s.job_id: reference_digest(s, "cuda")
+            for s in make_specs(CHAOS_JOBS)}
+    n_rec = 0
+    for mode in CHAOS_CLASSES:
+        for job, outcome in rep[mode]["outcomes"].items():
+            if outcome == "recovered":
+                n_rec += 1
+                if rep[mode]["digests"][job] != refs[job]:
+                    raise SystemExit(f"phase 7 (a) {mode}: {job}'s digest "
+                                     f"is not its replay on the card")
+    log(f"[chaos] (a) sweep through the CLI {wall:.2f} s (journal on); "
+        f"{n_rec} recovered jobs' digests equal their unfaulted replays on "
+        f"the card; fingerprint {_fingerprint(out)[:16]}; {card}")
+    return rep
+
+
+def phase_chaos(workdir: str, card: str) -> dict:
+    """Phase 7: chaos campaigns, the observability plane and the CLI,
+    driven in-process through ``repro_torch.cli.main``.  (a) the
+    README's sweep on the card; (b) the sync campaign on the CPU, whose
+    rows and outcomes must be the card's; (c) same seed, same
+    fingerprint on the card, another seed another; (d) ``trace``,
+    ``events``, ``metrics`` and ``validate_journal`` on (a)'s sync
+    journal; (e) ``inspect``, ``verify`` (then a torn pack: exit 1) on a
+    job image of (a), ``check --device cuda``, and the leftover-bytes
+    warning of a frozen capture on the card.  The sim launches no
+    kernel: the counters, zeroed just before (a) and read just after,
+    must stay at 0.  The campaigns' seeds are the reference's (0, 21,
+    22), not ``--seed``.  Returns {path: (launches, variants)}."""
+    import torch
+    from repro_torch.chaos.campaign import run_campaign
+    from repro_torch.obs import export
+    t_phase = time.perf_counter()
+    run = os.path.join(workdir, "fleet")
+    _zero_counters()
+    rep = chaos_sweep(run, card)
+    launches = {name: mod.launches for name, mod in _counters().items()}
+    variants = _variants()
+    if any(launches.values()):
+        raise SystemExit(f"phase 7: the campaign launched kernels: "
+                         f"{launches}")
+
+    journals = [os.path.join(run, m) for m in CHAOS_CLASSES]
+    n_events = sum(len(export.load_journal(j)) for j in journals)
+    n_bytes = sum(os.path.getsize(os.path.join(j, "obs", "journal.jsonl"))
+                  for j in journals)
+    log(f"[chaos] (a) the journals: {n_events} events, {n_bytes} B "
+        f"(tools/chaos_trace_ab.py times the sweep without them); {card}")
+
+    t0 = time.perf_counter()
+    cpu = run_campaign(os.path.join(workdir, "cpu"), jobs=CHAOS_JOBS,
+                       hosts=20, seed=0, faults="all=1", capture="sync",
+                       device="cpu")
+    card_sync = rep["sync"]
+    if not cpu.ok or _stable_rows(cpu.rows) != \
+            _stable_rows(card_sync["rows"]) or \
+            cpu.outcomes != card_sync["outcomes"]:
+        raise SystemExit("phase 7 (b): the CPU campaign's rows or outcomes "
+                         "differ from the card's")
+    same = sum(cpu.digests[j] == card_sync["digests"][j]
+               for j in cpu.digests)
+    log(f"[chaos] (b) the sync campaign on the CPU: wall_s "
+        f"{cpu.wall_s:.3f} ({time.perf_counter() - t0:.2f} s in all), "
+        f"{cpu.ticks} ticks; rows and per-job outcomes equal to the card's; "
+        f"{same}/{CHAOS_JOBS} final digests bit-equal across the two "
+        f"devices (the card's sin rounds its own way); {card}")
+    shutil.rmtree(os.path.join(workdir, "cpu"))
+
+    fps = []
+    for name, s in (("a", 21), ("b", 21), ("c", 22)):
+        r = run_campaign(os.path.join(workdir, f"repro_{name}"), seed=s,
+                         device="cuda", **CHAOS_REPRO)
+        if not r.ok:
+            raise SystemExit(f"phase 7 (c): seed {s}: {r.violations}")
+        fps.append(r.fingerprint())
+    if fps[0] != fps[1] or fps[2] == fps[0]:
+        raise SystemExit(f"phase 7 (c): fingerprints {fps}")
+    log(f"[chaos] (c) seed 21 twice on the card: {fps[0][:16]} both; seed "
+        f"22: {fps[2][:16]}; {card}")
+
+    sync_run = os.path.join(run, "sync")
+    rc, text = _cli("trace", sync_run, "--chrome")
+    _check_cli("trace --chrome", rc)
+    with open(os.path.join(sync_run, "obs", "trace.json")) as f:
+        chrome = json.load(f)
+    injected = sum(r["injected"] for r in card_sync["rows"].values())
+    rc, text = _cli("events", sync_run, "--class", "fault", "--json")
+    _check_cli("events --class fault", rc)
+    rows = [json.loads(ln) for ln in text.splitlines()]
+    rc, text = _cli("metrics", sync_run, "--json")
+    _check_cli("metrics --json", rc)
+    flat = json.loads(text)
+    problems = export.validate_journal(export.load_journal(sync_run))
+    if (len(rows) != injected or flat["obs.counter.chaos.injections"]
+            != injected or problems or not chrome["traceEvents"]):
+        raise SystemExit(f"phase 7 (d): {len(rows)} fault rows, counter "
+                         f"{flat.get('obs.counter.chaos.injections')}, "
+                         f"{injected} injected; problems {problems[:3]}")
+    log(f"[cli] (d) trace --chrome: {len(chrome['traceEvents'])} trace "
+        f"events; events --class fault: {len(rows)} rows; metrics: "
+        f"chaos.injections {flat['obs.counter.chaos.injections']:.0f} of "
+        f"{injected} injected, {len(flat)} metrics; validate_journal: no "
+        f"problems; {card}")
+
+    job = sorted(j for j, o in card_sync["outcomes"].items()
+                 if o == "recovered")[0]
+    image = next(d for d in sorted(Path(sync_run).glob(f"host*/job_{job}"))
+                 if (d / "snapshots").is_dir())
+    rc, _ = _cli("inspect", str(image))
+    _check_cli("inspect", rc)
+    rc, _ = _cli("verify", str(image))
+    _check_cli("verify", rc)
+    newest = sorted((image / "snapshots").glob("step_*"))[-1]
+    with open(newest / "host0000.pack.0", "r+b") as f:
+        f.seek(40)
+        f.write(b"\xde\xad\xbe\xef" * 4)
+    rc, text = _cli("verify", str(image))
+    _check_cli("verify of a torn pack", rc, want=1)
+    rc, text_check = _cli("check", "--device", "cuda")
+    _check_cli("check --device cuda", rc)
+    probe = [ln.strip() for ln in text_check.splitlines()
+             if "device probe" in ln]
+    from repro_torch.api import CheckpointSession
+    state = {"w": torch.ones(1024, device="cuda")}
+    scratch = torch.empty(1 << 20, device="cuda")      # outside the roots
+    sess = CheckpointSession(os.path.join(workdir, "frozen"), device="cuda")
+    sess.attach(lambda: {"st": state})
+    with sess.frozen(1) as snap:
+        warned = [w for w in snap.warnings if "outside the registered" in w]
+        if snap.step != 1 or not warned:
+            raise SystemExit(f"phase 7 (e): frozen step {snap.step}, "
+                             f"warnings {snap.warnings}")
+    del scratch
+    corrupt = [ln for ln in text.splitlines() if "CORRUPT" in ln][0]
+    log(f"[cli] (e) {image.relative_to(run)}: inspect 0, verify 0, verify "
+        f"after 16 bytes torn in {newest.name}/host0000.pack.0: 1 "
+        f"({corrupt.split(' — ')[0]}); "
+        f"check --device cuda 0 ({probe[0] if probe else ''}); a frozen "
+        f"capture's warnings carry the leftover device bytes; {card}")
+    log(f"[chaos] phase 7 wall {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"chaos campaigns (sim, no kernel)": (launches, variants)}
+
+
+def chaos() -> dict:
+    """Phase 7; its path's launches (none)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        return phase_chaos(workdir, card_line())
+
+
+def run_chaos() -> dict:
+    """`phase_chaos` in a child process, as phase 6 runs; its path's
+    launches."""
+    res = run_child("phase 7", chaos)
+    return {k: tuple(v) for k, v in res.items()}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3028,7 +3312,9 @@ def main() -> int:
                     "this many layers (tools/cut_ab.py times a depth cut)")
     ap.add_argument("--orch", action="store_true", help="run phase 6 "
                     "only and write its paths' launches to --out")
-    ap.add_argument("--out", help="with --path or --orch: the "
+    ap.add_argument("--chaos", action="store_true", help="run phase 7 "
+                    "only and write its path's launches to --out")
+    ap.add_argument("--out", help="with --path, --orch or --chaos: the "
                     "launches' JSON")
     args = ap.parse_args()
 
@@ -3046,9 +3332,10 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     torch_settings()
-    if args.path or args.orch:
+    if args.path or args.orch or args.chaos:
         res = (serve_one(args.path, args.seed, args.layers) if args.path
-               else orchestrate(args.seed))
+               else orchestrate(args.seed) if args.orch
+               else chaos())
         with open(args.out, "w") as f:
             json.dump(res, f)
         return 0
@@ -3101,6 +3388,8 @@ def main() -> int:
         mark("phase 5")
         by_path.update(run_orchestration(args.seed))
         mark("phase 6")
+        by_path.update(run_chaos())
+        mark("phase 7")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
             f"process started (what the run's time limit and its 960 s "
             f"budget apply to), {time.perf_counter() - t_start:.1f} s from "

@@ -59,7 +59,7 @@ def capabilities() -> Dict[str, Any]:
             "concurrent_capture": True,   # capture="concurrent"
             "delta_transfer": True,       # CAS have/want cross-host ship
             "content_addressed_store": True,  # repro_torch.transfer
-            "migration": False,           # the orchestrator is not ported
+            "migration": True,            # orchestrator migrate scenario
         },
         "transfer_modes": ["copy", "delta"],
         "restore_modes": ["eager", "lazy"],

@@ -2,15 +2,18 @@
 
 Port of the reference's ``api/options.py``: one frozen dataclass carrying
 every knob the engine understands, validated at construction, and the
-:class:`TransferPolicy` that says how snapshot bytes reach a peer.
-
-Not ported yet (they wait for the CLI): the deprecated
-``transfer=``/``transfer_workers=`` keyword spellings of the policy and the
-``REPRO_CKPT_*`` environment round trip (``from_env``/``to_env``).
+:class:`TransferPolicy` that says how snapshot bytes reach a peer.  Each
+field maps to one ``REPRO_CKPT_*`` environment variable
+(``from_env``/``to_env``, the `criu_set_*` <-> CRIU_* convention), so a
+scheduler configures a job without code.  The stringly
+``transfer=``/``transfer_workers=`` keywords (and their environment
+variables) still map into the policy, with a one-time DeprecationWarning.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Dict, Optional, Tuple
 
 _MODES = ("sync", "async")
@@ -18,9 +21,29 @@ _TRANSFERS = ("copy", "delta")
 _RESTORE_MODES = ("eager", "lazy")
 _CAPTURES = ("sync", "concurrent")
 
+# env-var names, one per field
+_ENV_PREFIX = "REPRO_CKPT_"
+
+# deprecation warnings fire once per process, keyed by what was deprecated
+_WARNED: set = set()
+
+
+def _warn_once(key: str, message: str) -> None:
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(message, DeprecationWarning, stacklevel=3)
+
 
 class OptionsError(ValueError):
     """An invalid CheckpointOptions combination."""
+
+
+def auto_io_threads() -> int:
+    """The io_threads=0 auto-sizing policy of every data-plane consumer
+    (engine, snapshot writer, CLI); defined beside the snapshot writer."""
+    from repro_torch.core.snapshot_io import auto_io_threads as policy
+    return policy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,9 +186,13 @@ class CheckpointOptions:
                      with no valid local image falls back to it, and a
                      lazy stream heals a torn chunk from it.  None
                      disables.
+    transfer         DEPRECATED: ``transfer_policy.mode``; after
+                     construction a mirror of it.
+    transfer_workers DEPRECATED: ``transfer_policy.workers``; a mirror.
     transfer_policy  a :class:`TransferPolicy` (copy / delta, workers,
                      pre-copy rounds and budgets); None = the default
-                     policy (copy, stop-and-copy).
+                     policy (copy, stop-and-copy), or what the legacy
+                     keywords map to.
     verify_restore   CRC-verify images before restoring from them.
     restore_mode     "eager" (the whole image is placed before restore()
                      returns) or "lazy" (resume-before-read: restore()
@@ -195,6 +222,8 @@ class CheckpointOptions:
     lock_timeout_s: float = 10.0
     restore_threads: int = 0
     replicate_to: Optional[str] = None
+    transfer: Optional[str] = None
+    transfer_workers: Optional[int] = None
     transfer_policy: Optional[TransferPolicy] = None
     verify_restore: bool = True
     restore_mode: str = "eager"
@@ -210,12 +239,49 @@ class CheckpointOptions:
             # frozen dataclass: normalize to a hashable tuple in place
             object.__setattr__(self, "critical_states",
                                tuple(self.critical_states))
-        if self.transfer_policy is None:
-            object.__setattr__(self, "transfer_policy", TransferPolicy())
-        elif not isinstance(self.transfer_policy, TransferPolicy):
-            raise OptionsError("transfer_policy must be a TransferPolicy or "
-                               f"None, got {self.transfer_policy!r}")
+        self._resolve_transfer_policy()
         self.validate()
+
+    def _resolve_transfer_policy(self) -> None:
+        """Fold the deprecated transfer/transfer_workers keywords into
+        transfer_policy, then mirror the policy back onto them so legacy
+        readers (and equality across the two spellings) keep working."""
+        policy = self.transfer_policy
+        if policy is None:
+            legacy = {}
+            if self.transfer is not None:
+                legacy["mode"] = self.transfer
+            if self.transfer_workers is not None:
+                legacy["workers"] = self.transfer_workers
+            if legacy:
+                _warn_once(
+                    "options.transfer-kwargs",
+                    "CheckpointOptions(transfer=..., transfer_workers=...) "
+                    "is deprecated; pass "
+                    "transfer_policy=TransferPolicy(mode=..., workers=...) "
+                    "instead")
+            policy = TransferPolicy(**legacy)
+        else:
+            if not isinstance(policy, TransferPolicy):
+                raise OptionsError(
+                    "transfer_policy must be a TransferPolicy or None, "
+                    f"got {policy!r}")
+            if self.transfer is not None and self.transfer != policy.mode:
+                raise OptionsError(
+                    f"conflicting transfer settings: legacy "
+                    f"transfer={self.transfer!r} vs "
+                    f"transfer_policy.mode={policy.mode!r} — drop the "
+                    f"legacy kwarg")
+            if self.transfer_workers is not None and \
+                    self.transfer_workers != policy.workers:
+                raise OptionsError(
+                    f"conflicting transfer settings: legacy "
+                    f"transfer_workers={self.transfer_workers!r} vs "
+                    f"transfer_policy.workers={policy.workers!r} — drop "
+                    f"the legacy kwarg")
+        object.__setattr__(self, "transfer_policy", policy)
+        object.__setattr__(self, "transfer", policy.mode)
+        object.__setattr__(self, "transfer_workers", policy.workers)
 
     def validate(self) -> None:
         if self.mode not in _MODES:
@@ -276,7 +342,117 @@ class CheckpointOptions:
                     "pause must observe the committed bytes")
 
     def replace(self, **changes) -> "CheckpointOptions":
+        if "transfer_policy" in changes:
+            # a new policy wins outright; drop the mirrored legacy fields
+            # so _resolve_transfer_policy doesn't see a stale conflict
+            changes.setdefault("transfer", None)
+            changes.setdefault("transfer_workers", None)
+        elif "transfer" in changes or "transfer_workers" in changes:
+            # legacy-field replace: fold into the current policy so the
+            # other policy knobs (precopy_rounds, budgets) survive
+            pol_changes = {}
+            if "transfer" in changes:
+                pol_changes["mode"] = changes["transfer"]
+            if "transfer_workers" in changes:
+                pol_changes["workers"] = changes["transfer_workers"]
+            changes["transfer_policy"] = \
+                self.transfer_policy.replace(**pol_changes)
         return dataclasses.replace(self, **changes)
+
+    def effective_io_threads(self) -> int:
+        """io_threads with 0 resolved against this host's CPU count."""
+        return self.io_threads or auto_io_threads()
+
+    # ------------------------------------------------------------ env i/o
+    @classmethod
+    def from_env(cls, env: Optional[Dict[str, str]] = None
+                 ) -> "CheckpointOptions":
+        """Build options from REPRO_CKPT_* variables (missing = default)."""
+        env = os.environ if env is None else env
+
+        def get(name, conv, default):
+            raw = env.get(_ENV_PREFIX + name)
+            if raw is None:
+                return default
+            return conv(raw)
+
+        def as_bool(raw: str) -> bool:
+            return raw.strip().lower() in ("1", "true", "yes", "on")
+
+        def as_specs(raw: str) -> Optional[Tuple[str, ...]]:
+            specs = tuple(s.strip() for s in raw.split(",") if s.strip())
+            return specs or None
+
+        # the structured policy var wins; the legacy vars still map (with
+        # a one-time DeprecationWarning) so old scheduler configs work
+        policy = get("TRANSFER_POLICY", TransferPolicy.from_spec, None)
+        legacy_mode = get("TRANSFER", str, None)
+        legacy_workers = get("TRANSFER_WORKERS", int, None)
+        if policy is not None:
+            legacy_mode = legacy_workers = None
+        elif legacy_mode is not None or legacy_workers is not None:
+            _warn_once(
+                "options.transfer-env",
+                f"{_ENV_PREFIX}TRANSFER / {_ENV_PREFIX}TRANSFER_WORKERS "
+                f"are deprecated; set {_ENV_PREFIX}TRANSFER_POLICY "
+                f"(e.g. 'mode=delta,workers=2') instead")
+            # fold into a policy here so the constructor's kwargs shim
+            # doesn't fire a *second* deprecation for the same env vars
+            legacy = {}
+            if legacy_mode is not None:
+                legacy["mode"] = legacy_mode
+            if legacy_workers is not None:
+                legacy["workers"] = legacy_workers
+            policy = TransferPolicy(**legacy)
+            legacy_mode = legacy_workers = None
+
+        return cls(
+            mode=get("MODE", str, cls.mode),
+            incremental=get("INCREMENTAL", as_bool, cls.incremental),
+            compress=get("COMPRESS", as_bool, cls.compress),
+            keep=get("KEEP", int, cls.keep),
+            lock_timeout_s=get("LOCK_TIMEOUT_S", float, cls.lock_timeout_s),
+            restore_threads=get("RESTORE_THREADS", int, cls.restore_threads),
+            replicate_to=get("REPLICATE_TO", str, cls.replicate_to),
+            transfer=legacy_mode,
+            transfer_workers=legacy_workers,
+            transfer_policy=policy,
+            verify_restore=get("VERIFY_RESTORE", as_bool, cls.verify_restore),
+            restore_mode=get("RESTORE_MODE", str, cls.restore_mode),
+            critical_states=get("CRITICAL_STATES", as_specs,
+                                cls.critical_states),
+            pack_format=get("PACK_FORMAT", int, cls.pack_format),
+            io_threads=get("IO_THREADS", int, cls.io_threads),
+            chunk_mb=get("CHUNK_MB", int, cls.chunk_mb),
+            stripes=get("STRIPES", int, cls.stripes),
+            capture=get("CAPTURE", str, cls.capture),
+        )
+
+    def to_env(self) -> Dict[str, str]:
+        """Inverse of from_env: CheckpointOptions.from_env(o.to_env()) == o."""
+        out = {
+            _ENV_PREFIX + "MODE": self.mode,
+            _ENV_PREFIX + "INCREMENTAL": "1" if self.incremental else "0",
+            _ENV_PREFIX + "COMPRESS": "1" if self.compress else "0",
+            _ENV_PREFIX + "KEEP": str(self.keep),
+            _ENV_PREFIX + "LOCK_TIMEOUT_S": repr(self.lock_timeout_s),
+            _ENV_PREFIX + "RESTORE_THREADS": str(self.restore_threads),
+            _ENV_PREFIX + "TRANSFER_POLICY": self.transfer_policy.to_spec(),
+            _ENV_PREFIX + "VERIFY_RESTORE": "1" if self.verify_restore
+            else "0",
+            _ENV_PREFIX + "RESTORE_MODE": self.restore_mode,
+            _ENV_PREFIX + "PACK_FORMAT": str(self.pack_format),
+            _ENV_PREFIX + "IO_THREADS": str(self.io_threads),
+            _ENV_PREFIX + "CHUNK_MB": str(self.chunk_mb),
+            _ENV_PREFIX + "STRIPES": str(self.stripes),
+            _ENV_PREFIX + "CAPTURE": self.capture,
+        }
+        if self.replicate_to is not None:
+            out[_ENV_PREFIX + "REPLICATE_TO"] = self.replicate_to
+        if self.critical_states is not None:
+            out[_ENV_PREFIX + "CRITICAL_STATES"] = ",".join(
+                self.critical_states)
+        return out
 
     def to_dict(self) -> Dict[str, object]:
         return dataclasses.asdict(self)

@@ -37,8 +37,18 @@ class FrozenCheckpoint:
         self.path: Optional[str] = None
 
     @property
+    def step(self) -> int:
+        return self._ctx.step
+
+    @property
     def stats(self) -> Dict[str, float]:
         return self._ctx.stats
+
+    @property
+    def warnings(self) -> List[str]:
+        """The capture's warnings (e.g. the device plugin's note of
+        device bytes left outside the captured tree)."""
+        return self._ctx.warnings
 
     def commit(self) -> str:
         """Phase ④: write + manifest-commit the capture, resume the job."""
@@ -78,6 +88,12 @@ class CheckpointSession:
         self._planner = planner
 
     # ------------------------------------------------------- constructors
+    @classmethod
+    def from_env(cls, run_dir: str, **kwargs) -> "CheckpointSession":
+        """Session configured from ``REPRO_CKPT_*`` environment variables
+        (:meth:`CheckpointOptions.from_env`)."""
+        return cls(run_dir, CheckpointOptions.from_env(), **kwargs)
+
     @classmethod
     def from_engine(cls, engine) -> "CheckpointSession":
         """Wrap an already-built SnapshotEngine."""
@@ -171,8 +187,11 @@ class CheckpointSession:
     @contextlib.contextmanager
     def frozen(self, step: int):
         """Freeze, yield the in-memory capture, commit (or abort) on exit.
-        An exception in the body aborts the dump and propagates; an
-        aborted dump feeds the planner no sample."""
+        The body runs with the job quiesced and the image captured in
+        host memory: inspect ``snap.step``, ``snap.stats`` and
+        ``snap.warnings``, decide to ``snap.abort()``, or ``snap.commit()``
+        early.  An exception in the body aborts the dump and propagates;
+        an aborted dump feeds the planner no sample."""
         snap = FrozenCheckpoint(self.engine, self.engine.freeze(step))
         try:
             yield snap

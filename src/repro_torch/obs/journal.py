@@ -34,7 +34,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 JOURNAL: Optional["RunJournal"] = None
 
@@ -47,7 +47,7 @@ class RunJournal:
     def __init__(self, run_dir: str,
                  clock: Callable[[], float] = time.perf_counter) -> None:
         self.run_dir = run_dir
-        self.path = os.path.join(run_dir, "obs", "journal.jsonl")
+        self.path = journal_path(run_dir)
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         self.clock = clock
         self.t0 = clock()
@@ -88,7 +88,7 @@ def emit(cls: str, kind: str, **fields: Any) -> None:
 
     Events emitted inside a ``trace.context(job=...)`` block inherit
     the job attribution unless the caller passed ``job=`` explicitly —
-    so ``repro events --job J`` lines journal events up with spans."""
+    so ``python -m repro_torch events --job J`` lines journal events up with spans."""
     j = JOURNAL
     if j is None:
         return
@@ -113,3 +113,23 @@ def install(jrn: RunJournal) -> None:
 def uninstall() -> None:
     global JOURNAL
     JOURNAL = None
+
+
+# --------------------------------------------------------------- reading
+def journal_path(run_dir: str) -> str:
+    return os.path.join(run_dir, "obs", "journal.jsonl")
+
+
+def read_events(run_dir: str) -> Iterator[Dict[str, Any]]:
+    """Yield journal events; a torn final line (crash mid-write) is
+    skipped rather than fatal."""
+    with open(journal_path(run_dir), encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                yield json.loads(line)
+            except json.JSONDecodeError:
+                # torn tail from a crashed writer: drop it
+                continue

@@ -8,7 +8,7 @@ unconditionally — disabled cost is one attribute load + ``None`` check.
 
 Histograms are summaries (count/sum/min/max), not bucketed: the journal
 stores one snapshot per plane lifetime and the consumers (bench tables,
-``repro metrics``) want totals and extremes, not percentiles.
+``python -m repro_torch metrics``) want totals and extremes, not percentiles.
 
 ``warn_once`` is the one piece that works without installation: it
 flags configuration holes (a replicator with no ``last_stats``) exactly
@@ -29,20 +29,41 @@ REGISTRY: Optional["MetricsRegistry"] = None
 METRIC_SCHEMA: Dict[str, tuple] = {
     "dump.count": ("counter", "dumps", "checkpoints committed"),
     "dump.bytes_written": ("counter", "bytes", "new pack bytes on disk"),
+    "dump.bytes_deduped": ("counter", "bytes",
+                           "chunk-grain dedup savings at commit"),
     "dump.frozen_s": ("histogram", "s", "stop-the-world frozen window"),
     "dump.pending_stall_s": ("histogram", "s",
                              "async writer join timeouts "
                              "(PendingWriteStalled)"),
     "pack.chunks": ("counter", "chunks", "chunks through the pipeline"),
+    "pack.queue_depth": ("gauge", "chunks",
+                         "compress-queue depth at last sample"),
     "restore.count": ("counter", "restores", "restores completed"),
+    "restore.critical_s": ("histogram", "s",
+                           "lock-held critical restore phase"),
+    "restore.heal_events": ("counter", "events",
+                            "corrupt entries healed during lazy "
+                            "materialization"),
     "replica.push_count": ("counter", "pushes",
                            "replication pushes attempted"),
     "replica.missing_stats": ("counter", "pushes",
                               "pushes whose replicator exposed no "
                               "last_stats (silent-loss guard)"),
     # replica.<k> mirrors every numeric counter a replicator reports in
-    # last_stats (bytes_sent, chunks_reused, ...): dynamic keys, one row
+    # last_stats (bytes_sent, chunks_reused, ...): dynamic keys, one
+    # schema row.
     "replica.*": ("counter", "mixed", "replicator last_stats mirror"),
+    "chaos.injections": ("counter", "events", "faults actually armed"),
+    "fleet.replicas_booted": ("counter", "replicas",
+                              "fleet boots attempted"),
+    "fleet.replicas_serving": ("gauge", "replicas",
+                               "replicas currently serving"),
+    "fleet.ttft_s": ("histogram", "s",
+                     "per-replica time-to-first-token"),
+    "fleet.restore_bytes": ("counter", "bytes",
+                            "delta bytes shipped booting replicas"),
+    "fleet.requests_served": ("counter", "requests",
+                              "requests completed by the fleet"),
 }
 
 

@@ -14,6 +14,11 @@ thread records that span as its parent, which is what makes the pack
 pipeline legible — each compress/append worker carries its own stack, and
 the exporter lays them out as Chrome trace rows keyed by thread name.
 
+``record()`` emits a retroactive span from explicit timestamps; the
+orchestrator's ``RecoveryLog`` uses it so every recovery phase
+(detect/transfer/schedule/restore/background/replay) appears in the
+trace as a first-class span instead of parallel bookkeeping.
+
 This module deliberately imports nothing else from ``repro_torch`` so every layer
 (serialization, transfer, orchestrator) can depend on it without cycles.
 """
@@ -27,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 TRACER: Optional["Tracer"] = None
 
 # span name -> (layer, description); the stable schema the docs table and
-# the exporter's class filter (`python -m repro events --class`) key off.  A span's
+# the exporter's class filter (`python -m repro_torch events --class`) key off.  A span's
 # event class is its name's first dotted component.
 SPAN_SCHEMA: Dict[str, tuple] = {
     "dump.pause": ("engine", "device quiesce: PAUSE_DEVICES hooks"),
@@ -35,8 +40,40 @@ SPAN_SCHEMA: Dict[str, tuple] = {
     "dump.ext_state": ("engine", "host-side external state dump"),
     "dump.write": ("engine", "serialize + commit to storage"),
     "dump.wait_pending": ("engine", "join of the async writer thread"),
+    "dump.speculate": ("engine", "concurrent capture: speculative pass"),
+    "dump.validate": ("engine", "concurrent capture: validate pause"),
+    "dump.patch": ("engine", "concurrent capture: dirty-entry recapture"),
     "dump.commit": ("engine", "manifest + meta commit"),
-    "restore.critical": ("engine", "restore(): scan, read, place, resume"),
+    "dump.replicate": ("engine", "post-commit replication push"),
+    "pack.compress": ("serialization", "one chunk through the codec "
+                                       "(detail mode only)"),
+    "pack.append": ("serialization", "one chunk appended to its stripe "
+                                     "(detail mode only)"),
+    "pack.flush": ("serialization", "pipeline drain barrier"),
+    "restore.critical": ("engine", "restore() critical path: scan, read, "
+                                   "place, resume"),
+    "restore.critical_place": ("engine", "critical-set entry placement "
+                                         "(inside restore.critical)"),
+    "restore.background": ("engine", "lazy background stream"),
+    "restore.entry": ("engine", "one background entry "
+                                "(detail mode only)"),
+    "transfer.push": ("transfer", "full delta-replication push"),
+    "transfer.round": ("transfer", "one pre-copy migration round "
+                                   "(live or frozen residual)"),
+    "transfer.negotiate": ("transfer", "CAS have/want round"),
+    "transfer.ship": ("transfer", "missing chunks over the wire"),
+    "transfer.materialize": ("transfer", "peer-side pack rebuild"),
+    "recovery.detect": ("orchestrator", "interrupt -> noticed"),
+    "recovery.transfer": ("orchestrator", "image pre-stage to new host"),
+    "recovery.schedule": ("orchestrator", "noticed -> capacity found"),
+    "recovery.restore": ("orchestrator", "restore start -> RUNNING"),
+    "recovery.restore_background": ("orchestrator",
+                                    "resume -> fully materialized"),
+    "recovery.replay": ("orchestrator", "restored step -> caught up"),
+    "fleet.boot": ("orchestrator", "image -> serving replica "
+                                   "(the TTFT window)"),
+    "fleet.serve": ("orchestrator", "bursty request trace against the "
+                                    "fleet (autoscale inside)"),
 }
 
 

@@ -46,6 +46,61 @@ def test_frozen_body_error_aborts_without_image(tmp_path):
     assert s.latest_step() == 4 and snap.path.endswith("step_00000004")
 
 
+def test_session_frozen_phases(tmp_path):
+    """Port of tests/test_api.py::test_session_frozen_phases."""
+    s = _session(str(tmp_path / "run"), {"w0": torch.arange(8.0)})
+    with s.frozen(1) as snap:
+        # ①–③ already ran: capture is in host memory, job quiesced
+        assert snap.step == 1
+        assert "frozen_s" in snap.stats
+        assert s.engine.device_plugin.lock.locked
+        assert s.store.list_steps() == []      # nothing committed yet
+        assert snap.warnings == []
+    # ④ ran on exit: image committed, lock released
+    assert s.store.list_steps() == [1]
+    assert not s.engine.device_plugin.lock.locked
+    assert snap.path is not None
+
+
+def test_frozen_warnings_are_the_captures_list(tmp_path):
+    """``snap.warnings`` is the capture context's list: what a plugin
+    appends while the job is frozen shows on the handle, as the
+    reference's ``FrozenCheckpoint.warnings`` does."""
+    from repro_torch.core.plugins import Plugin
+
+    class _Warns(Plugin):
+        name = "warns"
+
+        def pause_devices(self, ctx):
+            ctx.warnings.append(f"step {ctx.step}: probe")
+
+    s = _session(str(tmp_path / "run"), {"w": torch.ones(3)})
+    s.add_plugin(_Warns())
+    with s.frozen(2) as snap:
+        assert snap.step == 2
+        assert snap.warnings == ["step 2: probe"]
+    assert s.latest_step() == 2
+
+
+@pytest.mark.cuda
+def test_frozen_warnings_carry_the_leftover_device_bytes(tmp_path):
+    """On the card the device plugin warns of device memory outside the
+    registered roots; the warning reaches ``snap.warnings``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the leftover-bytes warning "
+                    "counts CUDA memory); run python3 chip_smoke.py on "
+                    "the card")
+    state = {"w": torch.ones(1024, device="cuda")}
+    scratch = torch.empty(1 << 20, device="cuda")   # outside the roots
+    s = CheckpointSession(str(tmp_path / "run"), device="cuda")
+    s.attach(lambda: {"st": state})
+    with s.frozen(1) as snap:
+        assert any("outside the registered roots" in w
+                   for w in snap.warnings)
+        assert snap.stats["leftover_device_bytes"] >= scratch.nbytes
+    del scratch
+
+
 def test_host_backend_restores_numpy(tmp_path):
     run = str(tmp_path / "run")
     _session(run, {"w": torch.arange(6, dtype=torch.int32),

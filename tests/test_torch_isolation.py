@@ -41,7 +41,12 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.orchestrator.workloads",
                "repro_torch.orchestrator.orchestrator",
                "repro_torch.orchestrator.scenarios",
-               "repro_torch.orchestrator.fleet"]
+               "repro_torch.orchestrator.fleet",
+               "repro_torch.chaos", "repro_torch.chaos.plan",
+               "repro_torch.chaos.injector", "repro_torch.chaos.sim",
+               "repro_torch.chaos.campaign", "repro_torch.obs.plane",
+               "repro_torch.obs.export", "repro_torch.cli",
+               "repro_torch.__main__"]
 
 
 def _env():
