@@ -196,12 +196,35 @@ card carries the leftover-device-bytes warning.  The sim runs no kernel:
 the counters stay at 0 over (a).  ``[chaos]`` and ``[cli]`` lines carry
 each mode's wall_s, ticks and per-class injected / recovered / healed /
 quarantined / MTTR.
+Phase 8 drives meshes, elastic restore and the launchers
+(``repro_torch.launch``, ``repro_torch.runtime.elastic``; alone:
+``--launch``), each launcher run and each half of (c) in a process of its
+own (forked from the fork server), its kernels' counters zeroed just
+before its run: (a) ``python -m repro_torch.launch.train``'s ``main``
+trains whisper-tiny at full width, uncut (``--steps 8 --ckpt-every 4``,
+B 8 x 1500 frames, bf16 over f32 masters, kernels): uninterrupted, then
+``--fail-at 6`` (exit 1), then ``--restore`` (step 4), whose final loss
+must be the uninterrupted one bitwise; (b) ``repro_torch.launch.serve``
+serves qwen1.5-0.5b at full width (B 4 x 512, ``--max-seq 1024
+--tokens 32``): uninterrupted, with ``--snapshot-at 16``, then
+``--restore``, whose tokens must be the uninterrupted run's; (c)
+qwen1.5-0.5b at full width, cut to 1 of its 24 layers for the run's
+time budget, trains at phase 3's shape on a (4, 2)
+``("data", "model")`` mesh of card slots with a sync image at step 3,
+then step 4, whose state it saves raw; another process restores the
+image with ``elastic_restore`` onto (4, 2) ("identical"), then onto
+(2, 2) and (1, 1) ("resharded"), each bit-equal to the first, and one
+step from each restored state must equal the uninterrupted step 4
+bitwise; the image's block count and bytes (the state's bytes, as
+unsharded) and each restore's time are printed.  Flash attention (tc alone) and
+RMSNorm must launch in every run.  ``[launch]`` lines carry the numbers.
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
 power limit; the ``[time]`` marks count from the process's start, as a
 limit on the command's time does.
 
-``--path ARCH --out F`` serves one path alone, as the script serves it
+``--launch --out F`` runs phase 8 alone.  ``--path ARCH --out F`` serves
+one path alone, as the script serves it
 (``--layers N``: at N layers; ``tools/cut_ab.py`` times such a depth cut
 against the path's own depth, in turns).
 
@@ -3127,6 +3150,324 @@ def run_chaos() -> dict:
     return {k: tuple(v) for k, v in res.items()}
 
 
+# ----------------------------------------------------------------- phase 8
+LAUNCH_TRAIN = ["--arch", "whisper-tiny", "--steps", "8", "--ckpt-every",
+                "4"]
+LAUNCH_FAIL_AT, LAUNCH_RESTORED_AT = 6, 4
+LAUNCH_SERVE = ["--arch", "qwen1.5-0.5b", "--batch", "4", "--prompt-len",
+                "512", "--max-seq", "1024", "--tokens", "32"]
+LAUNCH_SNAPSHOT_AT = 16
+# qwen1.5-0.5b at full width, cut to 1 of its 24 layers for the run's
+# time budget: tools/cut_ab.py measured 4 -> 1 layers at -8.4 s (H100);
+# the embedding (155.6 M of the 4 layers' 207 M params) stays
+ELASTIC_ARCH, ELASTIC_LAYERS = "qwen1.5-0.5b", 1
+ELASTIC_PATH = "elastic"       # --path: phase 8 (c) alone (tools/cut_ab.py)
+ELASTIC_STEP = 3
+ELASTIC_MESHES = {"4x2": (4, 2), "2x2": (2, 2), "1x1": (1, 1)}
+LAUNCH_KERNELS = ("flash_attention", "rmsnorm")
+
+
+def _launcher(module: str, argv: list) -> dict:
+    """One launcher run in this (child) process: ``main(argv)`` of
+    ``repro_torch.launch.<module>``, its exit code, what it printed and
+    its JSON, and the kernels' launches over the run (counters zeroed
+    just before it)."""
+    import importlib
+    import io
+    main_fn = importlib.import_module(f"repro_torch.launch.{module}").main
+    out, err = io.StringIO(), io.StringIO()
+    _zero_counters()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(list(argv))
+    launches = {name: mod.launches for name, mod in _counters().items()}
+    text = out.getvalue()
+    start = text.find("{\n")
+    return {"rc": rc, "out": text, "err": err.getvalue()[-2000:],
+            "json": json.loads(text[start:]) if start >= 0 else None,
+            "launches": launches, "variants": _variants()}
+
+
+def _launch_run(what: str, module: str, argv: list, want_rc: int = 0
+                ) -> dict:
+    """A launcher run in a child process of its own (forked from the fork
+    server: no torch import), its exit code checked; the launch kernels
+    and the tensor-core flash variant alone must have run."""
+    res = run_child(what, _launcher, module, argv)
+    if res["rc"] != want_rc:
+        raise SystemExit(f"phase 8 {what}: exit {res['rc']}, not {want_rc}"
+                         f"\n{res['out'][-2000:]}\n{res['err']}")
+    _check_kernels(what, res["launches"], res["variants"])
+    return res
+
+
+def _check_kernels(what: str, launches: dict, variants: dict) -> None:
+    missing = [k for k in LAUNCH_KERNELS if launches[k] <= 0]
+    if missing or variants["flash_attention"]["fma"]:
+        raise SystemExit(f"phase 8 {what}: launches {launches}, flash "
+                         f"variants {variants['flash_attention']}")
+
+
+def _merge_launches(runs) -> tuple:
+    """One path's launches and variants over several processes."""
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    variants = {}
+    for name in VARIANT_KERNELS:
+        vs = [r["variants"][name] for r in runs]
+        variants[name] = {
+            "tc": sum(v["tc"] for v in vs), "fma": sum(v["fma"] for v in vs),
+            "served": {k: [s for v in vs for s in v["served"][k]]
+                       for k in ("tc", "fma")}}
+    return launches, variants
+
+
+def launch_train_part(workdir: str, card: str) -> tuple:
+    """(a): the train launcher, whisper-tiny at full width, uncut:
+    uninterrupted, crashed at step 6 (exit 1), restored from the step-4
+    image in a fresh process; the final losses equal bitwise."""
+    base = LAUNCH_TRAIN + ["--device", "cuda"]
+    run_a = os.path.join(workdir, "train_a")
+    run_b = os.path.join(workdir, "train_b")
+    ref = _launch_run("(a) train uninterrupted", "train",
+                      base + ["--run-dir", run_a])
+    crash = _launch_run("(a) train --fail-at", "train",
+                        base + ["--run-dir", run_b, "--fail-at",
+                                str(LAUNCH_FAIL_AT)], want_rc=1)
+    image = _image_bytes(os.path.join(run_b, "snapshots",
+                                      f"step_{LAUNCH_RESTORED_AT:08d}"))
+    back = _launch_run("(a) train --restore", "train",
+                       base + ["--run-dir", run_b, "--restore"])
+    if f"at step {LAUNCH_RESTORED_AT}" not in back["out"]:
+        raise SystemExit(f"phase 8 (a): the restore did not report step "
+                         f"{LAUNCH_RESTORED_AT}:\n{back['out'][-1000:]}")
+    a, b = ref["json"], back["json"]
+    if a["final_loss"] != b["final_loss"] or a["steps"] != b["steps"]:
+        raise SystemExit(f"phase 8 (a): final loss {b['final_loss']!r} "
+                         f"after the restore, {a['final_loss']!r} "
+                         f"uninterrupted")
+    steps = int(LAUNCH_TRAIN[LAUNCH_TRAIN.index("--steps") + 1])
+    log(f"[launch] (a) train whisper-tiny (full width, B 8 x 1500 frames, "
+        f"seq 64): final loss {a['final_loss']!r} uninterrupted and after "
+        f"--fail-at {LAUNCH_FAIL_AT} + --restore (step "
+        f"{LAUNCH_RESTORED_AT}): bitwise; {a['wall_s'] / steps * 1e3:.2f} "
+        f"ms/step (wall_s {a['wall_s']:.3f} / {steps} steps, two async "
+        f"images included); step-{LAUNCH_RESTORED_AT} image {image} "
+        f"bytes; cold restore {b['restore_s']:.3f} s; launches flash / "
+        f"RMSNorm {ref['launches']['flash_attention']} / "
+        f"{ref['launches']['rmsnorm']} (uninterrupted), "
+        f"{crash['launches']['flash_attention']} / "
+        f"{crash['launches']['rmsnorm']} (crashed), "
+        f"{back['launches']['flash_attention']} / "
+        f"{back['launches']['rmsnorm']} (restored); {card}")
+    return _merge_launches([ref, crash, back])
+
+
+def launch_serve_part(workdir: str, card: str) -> tuple:
+    """(b): the serve launcher, qwen1.5-0.5b at full width, uncut:
+    uninterrupted, with a snapshot at token 16, restored in a fresh
+    process; the generated tokens equal the uninterrupted run's."""
+    base = LAUNCH_SERVE + ["--device", "cuda"]
+    run_a = os.path.join(workdir, "serve_a")
+    run_b = os.path.join(workdir, "serve_b")
+    ref = _launch_run("(b) serve uninterrupted", "serve",
+                      base + ["--run-dir", run_a])
+    snap = _launch_run("(b) serve --snapshot-at", "serve",
+                       base + ["--run-dir", run_b, "--snapshot-at",
+                               str(LAUNCH_SNAPSHOT_AT)])
+    back = _launch_run("(b) serve --restore", "serve",
+                       base + ["--run-dir", run_b, "--restore"])
+    want = ref["json"]["tokens_sha256"]
+    for what, r in (("snapshot run", snap), ("restored run", back)):
+        if r["json"]["tokens_sha256"] != want:
+            raise SystemExit(f"phase 8 (b): the {what}'s tokens differ "
+                             f"from the uninterrupted run's")
+    t, ts = ref["json"]["timings"], snap["json"]["timings"]
+    image = _image_bytes(os.path.join(run_b, "snapshots", "step_00000000"))
+    log(f"[launch] (b) serve qwen1.5-0.5b (full width, B 4 x 512, 32 "
+        f"tokens): {back['json']['generated']} tokens token-exact after "
+        f"--snapshot-at {LAUNCH_SNAPSHOT_AT} + --restore; prefill "
+        f"{t['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{t['decode_s_per_token'] * 1e3:.2f} ms/token; freeze "
+        f"{ts['freeze_s'] * 1e3:.1f} ms, checkpoint {ts['checkpoint_s']:.3f}"
+        f" s, image {image} bytes; restore "
+        f"{back['json']['timings']['restore_s']:.3f} s; launches flash / "
+        f"RMSNorm {ref['launches']['flash_attention']} / "
+        f"{ref['launches']['rmsnorm']} (uninterrupted); {card}")
+    return _merge_launches([ref, snap, back])
+
+
+def _elastic_model(dev, layers: int):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH), num_layers=layers)
+    return cfg, LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+                   device=dev)
+
+
+def elastic_train(run: str, seed: int, layers: int) -> dict:
+    """(c), first process: train on a (4, 2) mesh of card slots with a
+    sync image at step 3; the uninterrupted step 4's state is saved raw
+    (``torch.save``: the reference the next process compares with, at a
+    fraction of an image's CRC and restore time)."""
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import Trainer
+    dev = torch.device("cuda")
+    cfg, model = _elastic_model(dev, layers)
+    mesh = make_mesh(ELASTIC_MESHES["4x2"], ("data", "model"), devices=dev)
+    tcfg = _train_config(TRAIN_B, TRAIN_S, seed,
+                         ckpt=CheckpointOptions(mode="sync", keep=0))
+    t = Trainer(cfg, tcfg, run, model=model, mesh=mesh)
+    t.initialize()
+    _zero_counters()
+    t.run(ELASTIC_STEP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.session.checkpoint(ELASTIC_STEP)
+    dump_s = time.perf_counter() - t0
+    t.run(1)
+    launches = {name: mod.launches for name, mod in _counters().items()}
+    from repro_torch.core.device_plugin import flatten_with_paths
+    torch.save({k: v.cpu() for k, v in flatten_with_paths(
+        {"params": t.params, "opt": t.opt_state}).items()},
+        _uninterrupted(run))
+    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(
+        {"p": t.params, "m": t.opt_state.m, "v": t.opt_state.v})) + 4
+    return {"launches": launches, "variants": _variants(),
+            "dump_s": dump_s, "state_bytes": state_bytes}
+
+
+def _uninterrupted(run: str) -> str:
+    return os.path.join(os.path.dirname(run), "step4.pt")
+
+
+def elastic_check(run: str, seed: int, layers: int) -> dict:
+    """(c), second process: ``elastic_restore`` of the step-3 image onto
+    (4, 2) ("identical"), then onto (2, 2) and (1, 1) ("resharded"), each
+    bit-equal to the first; one step from each restored state equals the
+    uninterrupted step 4 bitwise, which holds the first restore to the
+    saved state."""
+    import torch
+    from repro_torch.api import CheckpointSession
+    from repro_torch.core.device_plugin import flatten_with_paths
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.runtime.elastic import elastic_restore
+    from repro_torch.runtime.trainer import Trainer
+    dev = torch.device("cuda")
+    cfg, model = _elastic_model(dev, layers)
+    tcfg = _train_config(TRAIN_B, TRAIN_S, seed)
+    opt = AdamW(lr=warmup_cosine(tcfg.lr, tcfg.warmup_steps,
+                                 tcfg.total_steps))
+
+    man = CheckpointSession(run, device=dev).store.reader(ELASTIC_STEP)
+    meta = man.meta["train_state"]
+    blocks = sum(len(m.get("shards", ())) for m in meta.values())
+    payload = sum(int(man.entry_nbytes("train_state", p)) for p in meta)
+    man.close()
+    nxt = torch.load(_uninterrupted(run), map_location=dev)
+    out = {"blocks": blocks, "entries": len(meta), "payload": payload,
+           "modes": {}, "restore_s": {}}
+    runs, saved = [], None
+    for name in ("4x2", "2x2", "1x1"):
+        shape = ELASTIC_MESHES[name]
+        mesh = (make_host_mesh(device=dev) if shape == (1, 1)
+                else make_mesh(shape, ("data", "model"), devices=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = elastic_restore(run, mesh, model, opt, step=ELASTIC_STEP)
+        torch.cuda.synchronize()
+        out["restore_s"][name] = time.perf_counter() - t0
+        out["modes"][name] = got["topology_mode"]
+        flat = flatten_with_paths({"params": got["params"],
+                                   "opt": got["opt"]})
+        if saved is None:            # the step below updates in place
+            saved = {k: v.clone() for k, v in flat.items()}
+        elif flat.keys() != saved.keys() or not all(
+                torch.equal(flat[k], saved[k]) for k in saved):
+            raise SystemExit(f"phase 8 (c): the {name} restore is not the "
+                             f"(4, 2) one")
+        t = Trainer(cfg, tcfg, os.path.join(os.path.dirname(run),
+                                            f"next_{name}"),
+                    model=model, mesh=mesh)
+        t.params, t.opt_state, t.step = got["params"], got["opt"], \
+            got["step"]
+        t.pipeline.restore_state(got["meta"]["cursor"])
+        _zero_counters()
+        t.run(1)
+        runs.append({"launches": {n: m.launches for n, m in
+                                  _counters().items()},
+                     "variants": _variants()})
+        step = flatten_with_paths({"params": t.params, "opt": t.opt_state})
+        if not all(torch.equal(step[k], nxt[k]) for k in nxt):
+            raise SystemExit(f"phase 8 (c): the step after the {name} "
+                             f"restore differs from the uninterrupted one")
+        del t, got, step
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out
+
+
+def launch_elastic_part(workdir: str, seed: int, card: str,
+                        layers: int = ELASTIC_LAYERS) -> tuple:
+    """(c): a qwen1.5-0.5b training state at full width (`layers` layers)
+    moved from a (4, 2) mesh to (2, 2) and (1, 1) by
+    ``elastic_restore``."""
+    run = os.path.join(workdir, "elastic", "run")
+    os.makedirs(os.path.dirname(run))
+    first = run_child("(c) train on (4, 2)", elastic_train, run, seed,
+                      layers)
+    _check_kernels("(c) train", first["launches"], first["variants"])
+    res = run_child("(c) elastic restores", elastic_check, run, seed,
+                    layers)
+    for r in res["runs"]:
+        _check_kernels("(c) next step", r["launches"], r["variants"])
+    want = {"2x2": "resharded", "1x1": "resharded", "4x2": "identical"}
+    if res["modes"] != want:
+        raise SystemExit(f"phase 8 (c): topology modes {res['modes']}")
+    if res["payload"] != first["state_bytes"]:
+        raise SystemExit(f"phase 8 (c): image payload {res['payload']} B, "
+                         f"state {first['state_bytes']} B")
+    r = res["restore_s"]
+    log(f"[launch] (c) elastic qwen1.5-0.5b ({layers} of 24 layers, full "
+        f"width) on (4, 2) card slots: step-{ELASTIC_STEP} image "
+        f"{res['entries']} entries in {res['blocks']} blocks, "
+        f"{res['payload']} B (the state's bytes, as unsharded), sync dump "
+        f"{first['dump_s']:.3f} s; restores: (4, 2) identical "
+        f"{r['4x2']:.3f} s, (2, 2) resharded {r['2x2']:.3f} s, (1, 1) "
+        f"resharded {r['1x1']:.3f} s; bit-equal, and the next step from "
+        f"each bitwise the uninterrupted one; "
+        f"launches flash / RMSNorm {first['launches']['flash_attention']} "
+        f"/ {first['launches']['rmsnorm']} (4 steps on (4, 2)); {card}")
+    return _merge_launches([first] + res["runs"])
+
+
+def phase_launch(seed: int, card: str) -> dict:
+    """Phase 8: meshes, elastic restore and the launchers.  Every
+    launcher run and each half of (c) is a process of its own, its
+    kernels' counters zeroed just before its run.  Returns {path:
+    (launches, variants)}."""
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        for name, part, args in (
+                ("whisper-tiny train launcher (a)", launch_train_part, ()),
+                ("qwen1.5-0.5b serve launcher (b)", launch_serve_part, ()),
+                (f"{ELASTIC_ARCH} elastic ({ELASTIC_LAYERS} of 24 layers) "
+                 f"(c)",
+                 launch_elastic_part, (seed,))):
+            t0 = time.perf_counter()
+            out[name] = part(workdir, *args, card)
+            log(f"[launch] {name}: {time.perf_counter() - t0:.1f} s; "
+                f"{card}")
+    log(f"[launch] phase 8 wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3237,11 +3578,8 @@ def torch_settings() -> None:
     algorithms (bitwise resume) without their NaN fill of each fresh
     allocation (a debugging aid: one extra kernel per torch.empty;
     results do not depend on it), and no TF32."""
-    import torch
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.devices import set_deterministic
+    set_deterministic()
 
 
 def serve_one(arch: str, seed: int, layers=None) -> dict:
@@ -3306,16 +3644,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--path", help="serve this model of SERVE_PATHS, "
-                    "ZOO_PATHS or MM_PATHS only (as the script serves it) "
-                    "and write its launches to --out")
+                    "ZOO_PATHS or MM_PATHS only (as the script serves it), "
+                    "or run phase 8 (c) alone (--path elastic), and write "
+                    "its launches to --out")
     ap.add_argument("--layers", type=int, help="with --path: serve it at "
                     "this many layers (tools/cut_ab.py times a depth cut)")
     ap.add_argument("--orch", action="store_true", help="run phase 6 "
                     "only and write its paths' launches to --out")
     ap.add_argument("--chaos", action="store_true", help="run phase 7 "
                     "only and write its path's launches to --out")
-    ap.add_argument("--out", help="with --path, --orch or --chaos: the "
-                    "launches' JSON")
+    ap.add_argument("--launch", action="store_true", help="run phase 8 "
+                    "only and write its paths' launches to --out")
+    ap.add_argument("--out", help="with --path, --orch, --chaos or "
+                    "--launch: the launches' JSON")
     args = ap.parse_args()
 
     global CHILDREN
@@ -3332,6 +3673,22 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     torch_settings()
+    if args.launch or args.path == ELASTIC_PATH:
+        CHILDREN = fork_server()
+        try:
+            if args.launch:
+                res = phase_launch(args.seed, card_line())
+            else:
+                with tempfile.TemporaryDirectory(
+                        prefix="chip_smoke_") as workdir:
+                    res = {ELASTIC_PATH: launch_elastic_part(
+                        workdir, args.seed, card_line(),
+                        args.layers or ELASTIC_LAYERS)}
+            with open(args.out, "w") as f:
+                json.dump(res, f)
+            return 0
+        finally:
+            stop_fork_server()
     if args.path or args.orch or args.chaos:
         res = (serve_one(args.path, args.seed, args.layers) if args.path
                else orchestrate(args.seed) if args.orch
@@ -3390,8 +3747,10 @@ def main() -> int:
         mark("phase 6")
         by_path.update(run_chaos())
         mark("phase 7")
+        by_path.update(phase_launch(args.seed, card))
+        mark("phase 8")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
-            f"process started (what the run's time limit and its 960 s "
+            f"process started (what the run's time limit and its 925 s "
             f"budget apply to), {time.perf_counter() - t_start:.1f} s from "
             f"after the imports; {card}")
         print(json.dumps({"kernels": kernel_rows(rows, by_path)}))

@@ -49,7 +49,7 @@ def capabilities() -> Dict[str, Any]:
             "incremental": True,
             "compression": True,
             "replication": True,
-            "elastic_restore": False,     # sharding is not ported
+            "elastic_restore": True,      # runtime/elastic.py, slot meshes
             "parallel_restore": True,
             "chunked_packs": True,        # pack v2: per-chunk CRC + codec
             "striped_io": True,           # N pack files/host, appender each
@@ -81,11 +81,13 @@ class CheckReport:
         return "\n".join(lines)
 
 
-def check(run_dir: Optional[str] = None, options=None) -> CheckReport:
+def check(run_dir: Optional[str] = None, options=None,
+          device=None) -> CheckReport:
     """Validate that checkpoint/restore can work here (`criu check`):
-    round-trips a host blob and, when `run_dir` is given, proves the image
-    directory is writable.  No card, Triton or nvcc is a warning: CPU runs
-    are legitimate when asked for."""
+    builds a trivial mesh on `device` (default: the card if there is one,
+    else the CPU), round-trips a host blob and, when `run_dir` is given,
+    proves the image directory is writable.  No card, Triton or nvcc is a
+    warning: CPU runs are legitimate when asked for."""
     problems: List[str] = []
     warns: List[str] = []
     caps = capabilities()
@@ -96,6 +98,13 @@ def check(run_dir: Optional[str] = None, options=None) -> CheckReport:
                      "on the card")
     if "torch" not in caps["backends"]:
         problems.append("no 'torch' device backend registered")
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        if device is None:
+            device = "cuda" if caps["torch"]["cuda_available"] else "cpu"
+        make_mesh((1,), ("data",), devices=device)
+    except Exception as e:
+        problems.append(f"mesh construction failed: {e}")
     try:
         from repro_torch.core.snapshot_io import (pack_host_blob,
                                                   unpack_host_blob)

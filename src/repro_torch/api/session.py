@@ -69,11 +69,14 @@ class CheckpointSession:
     """Owns engine construction + lifecycle for one run directory.
 
     The "torch" backend captures and restores tensors on `device`:
-    ``cuda`` unless the caller passes ``device="cpu"``."""
+    ``cuda`` unless the caller passes ``device="cpu"``, or the device of
+    `mesh` (a grid of slots on one device, ``repro_torch.launch.mesh``),
+    whose fingerprint the images carry."""
 
     def __init__(self, run_dir: str,
                  options: Optional[CheckpointOptions] = None, *,
                  device: DeviceLike = None,
+                 mesh=None,
                  plugins: Optional[List[Any]] = None,
                  backend: str = "torch",
                  planner=None):
@@ -81,10 +84,17 @@ class CheckpointSession:
         self.run_dir = run_dir
         self.options = options if options is not None else CheckpointOptions()
         self.backend_name = backend
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device) if backend == "torch" else None
+        if (mesh is not None and self.device is not None
+                and mesh.device != self.device):
+            raise ValueError(f"mesh on {mesh.device} given to a session "
+                             f"on {self.device}")
+        self.mesh = mesh
         self.engine = SnapshotEngine(run_dir, plugins=plugins,
                                      options=self.options, backend=backend,
-                                     device=self.device)
+                                     device=self.device, mesh=mesh)
         self._planner = planner
 
     # ------------------------------------------------------- constructors
@@ -105,6 +115,7 @@ class CheckpointSession:
         self.backend_name = getattr(engine.device_plugin, "backend_name",
                                     "torch")
         self.device = getattr(engine.device_plugin, "device", None)
+        self.mesh = engine.mesh
         self.engine = engine
         self._planner = None
         return self
@@ -126,8 +137,12 @@ class CheckpointSession:
         return check(run_dir=self.run_dir, options=self.options)
 
     # ------------------------------------------------------- wiring
-    def attach(self, provider: Callable[[], Dict[str, PyTree]]) -> None:
-        self.engine.attach(provider)
+    def attach(self, provider: Callable[[], Dict[str, PyTree]],
+               shardings=None) -> None:
+        """`shardings`: {state: tree of NamedSharding} beside the
+        provider's roots (or a callable returning it), since a tensor
+        carries none; None writes every tensor whole."""
+        self.engine.attach(provider, shardings)
 
     def register_host_state(self, name: str, getter: Callable[[], Any],
                             setter: Callable[[Any], None]) -> None:
@@ -205,19 +220,27 @@ class CheckpointSession:
 
     def restore(self, step: Optional[int] = None,
                 verify: Optional[bool] = None,
-                wait: Optional[str] = None) -> Dict[str, Any]:
+                wait: Optional[str] = None, *, mesh=None,
+                shardings: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, Any]:
         """`criu restore`.  ``wait="critical"`` (the default when
         ``options.restore_mode == "lazy"``) returns once the critical set
         is placed — the job resumes while the rest of the image streams
         in the background; join it with :meth:`restore_barrier`.
-        ``wait="all"`` blocks until the whole image is placed."""
-        return self.engine.restore(step=step, verify=verify, wait=wait)
+        ``wait="all"`` blocks until the whole image is placed.  `mesh`
+        (default: the session's) and `shardings` ({state: tree}) give the
+        target layout; ``last_stats["topology_mode"]`` says identical,
+        translated or resharded."""
+        return self.engine.restore(step=step, verify=verify, wait=wait,
+                                   mesh=mesh, shardings=shardings)
 
     def restore_into(self, template: PyTree, state: str = "train_state",
                      step: Optional[int] = None,
-                     wait: Optional[str] = None) -> PyTree:
+                     wait: Optional[str] = None, *, mesh=None,
+                     shardings: Optional[PyTree] = None) -> PyTree:
         return self.engine.restore_into(template, state=state, step=step,
-                                        wait=wait)
+                                        wait=wait, mesh=mesh,
+                                        shardings=shardings)
 
     def restore_barrier(self) -> Optional[Dict[str, Any]]:
         """Join the background restore stream (a no-op after eager

@@ -110,7 +110,7 @@ def _device_probe(device: str) -> str:
 
 def cmd_check(args) -> int:
     from repro_torch.api import check
-    report = check(run_dir=args.run_dir)
+    report = check(run_dir=args.run_dir, device=args.device)
     probe = _device_probe(args.device)
     if args.json:
         print(json.dumps({"ok": report.ok, "problems": report.problems,

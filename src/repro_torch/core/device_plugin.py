@@ -27,8 +27,20 @@ stream that waits on it, as ``capture_tree``'s copies wait on the compute
 stream.
 
 Entries keep the reference's layout (``kind``/``shape``/``dtype``/
-``sharding``/``shards``), one whole shard per tensor, so either package
-restores the other's images.
+``sharding``/``shards``), so either package restores the other's images.
+A tensor carries no sharding: the caller gives a tree of
+``NamedSharding``s beside its state (``engine.attach(provider,
+shardings=...)``).  A tensor given one is written as one shard per
+distinct block (replica 0 only, in mesh order), each block's D2H copy
+into its own pinned buffer; a block that is not contiguous (a dim other
+than the leading one is sharded) is first staged contiguous on the
+device, on the same side stream, so its copy stays one asynchronous
+DMA.  A tensor given none is one whole shard with the "other"
+descriptor.  A restore given a target mesh or shardings places each
+saved block straight into the device tensor at its index when the
+target's blocks are the saved ones, and otherwise assembles the tensor
+on the host and copies it once (``ctx.stats["placed_blocks"]`` and
+``["assembled_entries"]`` count the two).
 """
 from __future__ import annotations
 
@@ -42,10 +54,11 @@ import torch
 from repro_torch.core.lock import DeviceLock
 from repro_torch.core.plugins import PLUGIN_API_VERSION, HookContext, Plugin
 from repro_torch.core.topology import (compatibility, mesh_fingerprint,
-                                       sharding_descriptor)
+                                       resolve_sharding, sharding_descriptor)
 from repro_torch.devices import resolve_device
 from repro_torch.serialization.pack import (dtype_from_str, host_numpy,
                                             numpy_to_tensor, tensor_dtype_str)
+from repro_torch.sharding.policy import fit_sharding, index_to_json
 
 PyTree = Any
 
@@ -115,17 +128,60 @@ def unflatten_like(template: PyTree, flat: Dict[str, Any],
     return flat[prefix[:-1]]
 
 
+def flatten_shardings(shardings: Optional[Dict[str, PyTree]]
+                      ) -> Dict[str, Dict[str, Any]]:
+    """{state: tree of NamedSharding} -> {state: {path: sharding}}; a
+    None subtree (or leaf) means "no sharding" there."""
+    return {name: flatten_with_paths(tree)
+            for name, tree in (shardings or {}).items()}
+
+
 # ---------------------------------------------------------------- entries
-def tensor_entry(t: torch.Tensor, host: torch.Tensor) -> Dict[str, Any]:
-    """Image entry for `t`, whose bytes are already in host tensor `host`."""
+def _blocks(t: torch.Tensor, sharding) -> List[tuple]:
+    """The index tuples of the blocks `t` is written as: one per
+    distinct block of `sharding`, or the whole tensor."""
+    if sharding is None:
+        return [tuple(slice(0, int(s)) for s in t.shape)]
+    return sharding.shard_indices(tuple(t.shape))
+
+
+def tensor_entry(t: torch.Tensor, hosts: List[torch.Tensor],
+                 sharding=None) -> Dict[str, Any]:
+    """Image entry for `t`, whose blocks' bytes are already in the host
+    tensors `hosts` (one per block of `sharding`, in its order)."""
+    shape = tuple(int(s) for s in t.shape)
     return {
         "kind": "device_array",
-        "shape": [int(s) for s in t.shape],
+        "shape": list(shape),
         "dtype": tensor_dtype_str(t),
-        "sharding": sharding_descriptor(t),
-        "shards": [{"index": [[0, int(s)] for s in t.shape],
-                    "data": host_numpy(host)}],
+        "sharding": sharding_descriptor(t, sharding),
+        "shards": [{"index": index_to_json(idx, shape),
+                    "data": host_numpy(h)}
+                   for idx, h in zip(_blocks(t, sharding), hosts)],
     }
+
+
+def _copy_blocks(leaf: torch.Tensor, sharding, side,
+                 staged: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each block of `leaf` into a host tensor of its own.  CUDA blocks
+    go into fresh pinned buffers, the copies issued on `side` and not
+    waited for (a strided block is staged contiguous on the device
+    first, kept alive in `staged` until the caller syncs `side`)."""
+    src = leaf.detach()
+    out = []
+    for idx in _blocks(leaf, sharding):
+        view = src[idx]
+        if not leaf.is_cuda:
+            out.append(view.clone(memory_format=torch.contiguous_format))
+            continue
+        buf = torch.empty(view.shape, dtype=view.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            if not view.is_contiguous():
+                view = view.contiguous()
+                staged.append(view)
+            buf.copy_(view, non_blocking=True)
+        out.append(buf)
+    return out
 
 
 def _side_stream(device: torch.device, after) -> "torch.cuda.Stream":
@@ -145,36 +201,42 @@ def leaf_entry(leaf: Any) -> Dict[str, Any]:
     return {"kind": "host", "value": leaf}
 
 
-def capture_tree(roots: Dict[str, PyTree]) -> Dict[str, Dict[str, Any]]:
-    """name -> {path -> entry}.  Every CUDA leaf's D2H copy is issued on a
-    side stream into its own pinned buffer before the first wait, so the
-    copies overlap each other; the side stream is drained before return."""
+def capture_tree(roots: Dict[str, PyTree],
+                 shardings: Optional[Dict[str, Dict[str, Any]]] = None
+                 ) -> Dict[str, Dict[str, Any]]:
+    """name -> {path -> entry}; `shardings` is {name: {path: sharding}}
+    (:func:`flatten_shardings`).  Every CUDA block's D2H copy is issued
+    on a side stream into its own pinned buffer before the first wait, so
+    the copies overlap each other; the side stream is drained before
+    return."""
     flat = {name: flatten_with_paths(tree) for name, tree in roots.items()}
-    hosts: Dict[int, torch.Tensor] = {}
+    shardings = shardings or {}
+    hosts: Dict[tuple, List[torch.Tensor]] = {}
     streams: Dict[torch.device, torch.cuda.Stream] = {}
-    for leaves in flat.values():
-        for leaf in leaves.values():
-            if not isinstance(leaf, torch.Tensor) or id(leaf) in hosts:
+    staged: List[torch.Tensor] = []
+    for name, leaves in flat.items():
+        for path, leaf in leaves.items():
+            if not isinstance(leaf, torch.Tensor):
                 continue
+            key = (id(leaf), shardings.get(name, {}).get(path))
+            if key in hosts:
+                continue
+            side = None
             if leaf.is_cuda:
                 side = streams.get(leaf.device)
                 if side is None:
                     side = streams[leaf.device] = _side_stream(
                         leaf.device, torch.cuda.current_stream(leaf.device))
-                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
-                                  pin_memory=True)
-                with torch.cuda.stream(side):
-                    buf.copy_(leaf.detach(), non_blocking=True)
-                hosts[id(leaf)] = buf
-            else:
-                hosts[id(leaf)] = leaf.detach().to(
-                    "cpu", copy=True).contiguous()
+            hosts[key] = _copy_blocks(leaf, key[1], side, staged)
     for side in streams.values():
         side.synchronize()                 # capture complete before unlock
+    del staged
     out: Dict[str, Dict[str, Any]] = {}
     for name, leaves in flat.items():
+        sh = shardings.get(name, {})
         out[name] = {
-            path: (tensor_entry(leaf, hosts[id(leaf)])
+            path: (tensor_entry(leaf, hosts[(id(leaf), sh.get(path))],
+                                sh.get(path))
                    if isinstance(leaf, torch.Tensor) else leaf_entry(leaf))
             for path, leaf in leaves.items()}
     return out
@@ -196,19 +258,68 @@ def assemble_global(entry: Dict[str, Any]) -> np.ndarray:
     return out
 
 
+def _to_device(t: torch.Tensor, device: torch.device,
+               non_blocking: bool) -> torch.Tensor:
+    if non_blocking and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def place_blocks(entry: Dict[str, Any], sharding, device: torch.device,
+                 non_blocking: bool = False) -> Optional[torch.Tensor]:
+    """The tensor of `entry` on `device`, each saved block copied
+    straight to its index, when `sharding`'s blocks are among the saved
+    ones (the identical / translated fast path); None otherwise."""
+    shape = tuple(entry["shape"])
+    saved = {tuple(map(tuple, sh["index"])): sh for sh in entry["shards"]}
+    want = [index_to_json(idx, shape)
+            for idx in fit_sharding(sharding, shape).shard_indices(shape)]
+    if any(tuple(map(tuple, w)) not in saved for w in want):
+        return None
+    out = None
+    for w in want:
+        piece = tuple(b - a for a, b in w)
+        host = numpy_to_tensor(np.asarray(saved[tuple(map(tuple, w))]
+                                          ["data"]).reshape(piece),
+                               entry["dtype"])
+        if out is None:
+            out = torch.empty(shape, dtype=host.dtype, device=device)
+        dst = out[tuple(slice(a, b) for a, b in w)]
+        if device.type != "cuda":
+            dst.copy_(host)
+        elif dst.is_contiguous():
+            dst.copy_(host.pin_memory() if non_blocking else host,
+                      non_blocking=non_blocking)
+        else:
+            # a strided block: one contiguous H2D, then a device copy
+            dst.copy_(_to_device(host, device, non_blocking))
+    return out
+
+
 def _entry_value(entry: Dict[str, Any], device: Optional[torch.device],
-                 non_blocking: bool = False):
+                 non_blocking: bool = False, sharding=None,
+                 stats: Optional[Dict[str, float]] = None):
     """The restored leaf of `entry` on `device` (None: host numpy).  With
     `non_blocking` a CUDA copy is enqueued on the current stream from
-    pinned memory and not waited on."""
+    pinned memory and not waited on.  With a target `sharding` whose
+    blocks are the saved ones, each block is placed at its index;
+    otherwise the tensor is assembled on the host and copied once."""
     if entry["kind"] == "device_array":
+        if device is not None and sharding is not None:
+            t = place_blocks(entry, sharding, device, non_blocking)
+            if t is not None:
+                if stats is not None:
+                    stats["placed_blocks"] = (stats.get("placed_blocks", 0.0)
+                                              + len(entry["shards"]))
+                return t
+        if stats is not None and len(entry["shards"]) > 1:
+            stats["assembled_entries"] = (
+                stats.get("assembled_entries", 0.0) + 1)
         arr = assemble_global(entry)
         if device is None:
             return arr
-        t = numpy_to_tensor(arr, entry["dtype"])
-        if non_blocking and device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
+        return _to_device(numpy_to_tensor(arr, entry["dtype"]), device,
+                          non_blocking)
     if entry["kind"] == "np":
         return entry["data"]
     return entry["value"]
@@ -282,25 +393,24 @@ class TorchBackend(StreamBoundary, Plugin):
         super().end_tracking()
         self._pin_event = None
 
-    def capture_entry(self, leaf: Any) -> Dict[str, Any]:
+    def capture_entry(self, leaf: Any, sharding=None) -> Dict[str, Any]:
         """Capture one leaf (the concurrent speculation loop and the
-        validate patch).  A CUDA tensor is copied on a side stream that
-        waits on the pin's event (or on the compute stream outside a
-        capture) into a fresh pinned buffer, and the copy has completed
-        on return."""
+        validate patch), as one block per distinct block of `sharding`.
+        A CUDA tensor is copied on a side stream that waits on the pin's
+        event (or on the compute stream outside a capture) into fresh
+        pinned buffers, and the copies have completed on return."""
         if not isinstance(leaf, torch.Tensor):
             return leaf_entry(leaf)
-        if not leaf.is_cuda:
-            return tensor_entry(leaf, leaf.detach().to(
-                "cpu", copy=True).contiguous())
-        after = self._pin_event if self._pin_event is not None \
-            else torch.cuda.current_stream(leaf.device)
-        side = _side_stream(leaf.device, after)
-        buf = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
-        with torch.cuda.stream(side):
-            buf.copy_(leaf.detach(), non_blocking=True)
-        side.synchronize()
-        return tensor_entry(leaf, buf)
+        side = None
+        if leaf.is_cuda:
+            after = self._pin_event if self._pin_event is not None \
+                else torch.cuda.current_stream(leaf.device)
+            side = _side_stream(leaf.device, after)
+        staged: List[torch.Tensor] = []
+        hosts = _copy_blocks(leaf, sharding, side, staged)
+        if side is not None:
+            side.synchronize()
+        return tensor_entry(leaf, hosts, sharding)
 
     # --- dump ---
     def pause_devices(self, ctx: HookContext) -> None:
@@ -327,7 +437,9 @@ class TorchBackend(StreamBoundary, Plugin):
     def checkpoint_devices(self, ctx: HookContext) -> None:
         t0 = time.perf_counter()
         dev_bytes = 0
-        for name, cap in capture_tree(getattr(ctx, "roots", {})).items():
+        for name, cap in capture_tree(getattr(ctx, "roots", {}),
+                                      getattr(ctx, "shardings", None)
+                                      ).items():
             ctx.device_snapshot[name] = cap
             for e in cap.values():
                 if e["kind"] == "device_array":
@@ -339,7 +451,8 @@ class TorchBackend(StreamBoundary, Plugin):
     # --- restore ---
     def update_topology_map(self, ctx: HookContext) -> None:
         saved = ctx.manifest.get("topology", {})
-        target = mesh_fingerprint(None, self.device)
+        target = mesh_fingerprint(getattr(ctx, "target_mesh", None),
+                                  self.device)
         ctx.topology_map["mode"] = compatibility(saved, target)
         ctx.topology_map["target"] = target
 
@@ -347,12 +460,40 @@ class TorchBackend(StreamBoundary, Plugin):
         """Where restored arrays go (None: stay numpy)."""
         return self.device
 
-    def _place_entry(self, reader, state: str, path: str):
+    @staticmethod
+    def _layout(ctx: HookContext):
+        """A restore's target: (mesh, {state: {path: sharding}})."""
+        return (getattr(ctx, "target_mesh", None),
+                flatten_shardings(getattr(ctx, "target_shardings", None)))
+
+    @staticmethod
+    def _target_sharding(layout, state: str, path: str,
+                         entry: Dict[str, Any]):
+        """The layout `entry` is placed in: the caller's sharding for
+        this leaf, else its saved descriptor resolved on the target
+        mesh, else None (whole)."""
+        mesh, flat = layout
+        sh = flat.get(state, {}).get(path)
+        if sh is None and entry["kind"] == "device_array":
+            sh = resolve_sharding(entry["sharding"] or {}, mesh)
+        return sh
+
+    def _placer(self, ctx: HookContext):
         """Load + rebuild one leaf — the unit the lazy materializer
         streams; a CUDA copy is enqueued on the current stream from
-        pinned memory."""
-        return _entry_value(reader.load_entry(state, path), self._target(),
-                            non_blocking=True)
+        pinned memory.  The function holds the layout and the stats
+        dict, not `ctx`: the materializer it goes into hangs off `ctx`,
+        and a cycle would keep the restored tensors alive until a
+        collection."""
+        layout, stats = self._layout(ctx), ctx.stats
+
+        def place(reader, state: str, path: str):
+            entry = reader.load_entry(state, path)
+            return _entry_value(
+                entry, self._target(), non_blocking=True,
+                sharding=self._target_sharding(layout, state, path, entry),
+                stats=stats)
+        return place
 
     def resume_devices_late(self, ctx: HookContext) -> None:
         """host -> device restore; with restore_threads > 1 worker threads
@@ -366,7 +507,7 @@ class TorchBackend(StreamBoundary, Plugin):
         if getattr(ctx, "lazy", False):
             from repro_torch.core.lazy import resume_with_schedule
             target = self._target()
-            resume_with_schedule(ctx, self._place_entry, threads, target)
+            resume_with_schedule(ctx, self._placer(ctx), threads, target)
             if target is not None and target.type == "cuda":
                 # the critical copies were enqueued non-blocking
                 torch.cuda.synchronize(target)
@@ -375,6 +516,7 @@ class TorchBackend(StreamBoundary, Plugin):
             ctx.stats["place_s"] = ctx.stats.get("place_critical_s", 0.0)
             return
         place_s = 0.0
+        layout = self._layout(ctx)
         for name in reader.state_names():
             keys = reader.entry_names(name)
             if threads > 1 and len(keys) > 1:
@@ -385,8 +527,10 @@ class TorchBackend(StreamBoundary, Plugin):
             else:
                 entries = [reader.load_entry(name, k) for k in keys]
             t_place = time.perf_counter()
-            restored = {key: _entry_value(entry, self._target())
-                        for key, entry in zip(keys, entries)}
+            restored = {key: _entry_value(
+                entry, self._target(),
+                sharding=self._target_sharding(layout, name, key, entry),
+                stats=ctx.stats) for key, entry in zip(keys, entries)}
             place_s += time.perf_counter() - t_place
             ctx.restored[name] = unflatten_paths(restored)
         self.lock.unlock()

@@ -36,6 +36,17 @@ chunk re-pulls the image from the peer and retries the entry.
 Transparency contract: the serving code defines no checkpoint logic.  It
 attaches a *state provider* (a zero-arg callable returning the live root
 trees) and registers host state through CallbackPlugins.
+
+Meshes (``mesh=``, a grid of slots on the engine's device,
+:mod:`repro_torch.launch.mesh`): a tensor carries no sharding, so the
+caller attaches a tree of ``NamedSharding``s beside the provider's
+(``attach(provider, shardings=...)``); each sharded tensor is written as
+its distinct blocks, and the manifest's topology names the mesh.  A
+restore onto ``mesh=`` (default: the engine's) with optional target
+``shardings=`` places the blocks straight into the device tensors when
+the layouts agree, and reassembles otherwise;
+``last_stats["topology_mode"]`` says identical, translated or
+resharded.
 """
 from __future__ import annotations
 
@@ -48,7 +59,8 @@ import numpy as np
 import torch
 
 from repro_torch.chaos import hooks as chaos_hooks
-from repro_torch.core.device_plugin import (flatten_with_paths,
+from repro_torch.core.device_plugin import (flatten_shardings,
+                                            flatten_with_paths,
                                             unflatten_like)
 from repro_torch.core.dirty import DirtyTracker
 from repro_torch.core.lock import LockTimeout
@@ -93,11 +105,13 @@ class SnapshotEngine:
                  options=None,                       # api.CheckpointOptions
                  backend="torch",                    # name | Plugin instance
                  device=None,
-                 replicator=None):                   # core.replication
+                 replicator=None,                    # core.replication
+                 mesh=None):                         # launch.mesh.Mesh
         from repro_torch.api.options import CheckpointOptions
         self.options = options if options is not None else CheckpointOptions()
         self.options.validate()
         self.run_dir = run_dir
+        self.mesh = mesh
         os.makedirs(run_dir, exist_ok=True)
         self.store = SnapshotStore(run_dir)
         if isinstance(backend, str):
@@ -131,6 +145,7 @@ class SnapshotEngine:
                     f"offers {sorted(feats)} (sync-only capture)")
         self._concurrent: Optional["ConcurrentCapture"] = None
         self._provider: Optional[StateProvider] = None
+        self._shardings = None
         self._pending: Optional[threading.Thread] = None
         self._pending_ctx: Optional[HookContext] = None
         self._pending_err: List[BaseException] = []
@@ -148,9 +163,18 @@ class SnapshotEngine:
         self.last_commit_step: Optional[int] = None
 
     # ------------------------------------------------------------ wiring
-    def attach(self, provider: StateProvider) -> None:
-        """Attach the live state roots (the 'process tree')."""
+    def attach(self, provider: StateProvider, shardings=None) -> None:
+        """Attach the live state roots (the 'process tree').  `shardings`
+        ({state: tree of NamedSharding, None where unsharded}, or a
+        zero-arg callable returning it at each dump) lays the roots over
+        the engine's mesh."""
         self._provider = provider
+        self._shardings = shardings
+
+    def capture_shardings(self) -> Dict[str, Dict[str, Any]]:
+        """The attached shardings as {state: {path: sharding}}."""
+        sh = self._shardings
+        return flatten_shardings(sh() if callable(sh) else sh)
 
     def register_host_state(self, name: str, getter: Callable[[], Any],
                             setter: Callable[[Any], None]) -> None:
@@ -160,8 +184,8 @@ class SnapshotEngine:
         self.registry.add(plugin)
 
     def _topology(self) -> Dict[str, Any]:
-        return mesh_fingerprint(None, getattr(self.device_plugin, "device",
-                                              None))
+        return mesh_fingerprint(self.mesh, getattr(self.device_plugin,
+                                                   "device", None))
 
     # ------------------------------------------------------------ dump
     def checkpoint(self, step: int) -> str:
@@ -198,6 +222,7 @@ class SnapshotEngine:
             self.restore_barrier()
         ctx = HookContext("dump", step)
         ctx.roots = self._provider()
+        ctx.shardings = self.capture_shardings()
         self.registry.init_all("dump")
         ctx.stats["t_start"] = time.perf_counter()
         try:
@@ -553,11 +578,16 @@ class SnapshotEngine:
 
     def restore(self, step: Optional[int] = None,
                 verify: Optional[bool] = None,
-                wait: Optional[str] = None) -> Dict[str, Any]:
+                wait: Optional[str] = None, *, mesh=None,
+                shardings: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, Any]:
         """Unified restore.  Returns {state_name: nested-dict tree}; host
         state is pushed back through the registered CallbackPlugins.
         With ``step=None`` the newest image that verifies (and was not
-        quarantined by a failed lazy stream) is used.
+        quarantined by a failed lazy stream) is used.  `mesh` (default:
+        the engine's) and `shardings` ({state: tree}) give the target
+        layout; a leaf without a target sharding takes its saved
+        descriptor resolved on `mesh`.
 
         With ``options.restore_mode == "lazy"`` (or ``wait="critical"``)
         the call returns once the critical set is placed; the remaining
@@ -602,7 +632,8 @@ class SnapshotEngine:
                         if got is not None:
                             self._quarantined.discard(got)
                             out = self.restore(step=got, verify=verify,
-                                               wait=wait)
+                                               wait=wait, mesh=mesh,
+                                               shardings=shardings)
                             self.last_stats["restored_from_replica"] = True
                             return out
                     raise FileNotFoundError(
@@ -614,6 +645,8 @@ class SnapshotEngine:
             ctx.reader = reader
             ctx.manifest = reader.manifest
             ctx.restore_threads = self.options.restore_threads
+            ctx.target_mesh = mesh if mesh is not None else self.mesh
+            ctx.target_shardings = shardings or {}
             ctx.lazy = lazy
             if lazy:
                 ctx.critical_specs = self.options.critical_states
@@ -687,6 +720,9 @@ class SnapshotEngine:
         for k in ("background_s", "background_bytes",
                   "background_entries", "healed_entries"):
             self.last_stats[k] = mat.stats.get(k, 0.0)
+        for k in ("placed_blocks", "assembled_entries"):
+            if k in self._lazy_ctx.stats:     # counted by the stream too
+                self.last_stats[k] = self._lazy_ctx.stats[k]
         self.last_stats["restore_background_s"] = mat.stats["background_s"]
         restored = self._lazy_ctx.restored
         self._last_restored = restored
@@ -714,7 +750,7 @@ class SnapshotEngine:
         if self._concurrent is not None:
             self._concurrent.abort()
         self._last_restored = None
-        self._provider = None
+        self._provider = self._shardings = None
 
     @staticmethod
     def retree(template: PyTree, raw_tree: Any) -> PyTree:
@@ -730,12 +766,16 @@ class SnapshotEngine:
 
     def restore_into(self, template: PyTree, state: str = "train_state",
                      step: Optional[int] = None,
-                     wait: Optional[str] = None) -> PyTree:
-        """Restore one state into the caller's tree structure.  The typed
-        reassembly needs every template leaf, so a lazy stream is joined
-        first (callers that want the overlap use :meth:`restore` with
-        ``wait="critical"`` and :meth:`retree` after the barrier)."""
-        restored = self.restore(step=step, wait=wait)
+                     wait: Optional[str] = None, *, mesh=None,
+                     shardings: Optional[PyTree] = None) -> PyTree:
+        """Restore one state into the caller's tree structure (`shardings`:
+        that state's target tree).  The typed reassembly needs every
+        template leaf, so a lazy stream is joined first (callers that
+        want the overlap use :meth:`restore` with ``wait="critical"`` and
+        :meth:`retree` after the barrier)."""
+        restored = self.restore(step=step, wait=wait, mesh=mesh,
+                                shardings={state: shardings}
+                                if shardings is not None else None)
         if self._lazy is not None:
             restored = self.restore_barrier()
         return self.retree(template, restored[state])
@@ -769,6 +809,7 @@ class ConcurrentCapture:
         self._speculated: set = set()
         self._done = False
         self._obs_ctx = obs_trace.current_context()
+        self._shardings = engine.capture_shardings()
         self._thread = threading.Thread(target=self._speculate,
                                         name="repro-spec-capture",
                                         daemon=True)
@@ -794,6 +835,9 @@ class ConcurrentCapture:
     def wait_speculated(self, timeout: Optional[float] = None) -> bool:
         return self._spec_done.wait(timeout)
 
+    def _sharding_of(self, state: str, path: str):
+        return self._shardings.get(state, {}).get(path)
+
     # -------------------------------------------------------- speculation
     def _speculate(self) -> None:
         backend = self._engine.device_plugin
@@ -816,7 +860,8 @@ class ConcurrentCapture:
                                          run_dir=self._engine.run_dir)
                     state, path = key.split("::", 1)
                     try:
-                        entry = backend.capture_entry(leaf)
+                        entry = backend.capture_entry(
+                            leaf, self._sharding_of(state, path))
                     except RuntimeError:
                         # freed or resized under us: the live value is
                         # captured at the validate pause instead
@@ -888,7 +933,8 @@ class ConcurrentCapture:
                                                      np.ndarray))):
                         state, path = key.split("::", 1)
                         nb = self._writer.reput_state_entry(
-                            state, path, backend.capture_entry(leaf))
+                            state, path, backend.capture_entry(
+                                leaf, self._sharding_of(state, path)))
                         if nb:
                             recaptured += 1
                             recaptured_bytes += nb

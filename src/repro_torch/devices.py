@@ -37,3 +37,17 @@ def device_kind(device: Optional[torch.device]) -> str:
     if device is not None and device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def set_deterministic() -> None:
+    """Bitwise-reproducible CUDA runs in this process: the deterministic
+    cuBLAS workspace (read when cuBLAS initialises, so call this before
+    the first matmul on the card), deterministic algorithms without their
+    NaN fill of fresh allocations (a debugging aid; results do not depend
+    on it), and no TF32."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

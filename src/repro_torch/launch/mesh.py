@@ -1,0 +1,118 @@
+"""Meshes of the port: a named grid of slots on one device.
+
+``jax.sharding.Mesh`` lets one process address many devices; torch has
+no such thing.  ``torch.distributed``'s ``DeviceMesh`` / DTensor need one
+process per device and a process group, so on one card every axis of
+such a mesh would have size 1 and nothing could be resharded.  The
+reference's own tests run their multi-device layouts on one host's CPU
+repeated 8 times (``--xla_force_host_platform_device_count=8``); the
+port takes the same posture on the device it runs on:
+
+  * a :class:`Mesh` is a named grid of *slots* that all name one
+    ``torch.device`` (the card, or the CPU); building one whose slots
+    name more than one device raises;
+  * compute runs on whole tensors on that device;
+  * a tensor's ``NamedSharding(mesh, spec)``
+    (:mod:`repro_torch.sharding.policy`) decides what an image holds (one
+    block per distinct shard, replica 0 only) and how a restore places
+    it.
+
+A mesh across several cards (one process per card, ``torch.distributed``
+and DTensor, images committed through ``core/multihost.py``) needs a
+machine with more than one card.
+
+The reference's JAX-version shims (``_axis_type_support``,
+``AXIS_TYPE`` / ``HAS_AXIS_TYPES``, ``use_mesh``) have no torch meaning
+and are left out; ``make_production_mesh`` comes with the dry run.
+Functions, not module-level constants: importing this module touches no
+device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.devices import DeviceLike, resolve_device
+
+
+class Mesh:
+    """A named grid of slots on one device.  ``shape`` maps axis name to
+    size, in axis order, as JAX's ``Mesh.shape`` does; ``devices`` is an
+    object ndarray of ``torch.device`` (one per slot)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        devices = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"mesh of rank {devices.ndim} given "
+                             f"{len(axis_names)} axis names {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated mesh axis name in {axis_names}")
+        if devices.size == 0:
+            raise ValueError("a mesh needs at least one slot")
+        distinct = {torch.device(d) for d in devices.flat}
+        if len(distinct) != 1:
+            raise ValueError(
+                f"a mesh's slots must all name one device, got "
+                f"{sorted(map(str, distinct))}: a mesh across several "
+                f"devices needs one process per device")
+        self.devices = devices
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices.flat[0]
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Mesh)
+                and self.axis_names == other.axis_names
+                and self.devices.shape == other.devices.shape
+                and self.device == other.device)
+
+    def __hash__(self) -> int:
+        return hash((self.axis_names, self.devices.shape, str(self.device)))
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
+        return f"Mesh({axes}; {self.device})"
+
+
+def make_mesh(shape: Tuple[int, ...], axis_names: Sequence[str], *,
+              devices=None) -> Mesh:
+    """A mesh of `shape` slots.  `devices`: None (the card; raises
+    without one), one device for every slot, or one device per slot in
+    row-major order."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if devices is None or isinstance(devices, (str, torch.device)):
+        devs = [resolve_device(devices)] * n
+    else:
+        devs = [resolve_device(d) for d in devices]
+        if len(devs) != n:
+            raise ValueError(f"mesh {shape} has {n} slots, got "
+                             f"{len(devs)} devices")
+    grid = np.empty(n, dtype=object)
+    for i, d in enumerate(devs):
+        grid[i] = d
+    return Mesh(grid.reshape(shape), axis_names)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
+                   device: DeviceLike = None) -> Mesh:
+    """The small mesh of the launchers and tests: ``("data", "model")``,
+    or ``("pod", "data", "model")`` with `pod`, on `device`."""
+    if pod:
+        return make_mesh((pod, data, model), ("pod", "data", "model"),
+                         devices=device)
+    return make_mesh((data, model), ("data", "model"), devices=device)

@@ -1,0 +1,123 @@
+"""Serving launcher: batched greedy decode with serving-state snapshots.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --batch 4 --prompt-len 16 --tokens 32 [--snapshot-at 16] [--restore] \\
+      [--smoke --device cpu]
+
+Port of the reference's ``launch/serve.py``: its flags and printed JSON,
+plus ``--device`` (default ``cuda``, which raises without a card), the
+generated tokens' SHA-256 (``tokens_sha256``) and the run's timings.
+``--snapshot-at N`` checkpoints the half-finished generation (KV cache +
+cursor) after N tokens; ``--restore`` resumes it in a fresh process — the
+serving cold-start story (paper §6).  ``--smoke`` serves the reduced
+config in f32; without it the published config serves in bf16 over f32
+masters, on the card through the hand-written kernels, with the
+deterministic settings of :func:`repro_torch.devices.set_deterministic`.
+The state is laid over ``make_host_mesh(data=1)`` on the device.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--policy", default="baseline")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--run-dir", default="runs/serve")
+    ap.add_argument("--snapshot-at", type=int, default=None)
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    from repro_torch.devices import resolve_device, set_deterministic
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_deterministic()
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.encdec import build_model
+    from repro_torch.runtime.server import DecodeServer
+    from repro_torch.sharding import get_policy
+
+    def sync() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = make_host_mesh(data=1, device=device)
+    compute = torch.float32 if args.smoke else torch.bfloat16
+    model = build_model(cfg, compute_dtype=compute, remat=False,
+                        use_kernels=device.type == "cuda", device=device)
+    srv = DecodeServer(cfg, args.run_dir, max_seq=args.max_seq,
+                       compute_dtype=compute, model=model, mesh=mesh,
+                       policy=get_policy(args.policy))
+    srv.load(model.init(args.seed))
+    timings = {}
+
+    batch = TokenPipeline(cfg, args.batch, args.prompt_len,
+                          seed=args.seed).next()
+    t0 = sync()
+    srv.start(batch)
+    timings["prefill_s"] = sync() - t0
+    if args.restore:
+        t0 = sync()
+        pos = srv.restore()
+        timings["restore_s"] = sync() - t0
+        print(f"[serve] restored mid-generation snapshot at pos {pos}")
+
+    remaining = args.tokens - (srv.pos - args.prompt_len)
+    decoded, t_decode = 0, 0.0
+    if args.snapshot_at is not None and not args.restore:
+        first = min(args.snapshot_at, remaining)
+        t0 = sync()
+        srv.decode(first)
+        t_decode += sync() - t0
+        decoded += first
+        t0 = time.perf_counter()
+        path = srv.checkpoint(0)
+        timings["checkpoint_s"] = time.perf_counter() - t0
+        st = srv.session.last_stats
+        timings["freeze_s"] = st.get("lock_s", 0.0) + st.get("frozen_s", 0.0)
+        print(f"[serve] serving snapshot at pos {srv.pos} -> {path}")
+        remaining -= first
+    t0 = sync()
+    srv.decode(max(remaining, 0))
+    t_decode += sync() - t0
+    decoded += max(remaining, 0)
+    if decoded:
+        timings["decode_s_per_token"] = t_decode / decoded
+
+    out = srv.tokens
+    gen = np.ascontiguousarray(out[:, args.prompt_len:], dtype=np.int32)
+    print(json.dumps({
+        "arch": cfg.name,
+        "generated": int(out.shape[1] - args.prompt_len),
+        "tokens_preview": out[0, args.prompt_len:args.prompt_len + 12]
+        .tolist(),
+        "pos": srv.pos,
+        "tokens_sha256": hashlib.sha256(gen.tobytes()).hexdigest(),
+        "timings": timings, "device": str(device),
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -104,6 +104,9 @@ class EncDecLM:
     def init_abstract(self) -> PyTree:
         return L.abstract_params(self._specs, self.param_dtype)
 
+    def param_axes(self) -> PyTree:
+        return L.axes_tree(self._specs)
+
     # ---------------- pieces ----------------
     def _norm(self, params, x):
         return L.rmsnorm(params, x, self.cfg.norm_eps, self.use_kernels)
@@ -214,6 +217,11 @@ class EncDecLM:
 
     def cache_abstract(self, batch: int, max_seq: int) -> PyTree:
         return self._cache(batch, max_seq, "meta")
+
+    def cache_axes(self) -> PyTree:
+        ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+        fx = ("layers", "batch", "frames", "kv_heads", None)
+        return {"self_k": ax, "self_v": ax, "cross_k": fx, "cross_v": fx}
 
     @torch.no_grad()
     def prefill(self, params, batch) -> Tuple[torch.Tensor, PyTree]:

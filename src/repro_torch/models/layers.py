@@ -101,6 +101,15 @@ def abstract_params(specs: PyTree, dtype=torch.float32) -> PyTree:
     return out
 
 
+def axes_tree(specs: PyTree) -> PyTree:
+    """The logical axes of every param, in the param tree's structure
+    (tuples as leaves): what a sharding policy lays over a mesh."""
+    out: Dict[str, Any] = {}
+    for path, spec in _leaf_paths(specs):
+        _set_path(out, path, spec.axes)
+    return out
+
+
 def stack_specs(specs: PyTree, n: int) -> PyTree:
     """Add a leading ("layers") dim of size n to every ParamSpec."""
     if isinstance(specs, dict):

@@ -133,6 +133,11 @@ class LM:
     def init_abstract(self) -> PyTree:
         return L.abstract_params(self._specs, self.param_dtype)
 
+    def param_axes(self) -> PyTree:
+        """Logical axes per param (``repro_torch.sharding`` lays them
+        over a mesh; the model itself holds no mesh or policy)."""
+        return L.axes_tree(self._specs)
+
     # ---------------- embedding / head ----------------
     def _norm(self, params, x):
         return L.rmsnorm(params, x, self.cfg.norm_eps, self.use_kernels)
@@ -251,6 +256,19 @@ class LM:
 
     def cache_abstract(self, batch: int, max_seq: int) -> PyTree:
         return self._cache(batch, max_seq, "meta")
+
+    def cache_axes(self) -> PyTree:
+        """Logical axes per cache leaf, the structure of ``_cache``."""
+        cfg = self.cfg
+        out = {}
+        for j in range(self._P):
+            if cfg.layer_kind(j) in ATTN_KINDS:
+                kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+                out[f"pos{j}"] = {"k": kv, "v": kv}
+            else:
+                out[f"pos{j}"] = {k: ("layers",) + v
+                                  for k, v in M.MAMBA_CACHE_AXES.items()}
+        return out
 
     # ---------------- prefill (build cache + logits) ----------------
     @torch.no_grad()

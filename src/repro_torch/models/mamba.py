@@ -181,6 +181,15 @@ def mamba_decode(params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     return y @ params["w_out"].to(dt_)
 
 
+# the cache's logical axes (a leading "layers" dim is added by the model)
+MAMBA_CACHE_AXES = {
+    "h": ("batch", "ssm_heads", None, None),
+    "conv_x": ("batch", None, "ssm_inner"),
+    "conv_B": ("batch", None, "state"),
+    "conv_C": ("batch", None, "state"),
+}
+
+
 # ----------------------------------------------------------------------
 # cache
 # ----------------------------------------------------------------------

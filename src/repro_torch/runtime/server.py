@@ -13,6 +13,12 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 critical set ``serve_state/params``) while the cache streams in behind;
 the first decode step, a checkpoint or a preempt dump joins the stream
 first.
+
+With ``mesh=`` and ``policy=`` (default ``"baseline"``) the params and the
+cache carry named shardings on the mesh (the cache's batch- or
+sequence-sharded by the reference's rule, fitted to its shape), so
+images hold each tensor's blocks and a restore lays them out on this
+mesh; ``mesh=None`` writes every tensor whole.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
 from repro_torch.runtime.fault import SimulatedFailure
+from repro_torch.sharding import state_shardings
 
 
 class DecodeServer:
@@ -37,8 +44,10 @@ class DecodeServer:
                  compute_dtype=torch.float32,
                  options: Optional[CheckpointOptions] = None,
                  device: DeviceLike = None,
-                 model=None):
+                 model=None, mesh=None, policy=None):
         self.cfg = cfg
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         # `model=` lets servers share one model (e.g. one built with
         # use_kernels=True)
@@ -55,15 +64,41 @@ class DecodeServer:
             # at once; the (large) cache streams in behind the server
             options = options.replace(
                 critical_states=("serve_state/params",))
+        self.mesh = mesh
+        self.policy = policy
+        self._param_shardings = (
+            state_shardings(self.model, mesh, policy)["params"]
+            if mesh is not None else None)
         self.session = CheckpointSession(run_dir, options,
-                                         device=self.device)
+                                         device=self.device, mesh=mesh)
         self._pending_cache_template = None   # lazy: cache still streaming
-        self.session.attach(lambda: {"serve_state": {
-            "params": self.params, "cache": self.cache}})
+        self.session.attach(
+            lambda: {"serve_state": {"params": self.params,
+                                     "cache": self.cache}},
+            self._shardings if mesh is not None else None)
         self.session.register_host_state(
             "decode_cursor",
             lambda: {"pos": self.pos, "tokens": self.tokens},
             self._restore_cursor)
+
+    def _shardings(self, with_cache: bool = True) -> Dict[str, Any]:
+        """{"serve_state": {"params", "cache"}} named shardings; the
+        cache's need the batch, known once a generation started."""
+        out: Dict[str, Any] = {"params": self._param_shardings}
+        if with_cache and self.tokens is not None:
+            out["cache"] = state_shardings(
+                self.model, self.mesh, self.policy,
+                batch=int(self.tokens.shape[0]),
+                max_seq=self.max_seq)["cache"]
+        return {"serve_state": out}
+
+    def _layout(self) -> Dict[str, Any]:
+        """A restore's target: this server's mesh and, with one, the
+        shardings it knows (a cold server's cache takes its saved
+        layout, resolved on the mesh)."""
+        return {"mesh": self.mesh,
+                "shardings": self._shardings()
+                if self.mesh is not None else None}
 
     def _restore_cursor(self, st) -> None:
         self.pos = int(st["pos"])
@@ -198,7 +233,8 @@ class DecodeServer:
         if self.session.options.restore_mode == "lazy":
             # resume-before-read: params place now, the cache streams
             # behind the server and is joined before the first decode step
-            restored = self.session.restore(step=step, wait="critical")
+            restored = self.session.restore(step=step, wait="critical",
+                                            **self._layout())
             template = self._boot_template(template)
             if not covers(self.session.options.critical_states,
                           "serve_state", "params", template["params"]):
@@ -212,13 +248,16 @@ class DecodeServer:
                 self.cache = engine.retree(template["cache"], raw["cache"])
             return self.pos
         if template["params"] is None or template["cache"] is None:
-            raw = self.session.restore(step=step)["serve_state"]
+            raw = self.session.restore(step=step,
+                                       **self._layout())["serve_state"]
             template = self._boot_template(template)
             self.params = engine.retree(template["params"], raw["params"])
             self.cache = engine.retree(template["cache"], raw["cache"])
             return self.pos
-        restored = self.session.restore_into(template, state="serve_state",
-                                             step=step)
+        layout = self._layout()
+        restored = self.session.restore_into(
+            template, state="serve_state", step=step, mesh=layout["mesh"],
+            shardings=(layout["shardings"] or {}).get("serve_state"))
         self.params = restored["params"]
         self.cache = restored["cache"]
         return self.pos

@@ -25,6 +25,14 @@ behind; the first step or a preempt dump joins the stream first.  With
 ``capture="concurrent"`` a periodic checkpoint is a soft-freeze capture
 begun at the step and finalized between later steps once its speculation
 is done (and at the end of ``run_until``).
+
+With ``mesh=`` (a grid of slots on the trainer's device,
+``repro_torch.launch.mesh``) and ``policy=`` (default ``"baseline"``),
+the state's named shardings (``repro_torch.sharding.state_shardings``)
+ride beside it: images hold each tensor's distinct blocks and name the
+mesh, and a restore lays the image out on this mesh (identical,
+translated or resharded).  Compute is the same whole-tensor step either
+way; ``mesh=None`` writes every tensor whole.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
                                        SimulatedFailure, StragglerMonitor)
+from repro_torch.sharding import state_shardings
 
 PyTree = Any
 
@@ -85,13 +94,17 @@ class TrainConfig:
 class Trainer:
     """`model=` lets a caller pass its own model (e.g. one built with
     ``use_kernels=True``); its compute dtype and remat then stand in for
-    the config's."""
+    the config's.  `mesh` / `policy` lay the state over a mesh of slots
+    (see the module docstring); the device defaults to the mesh's."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, run_dir: str,
                  session: Optional[CheckpointSession] = None, *,
-                 device: DeviceLike = None, model=None):
+                 device: DeviceLike = None, model=None, mesh=None,
+                 policy=None):
         self.cfg = cfg
         self.tcfg = tcfg
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model if model is not None else build_model(
             cfg, compute_dtype=tcfg.compute_dtype, remat=tcfg.remat,
@@ -100,6 +113,10 @@ class Trainer:
                                           tcfg.total_steps))
         self.pipeline = TokenPipeline(cfg, tcfg.batch_size, tcfg.seq_len,
                                       seed=tcfg.seed)
+        self.mesh = mesh
+        # {"params", "opt"} named shardings on the mesh (None: whole)
+        self.shardings = (state_shardings(self.model, mesh, policy)
+                          if mesh is not None else None)
         self.params = None
         self.opt_state = None
         self.step = 0
@@ -112,15 +129,18 @@ class Trainer:
                 # resume-before-read default: the first step's forward
                 # touches params; the optimizer state streams in behind
                 opts = opts.replace(critical_states=("train_state/params",))
-            session = CheckpointSession(run_dir, opts, device=self.device)
+            session = CheckpointSession(run_dir, opts, device=self.device,
+                                        mesh=mesh)
         self.session = session
         # lazy restore: the optimizer template whose leaves are still
         # streaming; joined right before the first step runs
         self._pending_opt_template = None
         self.engine = session.engine
         # transparent wiring: live state via provider, host bits via plugins
-        self.session.attach(lambda: {"train_state": {
-            "params": self.params, "opt": self.opt_state}})
+        self.session.attach(
+            lambda: {"train_state": {"params": self.params,
+                                     "opt": self.opt_state}},
+            {"train_state": self.shardings} if mesh is not None else None)
         self.session.register_host_state(
             "data_cursor", lambda: self.pipeline.state(),
             lambda st: self.pipeline.restore_state(st))
@@ -158,8 +178,11 @@ class Trainer:
                         "opt": self.opt.init_abstract(abstract)}
         else:
             template = {"params": self.params, "opt": self.opt_state}
+        shardings = self.shardings
         if self.session.options.restore_mode == "lazy":
-            restored = self.session.restore(step=step, wait="critical")
+            restored = self.session.restore(
+                step=step, wait="critical", mesh=self.mesh,
+                shardings={"train_state": shardings} if shardings else None)
             engine = self.session.engine
             if not covers(self.session.options.critical_states,
                           "train_state", "params", template["params"]):
@@ -175,7 +198,8 @@ class Trainer:
                 self.opt_state = engine.retree(template["opt"], raw["opt"])
             return self.step
         restored = self.session.restore_into(template, state="train_state",
-                                             step=step)
+                                             step=step, mesh=self.mesh,
+                                             shardings=shardings)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         return self.step

@@ -1,0 +1,386 @@
+"""Logical-axis -> mesh-axis sharding policies, and named shardings.
+
+Port of the reference's ``sharding/policy.py``.  Every parameter and
+cache leaf of the model zoo is annotated with *logical* axis names
+("batch", "heads", "d_ff", "experts", ...); a :class:`ShardingPolicy`
+maps them onto mesh axes.  The tables, the first-dim-wins rule for a
+contested axis and the divisibility fit are the reference's, so a
+policy gives the same ``PartitionSpec`` in both packages.
+
+The port's meshes are grids of slots on one device
+(:mod:`repro_torch.launch.mesh`): compute runs on whole tensors, and a
+:class:`NamedSharding` decides what an image holds and how a restore
+places it.  Its block arithmetic is JAX's: a dim sharded over the axes
+``(a, b)`` is cut into ``|a|·|b|`` equal blocks with ``a`` the major
+axis; a slot's replica id counts, in mesh order, the slots before it
+that hold the same block.  The reference's ``constrain``
+(``with_sharding_constraint``) has nothing to do on whole tensors and is
+left out.
+
+Baseline policy (production posture):
+  - DP over ("pod", "data")        — batch dim of activations
+  - FSDP (ZeRO-3) over ("data",)   — "d_model"-like param dims
+  - TP over ("model",)             — heads / d_ff / vocab param dims
+  - EP over ("model",)             — MoE expert dim
+  - sequence-sharding over ("data",) for long-context decode caches
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+
+Axes = Optional[Tuple[str, ...]]
+PyTree = Any
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: None (replicated), a mesh axis name, or
+    a tuple of names (major first).  Dims past its length replicate."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding:
+    """`spec` laid over `mesh`'s slots (a plain class, not a dataclass:
+    trees of shardings flatten with it as a leaf)."""
+
+    def __init__(self, mesh, spec: Union[PartitionSpec, tuple]):
+        spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*spec)
+        used: List[str] = []
+        for entry in spec:
+            for a in _axes_of(entry):
+                if a not in mesh.axis_names:
+                    raise ValueError(f"spec {spec} names axis {a!r}, not "
+                                     f"in mesh axes {mesh.axis_names}")
+                if a in used:
+                    raise ValueError(f"spec {spec} uses axis {a!r} twice")
+                used.append(a)
+        self.mesh = mesh
+        self.spec = spec
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding)
+                and self.mesh == other.mesh
+                and tuple(self.spec) == tuple(other.spec))
+
+    def __hash__(self) -> int:
+        return hash((self.mesh, tuple(self.spec)))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+    def _dim_axes(self, ndim: int) -> List[Tuple[str, ...]]:
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} is longer than the "
+                             f"tensor's rank {ndim}")
+        return [_axes_of(e) for e in tuple(self.spec)
+                + (None,) * (ndim - len(self.spec))]
+
+    def devices_indices_map(self, shape: Tuple[int, ...]
+                            ) -> Dict[Tuple[int, ...], Tuple[slice, ...]]:
+        """Mesh coordinate -> the block of a `shape` tensor its slot
+        holds, in mesh order (every slot names the same device, so the
+        map is keyed by coordinate where JAX's is keyed by device).  An
+        unsharded dim is ``slice(None)``, as in JAX."""
+        shape = tuple(int(s) for s in shape)
+        sizes = self.mesh.shape
+        dims = self._dim_axes(len(shape))
+        ways = [math.prod(sizes[a] for a in axes) for axes in dims]
+        for d, (n, axes) in enumerate(zip(ways, dims)):
+            if n > 1 and shape[d] % n:
+                raise ValueError(
+                    f"dim {d} of shape {shape} does not divide into "
+                    f"{n} blocks over mesh axes {axes} (fit the spec "
+                    f"first: fit_sharding)")
+        out: Dict[Tuple[int, ...], Tuple[slice, ...]] = {}
+        for coord in _mesh_coords(self.mesh):
+            pos = dict(zip(self.mesh.axis_names, coord))
+            idx = []
+            for d, (n, axes) in enumerate(zip(ways, dims)):
+                if n == 1:
+                    idx.append(slice(None))
+                    continue
+                block = 0
+                for a in axes:                        # first axis major
+                    block = block * sizes[a] + pos[a]
+                step = shape[d] // n
+                idx.append(slice(block * step, (block + 1) * step))
+            out[coord] = tuple(idx)
+        return out
+
+    def replica_ids(self, shape: Tuple[int, ...]) -> Dict[Tuple[int, ...],
+                                                           int]:
+        """Mesh coordinate -> replica id of its block: the slots before
+        it, in mesh order, that hold the same block (JAX's
+        ``device_replica_id_map``)."""
+        seen: collections.Counter = collections.Counter()
+        out: Dict[Tuple[int, ...], int] = {}
+        for coord, idx in self.devices_indices_map(shape).items():
+            key = _index_key(idx, shape)
+            out[coord] = seen[key]
+            seen[key] += 1
+        return out
+
+    def shard_indices(self, shape: Tuple[int, ...]) -> List[Tuple[slice,
+                                                                  ...]]:
+        """The distinct blocks (replica 0 only), in mesh order: what an
+        image holds, in the order the reference's capture writes them."""
+        idx_map = self.devices_indices_map(shape)
+        rids = self.replica_ids(shape)
+        return [idx_map[c] for c in idx_map if rids[c] == 0]
+
+
+def _mesh_coords(mesh) -> List[Tuple[int, ...]]:
+    return [tuple(int(i) for i in c) for c in np.ndindex(*mesh.devices.shape)]
+
+
+def index_to_json(index: Tuple[slice, ...], shape) -> List[List[int]]:
+    """A block's slices as the image's ``[[start, stop], ...]``."""
+    out = []
+    for sl, dim in zip(index, shape):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = int(dim) if sl.stop is None else int(sl.stop)
+        out.append([start, stop])
+    return out
+
+
+def _index_key(index, shape) -> Tuple[Tuple[int, int], ...]:
+    return tuple(tuple(x) for x in index_to_json(index, shape))
+
+
+# ----------------------------------------------------------------------
+# policies
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    name: str
+    # physical mesh axes per role
+    dp: Tuple[str, ...] = ("pod", "data")     # batch data-parallel
+    fsdp: Tuple[str, ...] = ("data",)         # param sharding (ZeRO-3)
+    tp: Tuple[str, ...] = ("model",)          # tensor parallel
+    ep: Tuple[str, ...] = ("model",)          # expert parallel
+    seq: Tuple[str, ...] = ("data",)          # sequence/cache sharding (decode)
+    sp: Tuple[str, ...] = ()                  # Megatron-style sequence parallel
+    shard_seq_decode: bool = True             # shard KV cache seq dim in decode
+    zero_stage: int = 3                       # 3: shard params; 1: only opt state
+
+    # ---- logical -> physical table ------------------------------------
+    def table(self) -> Dict[str, Axes]:
+        fsdp = self.fsdp if self.zero_stage >= 3 else ()
+        return {
+            # activations
+            "batch": self.dp,
+            "seq": self.sp or None,   # SP shards activations between blocks
+            "logit_seq": None,        # logits seq dim: never SP (vocab wins)
+            "act_d": None,
+            "frames": None,
+            "patches": None,
+            "cache_seq": self.seq if self.shard_seq_decode else None,
+            # params
+            "d_model": fsdp,
+            "heads": self.tp,
+            "kv_heads": self.tp,
+            "head_dim": None,
+            "d_ff": self.tp,
+            "vocab": self.tp,
+            "experts": self.ep,
+            "moe_ff": None,
+            "ssm_inner": self.tp,
+            "ssm_heads": self.tp,
+            "state": None,
+            "conv": None,
+            "layers": None,           # stacked leading dim
+            "replicated": None,
+        }
+
+    def spec(self, *logical: Optional[str]) -> PartitionSpec:
+        """PartitionSpec for a tuple of logical axis names (None =
+        replicated).  A mesh axis shards at most one dim: when two
+        logical axes of one tensor resolve to the same mesh axis (e.g.
+        "batch"->data and "cache_seq"->data on a decode cache), the first
+        dim wins and the later dim drops the contested axis."""
+        t = self.table()
+        used: set = set()
+        out = []
+        for name in logical:
+            if name is None:
+                out.append(None)
+                continue
+            if name not in t:
+                raise KeyError(f"unknown logical axis {name!r}")
+            ax = tuple(a for a in (t[name] or ()) if a not in used)
+            used.update(ax)
+            if len(ax) == 0:
+                out.append(None)
+            elif len(ax) == 1:
+                out.append(ax[0])
+            else:
+                out.append(tuple(ax))
+        return PartitionSpec(*out)
+
+    def sharding(self, mesh, *logical: Optional[str]) -> NamedSharding:
+        return NamedSharding(mesh, self.spec(*logical))
+
+    def for_mesh(self, mesh) -> "ShardingPolicy":
+        """Drop mesh axes this mesh does not have (e.g. 'pod' on 1-pod)."""
+        names = set(mesh.axis_names)
+        f = lambda axes: tuple(a for a in axes if a in names)  # noqa: E731
+        return dataclasses.replace(
+            self, dp=f(self.dp), fsdp=f(self.fsdp), tp=f(self.tp),
+            ep=f(self.ep), seq=f(self.seq))
+
+
+def logical_spec(policy: ShardingPolicy,
+                 axes: Tuple[Optional[str], ...]) -> PartitionSpec:
+    return policy.spec(*axes)
+
+
+def fit_spec(spec: PartitionSpec, shape: Tuple[int, ...],
+             axis_sizes: Dict[str, int]) -> PartitionSpec:
+    """Drop mesh axes from dims they do not divide, keeping the largest
+    dividing prefix of each dim's axes (partial sharding)."""
+    new = []
+    for i, axes in enumerate(tuple(spec) + (None,) * (len(shape)
+                                                      - len(spec))):
+        if axes is None:
+            new.append(None)
+            continue
+        keep, prod = [], 1
+        for a in _axes_of(axes):
+            n = axis_sizes[a]
+            if shape[i] % (prod * n) == 0:
+                keep.append(a)
+                prod *= n
+        if not keep:
+            new.append(None)
+        elif len(keep) == 1:
+            new.append(keep[0])
+        else:
+            new.append(tuple(keep))
+    return PartitionSpec(*new)
+
+
+def fit_sharding(sh: NamedSharding, shape: Tuple[int, ...],
+                 mesh=None) -> NamedSharding:
+    """Drop mesh axes from dims they do not divide.  E.g. a KV cache with
+    8 kv-heads on a 16-way model axis: the heads dim replicates across
+    TP (the serving posture when KV heads < TP degree)."""
+    mesh = sh.mesh if mesh is None else mesh
+    return NamedSharding(mesh, fit_spec(sh.spec, shape, dict(mesh.shape)))
+
+
+def map_tree(fn, *trees):
+    """`fn` over the leaves of nested dicts that share the first tree's
+    structure; tuples are leaves (logical axes)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def fit_shardings_tree(sh_tree, abstract_tree, mesh=None):
+    """fit_sharding over a shardings tree and a tree of tensors (meta or
+    real) of the same structure."""
+    return map_tree(lambda sh, ab: fit_sharding(sh, tuple(ab.shape), mesh),
+                    sh_tree, abstract_tree)
+
+
+def cache_policy(policy: ShardingPolicy, mesh, batch: Optional[int]
+                 ) -> ShardingPolicy:
+    """Batch- or sequence-sharding for the decode cache (the reference's
+    ``models/lm.py`` ``_cache_policy``): when the global batch divides
+    the DP extent the cache shards its batch dim; otherwise the DP axes
+    go to the cache's sequence dim (the long-context decode posture)."""
+    if batch is None or mesh is None:
+        return policy
+    dp = tuple(a for a in policy.dp if a in mesh.axis_names)
+    dp_size = math.prod(mesh.shape[a] for a in dp) if dp else 1
+    if dp_size > 1 and batch % dp_size == 0:
+        return dataclasses.replace(policy, shard_seq_decode=False)
+    return dataclasses.replace(policy, dp=(), seq=dp, shard_seq_decode=True)
+
+
+# ----------------------------------------------------------------------
+# Named policies.  The non-baseline entries are the hillclimb levers.
+# ----------------------------------------------------------------------
+POLICIES: Dict[str, ShardingPolicy] = {
+    # paper-faithful production baseline: DP×FSDP×TP
+    "baseline": ShardingPolicy(name="baseline"),
+    # pure tensor-parallel (params replicated over data) — ZeRO-1 posture
+    "tp_only": ShardingPolicy(name="tp_only", fsdp=(), zero_stage=1),
+    # FSDP also across pods (ZeRO-3 over DCN; higher comm, lowest memory)
+    "fsdp_pod": ShardingPolicy(name="fsdp_pod", fsdp=("pod", "data")),
+    # two-axis tensor parallel: TP over both data+model (long-context decode)
+    "tp_wide": ShardingPolicy(
+        name="tp_wide", dp=("pod",), fsdp=(), tp=("data", "model"),
+        ep=("data", "model"), seq=(), shard_seq_decode=False, zero_stage=1),
+    # keep KV cache unsharded along seq (decode alternative)
+    "noseq": ShardingPolicy(name="noseq", shard_seq_decode=False),
+    # Megatron-style sequence parallelism: activations shard their seq dim
+    # over the TP axis between attention/MLP blocks
+    "seq_par": ShardingPolicy(name="seq_par", sp=("model",)),
+    # pure ZeRO-3 over both mesh axes, no tensor parallelism; MoE keeps
+    # EP over "model"
+    "fsdp_all": ShardingPolicy(
+        name="fsdp_all", dp=("pod", "data", "model"),
+        fsdp=("data", "model"), tp=(), ep=("model",), seq=("data",)),
+}
+
+
+def get_policy(name: Union[str, ShardingPolicy]) -> ShardingPolicy:
+    if isinstance(name, ShardingPolicy):
+        return name
+    if name not in POLICIES:
+        raise KeyError(f"unknown policy {name!r}; known: {list(POLICIES)}")
+    return POLICIES[name]
+
+
+# ----------------------------------------------------------------------
+# the models' state, laid over a mesh
+# ----------------------------------------------------------------------
+def state_shardings(model, mesh, policy: Union[str, ShardingPolicy,
+                                               None] = None, *,
+                    batch: Optional[int] = None,
+                    max_seq: Optional[int] = None) -> Dict[str, Any]:
+    """Named shardings of a model's state on `mesh`, each fitted to its
+    concrete shape (the reference's ``param_shardings``,
+    ``_opt_shardings`` and batch-aware ``cache_shardings``):
+    ``{"params": tree, "opt": OptState(step=P(), m=params, v=params)}``,
+    and ``"cache"`` when `batch` and `max_seq` are given.  `policy`
+    defaults to ``"baseline"``: the port's models carry none."""
+    from repro_torch.optim.adamw import OptState
+    pol = get_policy(policy if policy is not None else "baseline")
+    pol = pol.for_mesh(mesh)
+
+    def over(p, axes_tree, abstract):
+        sh = map_tree(lambda ax: p.sharding(mesh, *ax), axes_tree)
+        return fit_shardings_tree(sh, abstract, mesh)
+
+    params = over(pol, model.param_axes(), model.init_abstract())
+    out: Dict[str, Any] = {
+        "params": params,
+        "opt": OptState(step=NamedSharding(mesh, PartitionSpec()),
+                        m=params, v=params)}
+    if batch is not None and max_seq is not None:
+        out["cache"] = over(cache_policy(pol, mesh, batch),
+                            model.cache_axes(),
+                            model.cache_abstract(batch, max_seq))
+    return out

@@ -46,7 +46,11 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.chaos.injector", "repro_torch.chaos.sim",
                "repro_torch.chaos.campaign", "repro_torch.obs.plane",
                "repro_torch.obs.export", "repro_torch.cli",
-               "repro_torch.__main__"]
+               "repro_torch.__main__", "repro_torch.sharding",
+               "repro_torch.sharding.policy", "repro_torch.core.topology",
+               "repro_torch.runtime.elastic", "repro_torch.launch",
+               "repro_torch.launch.mesh", "repro_torch.launch.shapes",
+               "repro_torch.launch.train", "repro_torch.launch.serve"]
 
 
 def _env():

@@ -6,7 +6,8 @@ in turns on one card.
 
 Serves the path alone, as the whole script serves it
 (``chip_smoke.py --path ARCH``, a process of its own: prefill, decode,
-images, cold restores, the logit check and the profile), at N layers and
+images, cold restores, the logit check and the profile; ``--path
+elastic``: phase 8 (c), the elastic restores), at N layers and
 at the path's own depth, in the order cut, own, own, cut, so a drift of
 the host over the four runs falls on both depths alike.  Each run's time
 is the process's wall time, from its start to its exit.  The kernels are
@@ -49,7 +50,7 @@ def run(arch: str, seed: int, layers) -> float:
 
 def main() -> int:
     paths = [p[0] for p in chip_smoke.SERVE_PATHS + chip_smoke.ZOO_PATHS
-             + chip_smoke.MM_PATHS]
+             + chip_smoke.MM_PATHS] + [chip_smoke.ELASTIC_PATH]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", required=True, choices=paths)
     ap.add_argument("--layers", type=int, required=True)
