@@ -35,7 +35,7 @@ plain path to 1e-3.
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
 (KV cache; flash attention + RMSNorm) with a sync and an async snapshot,
-then mamba2-2.7b at 16 of its 64 layers, cut for the run's time budget
+then mamba2-2.7b at 8 of its 64 layers, cut for the run's time budget
 (SSM cache; SSD scan + RMSNorm) with a sync snapshot.
 Each prefills a batch of prompts, decodes greedily, snapshots
 mid-generation, and a fresh server cold-restores the image and carries on
@@ -55,10 +55,10 @@ decode steps are profiled.
 
 Phase 2b serves the decoder zoo at its published widths, bf16 compute,
 kernels on, each path with one sync image mid-decode that a fresh server
-cold-restores and must continue token-exact: h2o-danube-1.8b at 12 of
+cold-restores and must continue token-exact: h2o-danube-1.8b at 4 of
 its 24 layers (cut for the run's time budget) over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
 window binds in prefill, the SWA ring of 4096 wraps in decode),
-qwen3-moe-30b-a3b at 6 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
+qwen3-moe-30b-a3b at 4 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
 experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
 jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
 in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
@@ -218,13 +218,33 @@ step from each restored state must equal the uninterrupted step 4
 bitwise; the image's block count and bytes (the state's bytes, as
 unsharded) and each restore's time are printed.  Flash attention (tc alone) and
 RMSNorm must launch in every run.  ``[launch]`` lines carry the numbers.
+Phase 9 drives the dry run and its op analysis (``repro_torch.launch.
+dryrun``, ``repro_torch.launch.hlo_analysis``; alone: ``--dryrun``): (a)
+``python -m repro_torch.launch.dryrun`` in one process (no card: every
+slot on the meta device) traces one decode cell of every arch at its
+full published config on the (16, 16) pod mesh and qwen1.5-0.5b's
+``train_4k`` cell on the (2, 16, 16) multipod mesh; the script starts it
+first, beside phases 1-8 (with ``--dryrun``: beside (b) and (c)), and
+phase 9 waits for it and prints each summary.  (b) and (c) run in a
+child process of its own.  (b) qwen1.5-0.5b uncut, at phase 3's training
+shape (4 x 512, remat) on a (1, 1) mesh: the dry run's
+``argument_size_in_bytes`` must equal, to the byte, a real ``Trainer``'s
+params, AdamW state and batch on the card; its modelled peak (arguments
++ temp) must lie within 0.5-2x of ``torch.cuda.max_memory_allocated()``
+over one real step (kernels on); the analyzer's FLOPs over one real step
+with ``use_kernels=False`` on the card must equal the meta trace's; the
+step's time with the kernels (flash (tc) and RMSNorm) is printed beside
+``roofline_bound_s`` as a measured roofline fraction.  (c) The same for
+the prefill (4 x 512) and one decode step over a cache of 1024.
+``[dryrun]`` lines carry the numbers.
+
 Step time, tokens/s, MFU, snapshot and restore times, a profile of one
 step and the script's wall time are printed beside the card's name and
 power limit; the ``[time]`` marks count from the process's start, as a
 limit on the command's time does.
 
-``--launch --out F`` runs phase 8 alone.  ``--path ARCH --out F`` serves
-one path alone, as the script serves it
+``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9.
+``--path ARCH --out F`` serves one path alone, as the script serves it
 (``--layers N``: at N layers; ``tools/cut_ab.py`` times such a depth cut
 against the path's own depth, in turns).
 
@@ -846,11 +866,12 @@ SERVE_B, SERVE_S, SERVE_MAX = 4, 512, 1024
 SERVE_TOKENS = 16
 # each serving path: its config, the layers kept (None: all), its
 # snapshot modes, the kernels it must launch, and the depth of its logit
-# check (None: every layer)
+# check (None: every layer).  mamba2 serves 8 of its 64 layers for the
+# run's time budget (16 -> 8: -4.9 s, tools/cut_ab.py in turns, H100)
 SERVE_PATHS = (
     ("qwen1.5-0.5b", None, ("sync", "async"), ("flash_attention", "rmsnorm"),
      None),
-    ("mamba2-2.7b", 16, ("sync",), ("ssd_scan", "rmsnorm"), 4),
+    ("mamba2-2.7b", 8, ("sync",), ("ssd_scan", "rmsnorm"), 4),
 )
 # At full width the bf16 kernel path and the bf16 plain path round at
 # different places (the kernels keep attention scores and probabilities in
@@ -1223,18 +1244,20 @@ def profile_serving(model, params, batch, dev,
 # layer)).  Depth and param dtype are cut only where
 # the card's memory or the run's time forces it: qwen3-moe-30b-a3b's 48
 # layers are 61 GB of bf16 params (their image too slow to write for this
-# run), so 6 of them (12 until phase 7 came in: tools/cut_ab.py, the cut
-# to 6 saves 17.2 s); jamba-v0.1-52b's 32 layers are 105 GB, so one whole
+# run), so 4 of them (12 until phase 7 came in, 6 until phase 9:
+# tools/cut_ab.py, the cut to 6 saved 17.2 s, that to 4 17.5 s);
+# jamba-v0.1-52b's 32 layers are 105 GB, so one whole
 # period of 8 (7 Mamba, 1 attention, 4 MoE, 4 dense MLP; its depth must be
-# a multiple of 8).  h2o-danube at 12 of its 24 layers, cut for the run's
-# time (tools/cut_ab.py: -15.7 s); its prompt of 4608 puts the window
-# (4096) inside the prefill and wraps the ring in decode.  As for mamba2, the logit check keeps 4 layers where
+# a multiple of 8).  h2o-danube at 4 of its 24 layers, cut for the run's
+# time (tools/cut_ab.py: 24 -> 12 -15.7 s, 12 -> 4 -10.9 s); its
+# prompt of 4608 puts the window (4096) inside the prefill and wraps the
+# ring in decode.  As for mamba2, the logit check keeps 4 layers where
 # many random layers carry both bf16 paths O(1) logits away from f32, so
 # that a wrong kernel would not show; jamba keeps its one period of 8.
 ZOO_PATHS = (
-    ("h2o-danube-1.8b", 12, "float32", 2, 4608, 4672, 48,
+    ("h2o-danube-1.8b", 4, "float32", 2, 4608, 4672, 48,
      ("flash_attention", "rmsnorm"), 4),
-    ("qwen3-moe-30b-a3b", 6, "bfloat16", 4, 512, 576, 32,
+    ("qwen3-moe-30b-a3b", 4, "bfloat16", 4, 512, 576, 32,
      ("flash_attention", "rmsnorm"), 4),
     ("jamba-v0.1-52b", 8, "bfloat16", 2, 1024, 1088, 32,
      ("flash_attention", "rmsnorm", "ssd_scan"), None),
@@ -3468,6 +3491,292 @@ def phase_launch(seed: int, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 9
+# the dry run's CLI at full published configs: one cell per arch on the
+# pod mesh (one decode step over a 32k cache: each arch's cheapest cell)
+# and qwen1.5-0.5b's training cell on the multipod mesh, in one process
+DRY_CELLS = [f"{a}/decode_32k/pod" for a in (
+    "phi3-medium-14b", "deepseek-coder-33b", "h2o-danube-1.8b",
+    "qwen1.5-0.5b", "jamba-v0.1-52b", "whisper-tiny", "mamba2-2.7b",
+    "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "qwen2-vl-7b")] + [
+    "qwen1.5-0.5b/train_4k/multipod"]
+# (b)-(c): qwen1.5-0.5b uncut on a (1, 1) mesh at phase 3's training
+# shape, its prefill at the same shape and one decode step over phase 8
+# (b)'s cache of 1024
+DRY_ARCH, DRY_B, DRY_S, DRY_MAX_SEQ = "qwen1.5-0.5b", 4, 512, 1024
+DRY_PEAK = (0.5, 2.0)      # modelled peak / max_memory_allocated, bounds
+DRY_REPEATS = {"train": 5, "prefill": 5, "decode": 20}   # timed calls
+DRY_PATH = f"{DRY_ARCH} dry-run checks (phase 9)"
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.core.device_plugin import flatten_with_paths
+    return sum(t.numel() * t.element_size()
+               for t in flatten_with_paths(tree).values())
+
+
+def _ops(trace) -> dict:
+    """(op, FLOPs) -> how many times the trace ran it."""
+    import collections
+    return collections.Counter((r.op, r.flops) for r in trace.records)
+
+
+def _dry_record(kind: str, seq: int) -> dict:
+    """The dry run of one qwen1.5-0.5b cell (uncut config, B = DRY_B) on
+    a (1, 1) mesh of meta slots; its trace's ops under "ops"."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    mesh = make_mesh((1, 1), ("data", "model"), devices="meta")
+    cell = ShapeCell(f"phase9_{kind}", kind, seq, DRY_B)
+    traced = dr.build_traced(DRY_ARCH, cell, mesh)
+    return dict(dr.analyse(traced, 1), ops=_ops(traced.trace))
+
+
+def _card_flops(model, fn) -> dict:
+    """The op analysis of fn() on the card with the plain path
+    (``use_kernels=False``), as the meta trace runs it."""
+    import torch
+    from repro_torch.launch.hlo_analysis import OpTrace, analyze_trace
+    model.use_kernels = False
+    try:
+        trace = OpTrace()
+        with trace:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        model.use_kernels = True
+    return dict(analyze_trace(trace, 1), ops=_ops(trace))
+
+
+def _timed_ms(fn, n: int) -> float:
+    """Median wall time of fn() on the host's clock, each call waited
+    for (a step ends in the host reading its result back)."""
+    import numpy as np
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _dry_check(kind: str, rec: dict, args_card: int, peak_card: int,
+               flops_card: dict, ms: float, card: str) -> list:
+    """Log one cell's prediction against the card; the failed checks."""
+    mem = rec["memory"]
+    modelled = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ratio = modelled / peak_card
+    bound_ms = rec["roofline_bound_s"] * 1e3
+    flash_ms = max(rec["t_compute_s"], rec["t_memory_flash_s"],
+                   rec["t_collective_s"]) * 1e3
+    same = (flops_card["flops_by_kind"] == rec["flops_by_kind"]
+            and flops_card["flops"] == rec["flops_per_device"])
+    shape = f"cache {DRY_MAX_SEQ}" if kind == "decode" else f"S {DRY_S}"
+    log(f"[dryrun] {DRY_ARCH} {kind} (B {DRY_B}, {shape}): arguments "
+        f"predicted {mem['argument_size_in_bytes']:.0f} B, on "
+        f"the card {args_card} B ({rec['argument_bytes_by_part']}); "
+        f"modelled peak {modelled:.0f} B (temp "
+        f"{mem['temp_size_in_bytes']:.0f} B) / max_memory_allocated "
+        f"{peak_card} B = {ratio:.3f}; FLOPs meta {rec['flops_by_kind']} "
+        f"card (use_kernels=False) {flops_card['flops_by_kind']}, equal "
+        f"{same}; "
+        f"measured {ms:.3f} ms (kernels, host clock) against the bound "
+        f"{bound_ms:.3f} ms ({rec['dominant']}; compute "
+        f"{rec['t_compute_s'] * 1e3:.3f}, memory "
+        f"{rec['t_memory_s'] * 1e3:.3f}, memory with flash "
+        f"{rec['t_memory_flash_s'] * 1e3:.3f} ms) = {bound_ms / ms:.4f} "
+        f"of the roofline ({flash_ms / ms:.4f} with the flash memory "
+        f"term); {card}")
+    bad = []
+    if args_card != mem["argument_size_in_bytes"]:
+        bad.append(f"{kind} argument bytes")
+    if not DRY_PEAK[0] <= ratio <= DRY_PEAK[1]:
+        bad.append(f"{kind} modelled peak {ratio:.3f}")
+    if not same:
+        bad.append(f"{kind} FLOPs")
+        log(f"[dryrun] {kind}: (op, FLOPs) on the card only "
+            f"{dict(flops_card['ops'] - rec['ops'])}, in the meta trace "
+            f"only {dict(rec['ops'] - flops_card['ops'])}")
+    return bad
+
+
+def dryrun_train(seed: int, workdir: str, card: str) -> list:
+    """(b): qwen1.5-0.5b's train step, the dry run against a real
+    Trainer's on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer
+    rec = _dry_record("train", DRY_S)
+    cfg = get_config(DRY_ARCH)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)                               # remat=True
+    t = Trainer(cfg, _train_config(DRY_B, DRY_S, seed),
+                os.path.join(workdir, "train"), device=dev, model=model)
+    t.initialize()
+    # the pipeline's batch as it makes it (int32 tokens: the dry run's
+    # batch spec, as the reference's)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in t.pipeline.peek(0).items()}
+    args_card = _nbytes(t.params) + _nbytes(t.opt_state) + _nbytes(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t._train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _timed_ms(lambda: t._train_step(batch), DRY_REPEATS["train"])
+    flops = _card_flops(model, lambda: t._train_step(batch))
+    bad = _dry_check("train step", rec, args_card, peak, flops, ms, card)
+    t.release()
+    return bad
+
+
+def dryrun_serve(seed: int, card: str) -> list:
+    """(c): qwen1.5-0.5b's prefill and one decode step, the dry run
+    against the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.lm import LM
+    cfg = get_config(DRY_ARCH)
+    dev = torch.device("cuda")
+    bad = []
+    for kind in ("prefill", "decode"):
+        rec = _dry_record(kind, DRY_S if kind == "prefill" else DRY_MAX_SEQ)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+                   device=dev)
+        params = model.init(seed)
+        if kind == "prefill":
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+                cfg, DRY_B, DRY_S, seed=seed).peek(0).items()}
+            args_card = _nbytes(params) + _nbytes(batch)
+            fn = lambda: model.prefill(params, batch)  # noqa: E731
+        else:
+            cache = model.init_cache(DRY_B, DRY_MAX_SEQ)
+            tokens = torch.arange(DRY_B, dtype=torch.int32, device=dev)
+            args_card = _nbytes(params) + _nbytes(cache) + _nbytes(tokens)
+            fn = lambda: model.decode_step(  # noqa: E731
+                params, cache, tokens, DRY_MAX_SEQ - 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = _timed_ms(fn, DRY_REPEATS[kind])
+        flops = _card_flops(model, fn)
+        bad += _dry_check(kind, rec, args_card, peak, flops, ms, card)
+        del model, params, fn
+        torch.cuda.empty_cache()
+    return bad
+
+
+def dryrun_phase(seed: int) -> dict:
+    """Phase 9 (b)-(c): the train step, the prefill and one decode step of
+    qwen1.5-0.5b, each predicted on a (1, 1) mesh and held against the
+    card: argument bytes to the byte, the modelled peak within DRY_PEAK
+    of max_memory_allocated, the analyzer's FLOPs of the plain path on
+    the card equal to the meta trace's, and the time with the kernels
+    beside the roofline bound.  Returns {path: (launches, variants)}."""
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        _zero_counters()
+        bad = dryrun_train(seed, workdir, card)
+        bad += dryrun_serve(seed, card)
+        launches = {n: m.launches for n, m in _counters().items()}
+        variants = _variants()
+    missing = [k for k in LAUNCH_KERNELS if launches[k] <= 0]
+    if missing or variants["flash_attention"]["fma"]:
+        bad.append(f"launches {launches}")
+    log(f"[dryrun] (b)-(c) launches {launches}; {card}")
+    if bad:
+        raise SystemExit(f"phase 9 (dry run) failed: {bad}")
+    return {DRY_PATH: (launches, variants)}
+
+
+class DryrunCLI:
+    """Phase 9 (a): ``python -m repro_torch.launch.dryrun`` over DRY_CELLS
+    in a process of its own (no card: every slot on the meta device).
+    The whole script starts it first, so it runs beside phases 1-8 and
+    costs phase 9 only its wait; ``--dryrun`` starts it beside (b)-(c).
+    ``check`` waits for it, prints each cell's summary and fails on a bad
+    exit, a missing cell or a record not ok; ``stop`` kills it if it
+    still runs and removes its directory."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.out = os.path.join(self.dir, "dryrun_torch")
+        self.log_path = os.path.join(self.dir, "cli.log")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--out", self.out] + [a for c in DRY_CELLS
+                                     for a in ("--cell", c)]
+        env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+        self.t0 = time.time()
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(cmd, stdout=logf,
+                                         stderr=subprocess.STDOUT, env=env)
+
+    def check(self, card: str) -> None:
+        t_wait = time.perf_counter()
+        rc = self.proc.wait(timeout=900)
+        # its wall time: from its start to its log's last write
+        wall = os.path.getmtime(self.log_path) - self.t0
+        with open(self.log_path) as f:
+            out = f.read()
+        recs = []
+        for c in DRY_CELLS:
+            arch, shape, mk = c.split("/")
+            path = os.path.join(self.out,
+                                f"{arch}__{shape}__{mk}__baseline.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs.append(json.load(f))
+        for r in recs:
+            m = r["memory"]
+            log(f"[dryrun] cli {r['arch']} {r['shape']} {r['mesh']} "
+                f"({r['n_devices']} H100 slots, predicted): dominant "
+                f"{r['dominant']}, compute {r['t_compute_s']:.6f} s, memory "
+                f"{r['t_memory_s']:.6f} s (flash {r['t_memory_flash_s']:.6f}"
+                f"), collective {r['t_collective_s']:.6f} s, arguments "
+                f"{m['argument_size_in_bytes'] / 2**30:.3f} GiB + temp "
+                f"{m['temp_size_in_bytes'] / 2**30:.3f} GiB per slot, fits "
+                f"{r['fits']}, traced in {r['trace_s']:.2f} s")
+        log(f"[dryrun] cli: {len(recs)} of {len(DRY_CELLS)} cells in one "
+            f"process, exit {rc}, {wall:.1f} s wall, waited for "
+            f"{time.perf_counter() - t_wait:.1f} s; {card}")
+        if rc != 0 or len(recs) != len(DRY_CELLS) or not all(
+                r.get("ok") for r in recs) or out.count(
+                "memory_analysis:") != len(DRY_CELLS):
+            log(out[-3000:])
+            raise SystemExit("phase 9 (dry run) failed: the dry run's CLI")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_dryrun(seed: int, cli: DryrunCLI, card: str) -> dict:
+    """Phase 9: (b)-(c) in a child process, waited for, then (a)'s
+    check; (b)-(c)'s path's launches."""
+    t_phase = time.perf_counter()
+    res = run_child("phase 9", dryrun_phase, seed)
+    cli.check(card)
+    log(f"[dryrun] phase 9 wall {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return {k: tuple(v) for k, v in res.items()}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3655,8 +3964,10 @@ def main() -> int:
                     "only and write its path's launches to --out")
     ap.add_argument("--launch", action="store_true", help="run phase 8 "
                     "only and write its paths' launches to --out")
-    ap.add_argument("--out", help="with --path, --orch, --chaos or "
-                    "--launch: the launches' JSON")
+    ap.add_argument("--dryrun", action="store_true", help="run phase 9 "
+                    "only and write its path's launches to --out")
+    ap.add_argument("--out", help="with --path, --orch, --chaos, --launch "
+                    "or --dryrun: the launches' JSON")
     args = ap.parse_args()
 
     global CHILDREN
@@ -3689,6 +4000,19 @@ def main() -> int:
             return 0
         finally:
             stop_fork_server()
+    if args.dryrun:
+        cli = DryrunCLI()
+        try:
+            t_phase = time.perf_counter()
+            res = dryrun_phase(args.seed)
+            cli.check(card_line())
+            log(f"[dryrun] phase 9 wall {time.perf_counter() - t_phase:.1f}"
+                f" s; {card_line()}")
+        finally:
+            cli.stop()
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+        return 0
     if args.path or args.orch or args.chaos:
         res = (serve_one(args.path, args.seed, args.layers) if args.path
                else orchestrate(args.seed) if args.orch
@@ -3698,6 +4022,7 @@ def main() -> int:
         return 0
 
     CHILDREN = fork_server()
+    cli = DryrunCLI()                  # phase 9 (a), beside phases 1-8
     try:
         t_start = time.perf_counter()
         card = card_line()
@@ -3749,6 +4074,8 @@ def main() -> int:
         mark("phase 7")
         by_path.update(phase_launch(args.seed, card))
         mark("phase 8")
+        by_path.update(run_dryrun(args.seed, cli, card))
+        mark("phase 9")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
             f"process started (what the run's time limit and its 925 s "
             f"budget apply to), {time.perf_counter() - t_start:.1f} s from "
@@ -3760,6 +4087,7 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     finally:
+        cli.stop()
         stop_fork_server()
 
 

@@ -3,7 +3,9 @@
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
 tensor launches the kernel, which raises on what it does not take.  There
 is no fallback from CUDA to the plain version and no switch that forces
-one: a CUDA run either went through the kernel or failed.
+one: a CUDA run either went through the kernel or failed.  A ``meta``
+tensor (the dry run's shapes, ``launch/dryrun.py``) raises here: no kernel
+runs on it, and the dry run builds its models with ``use_kernels=False``.
 
 Each op is a ``torch.autograd.Function``, the counterpart of the JAX
 package's ``custom_vjp`` wrappers (``src/repro/kernels/ops.py``): the
@@ -44,12 +46,26 @@ def _oracle_grads(oracle, saved: Sequence[torch.Tensor], outputs_grads
                                [g for _, g in pairs], allow_unused=True)
 
 
+def _plain(name: str, t: torch.Tensor) -> bool:
+    """True on the CPU (the plain version), False on a card (the
+    kernel); raises on any other device, the meta device included."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(
+        f"{name}: a tensor on {t.device} reaches the kernel op; it runs "
+        f"on CUDA tensors (and its plain version on CPU ones) only"
+        + (": build the model with use_kernels=False for a meta-device "
+           "trace" if t.device.type == "meta" else ""))
+
+
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if q.device.type == "cpu":
+        if _plain("attention", q):
             return _fa.attention_plain(q, k, v, causal=causal, window=window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
@@ -69,7 +85,7 @@ class _SSD(torch.autograd.Function):
         ctx.chunk = chunk
         # an output nobody differentiates (h_final in training) brings None
         ctx.set_materialize_grads(False)
-        if x.device.type == "cpu":
+        if _plain("ssd", x):
             return _ssd.ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
@@ -86,7 +102,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps: float):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        if x.device.type == "cpu":
+        if _plain("rmsnorm", x):
             return _rn.rmsnorm_plain(x, scale, eps)
         return _rn.rmsnorm(x, scale, eps=eps)
 

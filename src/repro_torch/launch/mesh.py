@@ -23,9 +23,11 @@ machine with more than one card.
 
 The reference's JAX-version shims (``_axis_type_support``,
 ``AXIS_TYPE`` / ``HAS_AXIS_TYPES``, ``use_mesh``) have no torch meaning
-and are left out; ``make_production_mesh`` comes with the dry run.
-Functions, not module-level constants: importing this module touches no
-device.
+and are left out.  ``make_production_mesh`` gives the dry run's meshes
+(:mod:`repro_torch.launch.dryrun`): with ``device="meta"`` every slot
+names the meta device, so a 256- or 512-slot layout is laid out and
+traced without touching a card.  Functions, not module-level constants:
+importing this module touches no device.
 """
 from __future__ import annotations
 
@@ -116,3 +118,14 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
         return make_mesh((pod, data, model), ("pod", "data", "model"),
                          devices=device)
     return make_mesh((data, model), ("data", "model"), devices=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
+    """The reference's production layout: ``(16, 16)`` slots on
+    ``("data", "model")``, or ``(2, 16, 16)`` on ``("pod", "data",
+    "model")`` with `multi_pod`.  ``device="meta"`` is the dry run's mesh
+    (no allocation); None resolves to the card and raises without one."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=device)

@@ -25,9 +25,30 @@ PyTree = Any
 
 CHUNK_THRESHOLD = 8192     # chunk queries when S >= this
 QUERY_CHUNK = 1024
+
+# ---- the dry run's variant knobs (``launch/dryrun.py --variant``) ----
+# dtype the attention score/prob matrices of training and prefill
+# materialise in (f32: the baseline; the flash kernel keeps them on chip)
+SCORE_DTYPE = torch.float32
 # sequence-chunked cross-entropy: when > 0 the (B, S, V) logit loss is
 # computed in S/chunk pieces, bounding the live f32 logit intermediates
 XENT_SEQ_CHUNK = 0
+# GQA -> MHA expansion of K/V in the training forward (the reference's
+# fix for KV heads that do not divide the tensor-parallel degree)
+GQA_EXPAND = False
+# cast the f32 master params to the compute dtype once at the training
+# forward's entry, so FSDP's gathers move the compute dtype
+CAST_PARAMS_ONCE = False
+
+
+def maybe_cast_params(params: PyTree, dtype) -> PyTree:
+    """With ``CAST_PARAMS_ONCE``: every f32 leaf cast to `dtype`
+    (differentiable: the grads reach the f32 masters); else `params`."""
+    if not CAST_PARAMS_ONCE:
+        return params
+    if isinstance(params, dict):
+        return {k: maybe_cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.dtype == torch.float32 else params
 
 
 # ======================================================================
@@ -256,11 +277,23 @@ def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
 def _sdpa_block(q, k, v, mask, scale):
     """q (B,Q,KV,rep,hd), k/v (B,Sk,KV,hd), mask (Q,Sk) bool or None."""
     scores = torch.einsum("bqgrd,bkgd->bgrqk", q, k) * scale
-    scores = scores.float()
+    scores = scores.to(SCORE_DTYPE)
     if mask is not None:
-        scores = torch.where(mask, scores, -1e30)
+        neg = -1e30 if SCORE_DTYPE == torch.float32 else -3e38
+        scores = torch.where(mask, scores, neg)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+
+
+def maybe_expand_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """With ``GQA_EXPAND``: K/V (B,S,KV,hd) repeated over each group to
+    the query-head count (``jnp.repeat``'s order); else (k, v)."""
+    H, KV = q.shape[2], k.shape[2]
+    if not GQA_EXPAND or H == KV:
+        return k, v
+    rep = H // KV
+    return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -354,7 +387,9 @@ def mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
     out = logits.clone()
-    out[..., cfg.vocab_size:] = -1e30
+    # fill_, not a scalar assignment: that one takes another op on the
+    # meta device than on a card, and the dry run's trace follows the card
+    out[..., cfg.vocab_size:].fill_(-1e30)
     return out
 
 
@@ -384,7 +419,7 @@ def next_token_loss(logits: torch.Tensor, batch
     mask = (torch.ones(tokens.shape, dtype=torch.float32,
                        device=tokens.device) if mask is None
             else mask.float().clone())
-    mask[:, -1] = 0.0
+    mask[:, -1].fill_(0.0)             # fill_: see mask_padded_vocab
     return softmax_xent_sharded(logits, targets, mask)
 
 

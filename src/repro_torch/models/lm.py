@@ -19,9 +19,11 @@ SWA layer's S is ``min(max_seq, window)`` and is a ring (position p at
 slot ``p % S``), and ``pos{j}/{h,conv_x,conv_B,conv_C}`` for Mamba (h
 (L, B, nh, P, N) in f32, the conv tails (L, B, W-1, ·) in the compute
 dtype).  Layers run as a Python loop over the stacked dim where the
-reference scans; with ``remat`` each layer is recomputed in the backward
-(``torch.utils.checkpoint``), returning its MoE aux beside x so the aux's
-gradient flows, as the reference rematerialises each super-block.
+reference scans; with ``remat`` each super-block (one pass over the
+layer pattern: one layer for a pattern of length 1, jamba's 8) is
+recomputed in the backward (``torch.utils.checkpoint``), carrying the
+MoE aux beside x so the aux's gradient flows, as the reference
+rematerialises each super-block.
 Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
 ``models.encdec.build_model`` picks the class from the config.
 
@@ -192,27 +194,36 @@ class LM:
         """One layer: (x, its MoE aux or None)."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
-            o = self._attn(lp, j, h, positions)[0]
+            o = self._attn(lp, j, h, positions, expand_gqa=True)[0]
         else:
             o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
         return self._ffn(lp, x + o)
 
+    def _superblock(self, lps, x, aux, positions):
+        """One pass over the pattern (layers ``lps``, one per position):
+        (x, aux plus each MoE layer's aux, in layer order)."""
+        for j, lp in enumerate(lps):
+            x, a = self._block(lp, j, x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
     def _forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits, the MoE aux summed over layers, f32)."""
+        """(logits, the MoE aux summed over layers, f32).  With remat
+        each super-block (one pass over the layer pattern) is recomputed
+        in the backward, the reference's ``jax.checkpoint`` unit."""
+        params = L.maybe_cast_params(params, self.compute_dtype)
         x = self._embed_batch(params, batch)
         positions = self._positions(batch)
         layers = self._layers(params)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self._n_sb):
-            for j in range(self._P):
-                lp = layers[f"pos{j}"][i]
-                if self.remat:
-                    x, a = checkpoint(self._block, lp, j, x, positions,
-                                      use_reentrant=False)
-                else:
-                    x, a = self._block(lp, j, x, positions)
-                if a is not None:
-                    aux = aux + a
+            lps = [layers[f"pos{j}"][i] for j in range(self._P)]
+            if self.remat:
+                x, aux = checkpoint(self._superblock, lps, x, aux,
+                                    positions, use_reentrant=False)
+            else:
+                x, aux = self._superblock(lps, x, aux, positions)
         x = self._norm(params["final_norm"], x)
         return L.head(params, x, self.cfg), aux
 
@@ -313,14 +324,16 @@ class LM:
         return self.cfg.sliding_window if self.cfg.layer_kind(j) == "swa" \
             else 0
 
-    def _attn(self, lp, j: int, h, positions):
+    def _attn(self, lp, j: int, h, positions, expand_gqa: bool = False):
         """Causal self-attention over a sequence, windowed for an SWA
-        layer: (out, {k, v})."""
+        layer: (out, {k, v}).  `expand_gqa`: the training forward, where
+        the reference applies ``GQA_EXPAND``."""
         cfg = self.cfg
         B, S = h.shape[:2]
         window = self._window(j)
         q, k, v = L._qkv(lp["attn"], cfg, h, positions)
-        o = L.attention(q, k, v, causal=True, window=window,
+        ka, va = L.maybe_expand_gqa(q, k, v) if expand_gqa else (k, v)
+        o = L.attention(q, ka, va, causal=True, window=window,
                         use_kernels=self.use_kernels)
         o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
         return o @ lp["attn"]["wo"].to(h.dtype), {"k": k, "v": v}

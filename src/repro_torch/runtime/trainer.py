@@ -60,13 +60,19 @@ from repro_torch.sharding import state_shardings
 PyTree = Any
 
 
-def loss_and_grads(model, params: PyTree, batch
-                   ) -> Tuple[Dict[str, torch.Tensor], PyTree]:
+def loss_and_grads(model, params: PyTree, batch,
+                   on_grad: Optional[Callable[[str, torch.Tensor], None]]
+                   = None) -> Tuple[Dict[str, torch.Tensor], PyTree]:
     """``model.loss``'s metrics and the grads of its total for every
     param (the counterpart of ``jax.value_and_grad``), taken on views of
-    the params: nothing accumulates in ``.grad``."""
+    the params: nothing accumulates in ``.grad``.  ``on_grad(path,
+    grad)`` runs as each param's grad is formed (the dry run lays it out
+    over its shards there)."""
     flat = {k: p.detach().requires_grad_()
             for k, p in flatten_with_paths(params).items()}
+    if on_grad is not None:
+        for k, t in flat.items():
+            t.register_hook(lambda g, k=k: on_grad(k, g))
     total, metrics = model.loss(unflatten_like(params, flat), batch)
     # a declared leaf no layer reads (pre_mlp_norm without an FFN) gets
     # zeros, as from jax.grad

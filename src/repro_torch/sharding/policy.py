@@ -94,6 +94,21 @@ class NamedSharding:
         return [_axes_of(e) for e in tuple(self.spec)
                 + (None,) * (ndim - len(self.spec))]
 
+    def shard_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape of one slot's block of a `shape` tensor (JAX's
+        ``NamedSharding.shard_shape``): each dim over the product of its
+        axes' sizes, which must divide it."""
+        sizes = self.mesh.shape
+        out = []
+        for d, axes in enumerate(self._dim_axes(len(shape))):
+            n = math.prod(sizes[a] for a in axes)
+            if shape[d] % n:
+                raise ValueError(f"dim {d} of shape {tuple(shape)} does not "
+                                 f"divide into {n} blocks over mesh axes "
+                                 f"{axes}")
+            out.append(shape[d] // n)
+        return tuple(out)
+
     def devices_indices_map(self, shape: Tuple[int, ...]
                             ) -> Dict[Tuple[int, ...], Tuple[slice, ...]]:
         """Mesh coordinate -> the block of a `shape` tensor its slot

@@ -50,7 +50,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.sharding.policy", "repro_torch.core.topology",
                "repro_torch.runtime.elastic", "repro_torch.launch",
                "repro_torch.launch.mesh", "repro_torch.launch.shapes",
-               "repro_torch.launch.train", "repro_torch.launch.serve"]
+               "repro_torch.launch.train", "repro_torch.launch.serve",
+               "repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun"]
 
 
 def _env():
