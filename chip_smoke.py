@@ -27,10 +27,12 @@ shapes of phase 2c: flash attention at whisper-tiny's encoder (non-causal
 over 1500 frames, a partial last key tile), its prefill cross-attention (4
 queries against 1500 keys), its decoder's causal self-attention over the
 4-token prompt and qwen2-vl-7b's prefill (a GQA group of 7, hd 128),
-RMSNorm at d 384 and 3584.  On a small input (each serving
-path's smoke config, f32, with whisper's frames and qwen2-vl's vision
-embeddings and image positions) the card's kernel path must match the CPU
-plain path to 1e-3.
+RMSNorm at d 384 and 3584; and at the training shapes of phase 10:
+flash attention at h2o-danube's B 1 x 4608 under the window, RMSNorm at
+its 4608 rows and on qwen3-moe's q/k-norm rows (hd 128).  On a small
+input (each serving path's smoke config, f32, with whisper's frames and
+qwen2-vl's vision embeddings and image positions) the card's kernel path
+must match the CPU plain path to 1e-3.
 
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
@@ -90,9 +92,12 @@ Phase 1 also holds each kernel's autograd Function (kernel forward,
 oracle backward) against plain autograd through its oracle on the card,
 for the reference's sum-of-squares loss (each path's forward output feeds
 its backward): at the reference's grad cases in f32 with its tolerances,
-and at the slice shapes in bf16 and f32 (rtol 2e-2 bf16; f32 2e-4
-attention, 1e-3 SSD, 1e-5 RMSNorm; atol the same times each input's
-largest |grad|); each forward must launch its kernel once.
+and at the slice shapes and the zoo's training shapes (flash attention
+at danube's window over 4608 tokens, at qwen3-moe's GQA 32/4 and
+qwen2-vl's 28/4; RMSNorm on qwen3-moe's q/k-norm rows) in bf16 and f32
+(rtol 2e-2 bf16; f32 2e-4 attention, 1e-3 SSD, 1e-5 RMSNorm; atol the
+same times each input's largest |grad|); each forward must launch its
+kernel once.
 
 Phase 3 trains qwen1.5-0.5b at full width (bf16 over f32 masters, kernels,
 remat, batch 4 x 512, AdamW, deterministic settings): (a) 12 steps with an
@@ -125,7 +130,8 @@ into a view), one is replaced, one key added and one dropped; the dirty
 set must be exactly the touched keys, the re-captured bytes at most
 theirs, and the image must restore bitwise to the live tree.
 Phase 5 replicates and migrates, qwen1.5-0.5b at full width through the
-kernels: (a) sync incremental images 16 tokens apart, each pushed inside
+kernels, (a)-(c) at 4 of its 24 layers (cut for the run's time budget):
+(a) sync incremental images 16 tokens apart, each pushed inside
 the dump to a peer by the CAS delta replicator (image 2 must ship the KV
 cache, at most one chunk more, and skip image 1 whole); the primary's
 images are deleted and a fresh server must restore from the replica
@@ -147,14 +153,15 @@ bitwise.  Each round's bytes sent and
 reused, its wall time and the decision, the blackout (the residual
 push) and every replicate_s are printed as ``[replicate]`` and
 ``[migrate]`` lines.
-Phase 6 drives the orchestrator, the interception baseline and the
-serving fleet (``repro_torch.orchestrator``, ``repro_torch.baselines``)
-on qwen1.5-0.5b at full width (bf16 over f32 masters, kernels, remat;
-phase 3's training shape, phase 2's serving shape), in a child process
-(alone: ``--orch``): (a) preemption on one device slot: ``lo`` is mid-run
-when ``hi`` arrives, checkpoints on the signal and is evicted; device
-memory at the eviction must fall by lo's params + AdamW state (its grads
-are freed at each step's end) and from lo's peak by params + AdamW +
+Phase 6 drives the orchestrator, the interception baseline and the serving
+fleet (``repro_torch.orchestrator``, ``repro_torch.baselines``) on
+qwen1.5-0.5b at full width (bf16 over f32 masters, kernels, remat; phase
+3's training shape, phase 2's serving shape), cut to 4 of its 24 layers
+for the run's time budget but in (d), which keeps all 24, in a child
+process (alone: ``--orch``): (a) preemption on one device slot: ``lo`` is
+mid-run when ``hi`` arrives, checkpoints on the signal and is evicted;
+device memory at the eviction must fall by lo's params + AdamW state (its
+grads are freed at each step's end) and from lo's peak by params + AdamW +
 grads; hi runs to done, lo restores and finishes, and each job's digest
 must equal an uninterrupted run's; (b) a serving job crashes at token 4,
 the heartbeat detects it, and it restores from its newest image
@@ -166,16 +173,16 @@ restore (and at 16 the live state) bitwise; replay's whole restore must
 grow with the log (by over half the 12 extra steps' bare time) and the
 engine's (the faster of two restores of each image, taken in turns) must
 move by under half that growth, either way; then the MLP ``intercept``
-scenario runs to done; (e) one serving image fans out to 4 replicas over
-2 hosts with lazy boots: every replica token-exact against the solo
-server, a host's second replica shipping under 5% of its first's bytes,
-and a trace that scales up and drains.
-The heartbeat deadlines are 1.0 s (training) and 0.25 s (serving), for
-full-width slices; each part's recovery breakdown, goodput, rounds,
-restore times, TTFTs and bytes are printed as ``[orch]`` lines.  The
-launch counters are zeroed just before each part's own run (the
-scenario, the logged training run, the fleet) and read just after it,
-before the reference runs, replays and timed turns that check it.
+scenario runs to done; (e) one serving image fans out to 4 replicas over 2
+hosts with lazy boots: every replica token-exact against the solo server,
+a host's second replica shipping under 5% of its first's bytes, and a
+trace that scales up and drains. The heartbeat deadlines are 1.0 s
+(training) and 0.25 s (serving), for full-width slices; each part's
+recovery breakdown, goodput, rounds, restore times, TTFTs and bytes are
+printed as ``[orch]`` lines. The launch counters are zeroed just before
+each part's own run (the scenario, the logged training run, the fleet) and
+read just after it, before the reference runs, replays and timed turns
+that check it.
 Phase 7 drives the chaos campaigns, the observability plane and the CLI
 (``repro_torch.chaos``, ``repro_torch.obs``, ``repro_torch.cli``) in a
 child process (alone: ``--chaos``), calling ``repro_torch.cli.main`` in
@@ -243,10 +250,40 @@ step and the script's wall time are printed beside the card's name and
 power limit; the ``[time]`` marks count from the process's start, as a
 limit on the command's time does.
 
-``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9.
-``--path ARCH --out F`` serves one path alone, as the script serves it
-(``--layers N``: at N layers; ``tools/cut_ab.py`` times such a depth cut
-against the path's own depth, in turns).
+Phase 10 trains the decoder zoo at published widths (bf16 over f32
+masters, kernels, remat, AdamW, deterministic settings; alone:
+``--train-zoo``), each arch in a child process of its own:
+qwen3-moe-30b-a3b at 1 of its 48 layers (B 4 x 512; 128 experts top-8,
+capacity drops, q/k-norm through the RMSNorm kernel) and h2o-danube-1.8b
+at 2 of 24 (B 1 x 4608: the 4096 window binds), each (a) 6 steps
+uninterrupted and (b) through ``run_with_restarts`` with a sync image at
+step 3, a crash at step 5 and a cold restore from the image: (b)'s
+losses of steps 4-6, final params and AdamW state must be (a)'s bitwise;
+qwen2-vl-7b at 1 of 28 (B 2 x 1280: 1024 vision embeddings and 256 text
+tokens, M-RoPE) twice for 3 steps from one seed, bitwise equal.  For
+each, step 0's batch must score lower after (a) than before by more than
+the run's batches' spread, the aux loss must be finite at every step (>
+0 with MoE), flash attention (tc alone) and RMSNorm must launch 2 x L and
+2 x (2 + 2 q/k) x L + 1 times per executed step, and the first step's
+grads in f32 on the kernel path must lie within the arch's tolerance of
+the plain f32 path's (worst leaf, max |diff| / max |grad|) where a
+witness whose attention forward is 2% off must not (bf16's, against the
+plain bf16 path, are printed beside them: ill-conditioned, see
+ZOO_TRAIN).  Step time, tokens/s and
+MFU (active params: 8 of 128 experts, no embedding gather; the window's
+visible pairs), the image's write, the restore and the host's free
+memory around them are printed as ``[train-zoo]`` lines.  Then the four
+examples of ``examples/torch/`` run in one child process with
+``device="cuda"`` (their smoke configs, the plain path), each asserting
+what its JAX counterpart asserts; ``[examples]`` lines carry what they
+print.
+
+``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9,
+``--train-zoo --out F`` phase 10.  ``--path ARCH --out F`` serves one
+path alone, as the script serves it (``--path orch``: phase 6, ``--path
+repl``: phase 5 (a)-(c), ``--path elastic``: phase 8 (c); ``--layers
+N``: at N layers; ``tools/cut_ab.py`` times such a depth cut against the
+path's own depth, in turns).
 
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
@@ -344,6 +381,13 @@ MM_ATTN = [(16, 1500, 1500, 6, 6, 64, False, 0),
            (16, 4, 4, 6, 6, 64, True, 0),
            (2, 1280, 1280, 28, 4, 128, True, 0)]
 MM_NORM = [(24000, 384), (64, 384), (16, 384), (2560, 3584), (2, 3584)]
+# the training shapes of phase 10 (bf16) that phases 2b-2c do not cover:
+# flash attention at h2o-danube's B 1 x 4608 under the window; RMSNorm at
+# danube's 4608 rows x 2560 and on qwen3-moe's q/k-norm rows (one per
+# token and head, hd 128: 4 x 512 x 32 queries, 4 x 512 x 4 keys).
+# qwen3-moe's and qwen2-vl's attention are ZOO_ATTN's and MM_ATTN's
+TRAIN_ATTN = [(1, 4608, 4608, 32, 8, 80, True, 4096)]
+TRAIN_NORM = [(4608, 2560), (65536, 128), (8192, 128)]
 
 
 def log(*a):
@@ -627,12 +671,14 @@ def ssd_chunk_invariance(gen) -> list:
 
 def path_shape_cases(rows: dict, gen) -> list:
     """Each kernel checked and timed (bf16) at the shapes of the zoo
-    (phase 2b) and of the encoder-decoder and VLM paths (phase 2c), into
-    rows["zoo"] and rows["mm"]; the cases that failed."""
+    (phase 2b), of the encoder-decoder and VLM paths (phase 2c) and of
+    the zoo's training (phase 10), into rows["zoo"], rows["mm"] and
+    rows["train"]; the cases that failed."""
     import torch
     failed = []
     for group, attn, ssd, norm in (("zoo", ZOO_ATTN, ZOO_SSD, ZOO_NORM),
-                                   ("mm", MM_ATTN, [], MM_NORM)):
+                                   ("mm", MM_ATTN, [], MM_NORM),
+                                   ("train", TRAIN_ATTN, [], TRAIN_NORM)):
         rows[group] = {}
         for name, cases, case_fn in (
                 ("flash_attention", attn, attention_case),
@@ -772,6 +818,13 @@ GRAD_TOL = {"attention": 2e-4, "ssd": 1e-3, "rmsnorm": 1e-5}
 GRAD_REF_CASES = {"attention": (1, 64, 64, 4, 2, 32, True, 0),
                   "ssd": (1, 32, 2, 16, 16, 16),
                   "rmsnorm": (32, 64)}
+# the decoder zoo's training shapes (phase 10), checked as the slice
+# shapes are: flash attention at h2o-danube's (B 1 x 4608, hd 80, the
+# window of 4096 binding), qwen3-moe's (hd 128, GQA 32/4) and qwen2-vl's
+# (28/4); RMSNorm on qwen3-moe's q-norm and k-norm rows
+GRAD_ZOO_CASES = [("attention", TRAIN_ATTN[0]), ("attention", ZOO_ATTN[1]),
+                  ("attention", MM_ATTN[3]), ("rmsnorm", TRAIN_NORM[1]),
+                  ("rmsnorm", TRAIN_NORM[2])]
 
 
 def _grad_inputs(name, case, dtype, gen):
@@ -835,7 +888,8 @@ def grad_case(name, case, dtype, gen, scaled: bool) -> dict:
 def phase_grads(seed: int) -> None:
     """Each autograd Function on the card, at the reference's grad test
     cases in f32 with the reference's criterion, and at the slice shapes
-    in bf16 and f32 with the atol scaled to each input's largest |grad|
+    and the zoo's training shapes in bf16 and f32 with the atol scaled to
+    each input's largest |grad|
     (there the grads reach ~5e7: the two paths' forwards, which differ by
     rounding, feed the backward, and a fixed atol would hold the small
     grads to a bound far below the rounding of the large ones); its
@@ -845,7 +899,8 @@ def phase_grads(seed: int) -> None:
     slices = {"attention": ATTN_SLICE, "ssd": SSD_SLICE,
               "rmsnorm": NORM_SLICE}
     runs = [(n, c, torch.float32, False) for n, c in GRAD_REF_CASES.items()]
-    runs += [(n, c, dt, True) for n, c in slices.items()
+    runs += [(n, c, dt, True)
+             for n, c in list(slices.items()) + GRAD_ZOO_CASES
              for dt in (torch.bfloat16, torch.float32)]
     failed = []
     for name, case, dtype, scaled in runs:
@@ -1513,15 +1568,36 @@ def _score(model, params, batch) -> float:
         return float(model.loss(params, batch)[1]["loss"])
 
 
+def visible_pairs(S: int, window: int = 0) -> int:
+    """Causal (query, key) pairs of one sequence of S tokens, each query
+    seeing at most `window` keys (itself included; 0: no window)."""
+    if not window or S <= window:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def train_flops(cfg, n_params: int, B: int, S: int) -> float:
-    """Operations of one training step: 6 per param per token (forward
-    and backward of every matmul, the tied head included), plus causal
-    attention's two products, 4·B·H·hd per visible pair forward, x3 for
-    the backward.  Remat's recompute is not counted (MFU convention)."""
-    visible = S * (S + 1) // 2
-    attn = 3 * 4.0 * B * cfg.num_heads * cfg.head_dim * visible \
-        * cfg.num_layers if cfg.num_heads else 0.0
-    return 6.0 * n_params * B * S + attn
+    """Operations of one training step: 6 per token for each param its
+    matmuls use (forward and backward), plus each attention layer's two
+    products, 4·B·H·hd per visible (query, key) pair forward, x3 with the
+    backward.  A token uses every param of `n_params` but an untied
+    embedding table (a gather, no product) and, of each MoE layer's
+    experts, only the top-k it is routed to (the router is dense); an
+    attention layer sees the causal pairs within its window.  Remat's
+    recompute is not counted (MFU convention)."""
+    d = cfg.d_model
+    matmul = n_params - (0 if cfg.tie_embeddings else cfg.padded_vocab * d)
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    matmul -= moe_layers * (cfg.moe_num_experts - cfg.moe_top_k) \
+        * 3 * d * cfg.moe_d_ff
+    attn = 0.0
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if kind in ("attn", "swa"):
+            window = cfg.sliding_window if kind == "swa" else 0
+            attn += 3 * 4.0 * B * cfg.num_heads * cfg.head_dim \
+                * visible_pairs(S, window)
+    return 6.0 * matmul * B * S + attn
 
 
 def _snapshot_line(tag, trainer, card) -> None:
@@ -2016,6 +2092,10 @@ def phase_training_mamba(seed: int, workdir: str, card: str) -> dict:
 
 # ----------------------------------------------------------------- phase 5
 REPL_ARCH = "qwen1.5-0.5b"
+REPL_PATH = "repl"        # --path: phase 5 (a)-(c) alone (tools/cut_ab.py)
+# full width, cut to 4 of its 24 layers for the run's time budget (-59.5 s
+# in turns, tools/cut_ab.py --path repl, H100)
+REPL_LAYERS = 4
 REPL_TOKENS = 16          # decoded between the two replicated images
 MIGRATE_TOKENS = 4        # decoded between two pre-copy rounds
 MIGRATE_ROUNDS = 4        # TransferPolicy.precopy_rounds; no blackout budget
@@ -2111,8 +2191,10 @@ def _tear_cache_chunk(run: str, step: int) -> str:
     return entry
 
 
-def phase_replication(seed: int, workdir: str, card: str) -> tuple:
-    """Phase 5 (a)-(c), qwen1.5-0.5b at full width through the kernels:
+def phase_replication(seed: int, workdir: str, card: str,
+                      layers: int = REPL_LAYERS) -> tuple:
+    """Phase 5 (a)-(c), qwen1.5-0.5b at full width (`layers` of its 24
+    layers) through the kernels:
     (a) sync incremental images delta-replicated to a peer, the second
     shipping its own chunks only; the primary's images deleted, a fresh
     server restores from the replica, token-exact; (b) a torn KV-cache
@@ -2131,7 +2213,7 @@ def phase_replication(seed: int, workdir: str, card: str) -> tuple:
     from repro_torch.runtime.server import DecodeServer
     from repro_torch.transfer import DeltaReplicator, summarize_rounds
 
-    cfg = get_config(REPL_ARCH)
+    cfg = dataclasses.replace(get_config(REPL_ARCH), num_layers=layers)
     dev = torch.device("cuda")
     model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
                device=dev)
@@ -2404,6 +2486,14 @@ def phase_migrate_training(seed: int, workdir: str, card: str) -> tuple:
 
 # ----------------------------------------------------------------- phase 6
 ORCH_ARCH = "qwen1.5-0.5b"
+ORCH_PATH = "orch"            # --path: phase 6 alone (tools/cut_ab.py)
+# full width, parts (a)-(c) and (e) cut to 4 of the 24 layers for the
+# run's time budget (-95.4 s in turns, tools/cut_ab.py --path orch,
+# H100); (d) keeps all 24: its check reads replay's restore growing by 12
+# re-executed steps against the engine's, and at 4 layers (a 61 ms step)
+# that growth fell inside the restores' noise
+ORCH_LAYERS = 4
+REPLAY_LAYERS = 24
 ORCH_TRAIN_STEPS = 6          # preemption: lo 6 steps, hi 3
 ORCH_SERVE_STEPS = 6          # failure: a crash at step 4 (total//2 + 1)
 ORCH_MIGRATE_STEPS = 12       # pre-copy migration from step 6
@@ -2417,14 +2507,15 @@ FLEET_TRACE = [1, 12, 0, 0, 0]
 ORCH_KERNELS = ("flash_attention", "rmsnorm")
 
 
-def _orch_workload():
-    """qwen1.5-0.5b at full width, bf16 compute over f32 masters, the
-    kernels, remat; phase 3's training shape and phase 2's serving
-    shape."""
+def _orch_workload(layers: int = ORCH_LAYERS):
+    """qwen1.5-0.5b at full width (`layers` of its 24 layers), bf16
+    compute over f32 masters, the kernels, remat; phase 3's training
+    shape and phase 2's serving shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.orchestrator.workloads import WorkloadConfig
-    return WorkloadConfig(model=get_config(ORCH_ARCH),
+    return WorkloadConfig(model=dataclasses.replace(get_config(ORCH_ARCH),
+                                                    num_layers=layers),
                           compute_dtype=torch.bfloat16, use_kernels=True,
                           remat=True, train_batch=TRAIN_B, train_seq=TRAIN_S,
                           lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
@@ -2878,9 +2969,11 @@ ORCH_PARTS = (("(a) preempt", orch_preemption), ("(b) failure", orch_failure),
               ("(e) fleet", orch_fleet))
 
 
-def phase_orchestration(seed: int, workdir: str, card: str) -> dict:
+def phase_orchestration(seed: int, workdir: str, card: str,
+                        layers: int = ORCH_LAYERS) -> dict:
     """Phase 6: the orchestrator, the interception baseline and the fleet
-    on qwen1.5-0.5b at full width.  Each part returns its path's launches:
+    on qwen1.5-0.5b at full width, at `layers` of its 24 layers ((d) at
+    REPLAY_LAYERS).  Each part returns its path's launches:
     the kernels' counters are zeroed just before its orchestrated run (the
     scenario, the logged training run, the fleet) and read just after,
     before any reference run, replay or timing.  Returns {path:
@@ -2888,16 +2981,19 @@ def phase_orchestration(seed: int, workdir: str, card: str) -> dict:
     import gc
     import torch
     dev = torch.device("cuda")
-    w = _orch_workload()
+    w = _orch_workload(layers)
+    w_replay = _orch_workload(REPLAY_LAYERS)
     out = {}
     t_phase = time.perf_counter()
     for name, part in ORCH_PARTS:
         sub = os.path.join(workdir, name.split()[0].strip("()"))
         os.makedirs(sub)
         t0 = time.perf_counter()
-        args = (seed,) if part is orch_replay else ()
-        out[f"{ORCH_ARCH} orchestration {name}"] = part(dev, w, sub, card,
-                                                        *args)
+        if part is orch_replay:
+            res = part(dev, w_replay, sub, card, seed)
+        else:
+            res = part(dev, w, sub, card)
+        out[f"{ORCH_ARCH} orchestration {name}"] = res
         log(f"[orch] {name}: {time.perf_counter() - t0:.1f} s; {card}")
         shutil.rmtree(sub, ignore_errors=True)
         gc.collect()
@@ -3777,6 +3873,336 @@ def run_dryrun(seed: int, cli: DryrunCLI, card: str) -> dict:
     return {k: tuple(v) for k, v in res.items()}
 
 
+# ---------------------------------------------------------------- phase 10
+# the decoder zoo trained at published widths (bf16 compute over f32
+# masters, remat, kernels), depth cut for the card's 80 GB and the run's
+# time budget: (arch, layers, B, S, crash-and-restore, grad tolerance:
+# below).  qwen3-moe at 1 of 48 layers is 1.25 B params (622 M embedding
+# and untied head, 623 M a layer), ~14.9 GB of params + AdamW in its
+# image: at 2 layers its 22.4 GB image took 34.0-37.8 s to write and
+# 45.2-47.0 s to restore in a whole run (H100 80GB HBM3, 700 W), which
+# the phase 5 and 6 cuts did not pay for on a slow host; danube's 4608 tokens put the 4096 window over the last 512
+# queries' oldest keys; qwen2-vl's 1280 are 1024 vision embeddings + 256
+# text tokens (phase 2c's shape), and its state (1.32 B params) is a
+# dense decoder's, imaged in phase 3
+ZOO_TRAIN = (("qwen3-moe-30b-a3b", 1, 4, 512, True, 0.002),
+             ("h2o-danube-1.8b", 2, 1, 4608, True, 0.25),
+             ("qwen2-vl-7b", 1, 2, 1280, False, 0.006))
+ZOO_TRAIN_STEPS = 6                  # (a) uninterrupted, and (b)
+ZOO_IMAGE_AT, ZOO_FAIL_AT = 3, 5     # (b): a sync image, then a crash
+VLM_TRAIN_STEPS = 3                  # qwen2-vl: two runs from one seed
+# the grad tolerance: the first step's grads in f32, kernel path against
+# the plain path, per leaf max |diff| / max |grad|, worst leaf, at most
+# this; a witness whose attention forward is 2% off must read above it.
+# Set from the card's readings (H100 80GB HBM3, 700 W), kernel path /
+# witness: qwen3-moe 0.000087 / 0.0209 (at 2 layers 0.0023 / 0.211),
+# danube 0.125 / 0.510, qwen2-vl 0.0018 / 0.0204, each tolerance near the
+# two's geometric mean.  In bf16
+# both read 1.0-1.9 in every arch: a 0.1% change of the attention forward
+# moves the bf16 grads of the block leaves by 60-85% (zoo_grad_check)
+EXAMPLES = ("quickstart", "serve_with_snapshots", "fault_tolerant_training",
+            "elastic_restore")
+
+
+@contextlib.contextmanager
+def _attention_forward(fn):
+    """``ops.attention`` with `fn` in place of the flash kernel's forward
+    and the op's own backward (the oracle's, from the saved inputs)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    class Stand(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            ctx.save_for_backward(q, k, v)
+            ctx.causal, ctx.window = causal, window
+            return fn(q, k, v, causal=causal, window=window)
+        backward = staticmethod(ops._Attention.backward)
+
+    kernel = ops.attention
+    ops.attention = lambda q, k, v, *, causal=True, window=0: Stand.apply(
+        q, k, v, causal, window)
+    try:
+        yield
+    finally:
+        ops.attention = kernel
+
+
+def _attention_off_by_2pc(q, k, v, causal, window):
+    """A broken attention forward for the check to catch: 2% too large."""
+    from repro_torch.kernels import flash_attention as fa
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    return (o.float() * 1.02).to(o.dtype)
+
+
+def _grad_distance(grads: dict, ref: dict) -> tuple:
+    """(max over the leaves of max |diff| / max |ref grad|, that leaf)."""
+    worst = (0.0, "")
+    for k, w in ref.items():
+        diff = (grads[k].float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if diff:
+            worst = max(worst, (diff / scale if scale else float("inf"), k))
+    return worst
+
+
+def zoo_grad_check(cfg, params, batch) -> dict:
+    """The first step's grads on the kernel path and on a witness whose
+    attention forward is 2% off, each against the plain path on the same
+    params and batch, in bf16 compute (the tensor-core flash kernel, as
+    trained) and in f32 (the CUDA-core one): {dtype: {name:
+    _grad_distance's pair}}.  bf16 is ill-conditioned here: a 0.1%
+    change of the attention forward moves the block leaves' grads by
+    60-85% (a CPU run, h2o-danube at d 512), so the check reads f32."""
+    import torch
+    from repro_torch.core.device_plugin import flatten_with_paths
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import loss_and_grads
+    dev = params["final_norm"]["scale"].device
+
+    def grads(m, attention=None):
+        with (_attention_forward(attention) if attention
+              else contextlib.nullcontext()):
+            return flatten_with_paths(loss_and_grads(m, params, batch)[1])
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kernels = LM(cfg, compute_dtype=dtype, use_kernels=True, device=dev)
+        ref = grads(LM(cfg, compute_dtype=dtype, device=dev))
+        out[str(dtype)[6:]] = {
+            name: _grad_distance(grads(kernels, fwd), ref)
+            for name, fwd in (("kernels", None),
+                              ("2% off", _attention_off_by_2pc))}
+        del ref
+    return out
+
+
+def _recording_aux(trainer, into: list):
+    """Record each step's ``aux_loss`` from the trainer's step metrics."""
+    step = trainer._train_step
+
+    def recorded(batch):
+        m = step(batch)
+        into.append(float(m["aux_loss"]))
+        return m
+    trainer._train_step = recorded
+    return trainer
+
+
+def train_zoo_path(arch: str, seed: int) -> dict:
+    """Phase 10, one arch of ZOO_TRAIN, in a child process: the first
+    step's grads of the kernel path and of a witness against the plain
+    path (``zoo_grad_check``); (a) ZOO_TRAIN_STEPS steps uninterrupted;
+    (b) a run with a sync image at ZOO_IMAGE_AT that crashes at
+    ZOO_FAIL_AT and restores from the image through
+    ``run_with_restarts``, bitwise (a)'s losses of the steps after the
+    image and final params and AdamW state
+    (qwen2-vl: two runs of VLM_TRAIN_STEPS from one seed, bitwise equal);
+    a falling loss, a finite aux loss (> 0 with MoE) at every step, the
+    kernels' launches per step."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.configs import get_config
+    from repro_torch.core.snapshot_io import snapshot_dir
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, run_with_restarts
+
+    _, layers, B, S, crash, tol = next(p for p in ZOO_TRAIN
+                                       if p[0] == arch)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    card = card_line()
+    dev = torch.device("cuda")
+    model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
+               device=dev)
+    steps = ZOO_TRAIN_STEPS if crash else VLM_TRAIN_STEPS
+    tag = f"{cfg.name} ({layers} of {get_config(arch).num_layers} layers)"
+    aux = {"a": [], "b": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        def trainer(run, ckpt_every=0):
+            tcfg = _train_config(B, S, seed, ckpt_every=ckpt_every,
+                                 ckpt=CheckpointOptions(mode="sync", keep=1))
+            return _recording_aux(Trainer(cfg, tcfg,
+                                          os.path.join(workdir, run),
+                                          device=dev, model=model),
+                                  aux[run])
+
+        torch.cuda.reset_peak_memory_stats()
+        t_a = trainer("a")
+        t_a.initialize()
+        n_params = sum(t.numel() for t in _leaves(t_a.params))
+        batches = [_device_batch(t_a.pipeline.peek(s), dev)
+                   for s in range(steps)]
+        before = [_score(model, t_a.params, b) for b in batches]
+        del batches[1:]
+        t0 = time.perf_counter()
+        err = zoo_grad_check(cfg, t_a.params, batches[0])
+        grads_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        counters = _counters()
+        _zero_counters()              # this path's launches start here
+        t_a.run(steps)                                              # (a)
+        losses = list(t_a.metrics_history["loss"])
+        step_ms = [t * 1e3 for t in t_a.straggler.times]
+        io = {}
+        if crash:                                                   # (b)
+            made = []
+
+            def make():
+                if made:              # the crashed trainer's state goes
+                    prev = made[-1]
+                    io["image"] = dict(prev.session.last_stats)
+                    io["image_bytes"] = _image_bytes(snapshot_dir(
+                        prev.session.run_dir, ZOO_IMAGE_AT))
+                    prev.release()
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                t = trainer("b", ZOO_IMAGE_AT if not made else 0)
+                restore = t.restore
+
+                def timed_restore(*a, **kw):
+                    io["host_gib_before_restore"] = host_available_gib()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = restore(*a, **kw)
+                    torch.cuda.synchronize()
+                    io["restore_s"] = time.perf_counter() - t0
+                    io["host_gib_after_restore"] = host_available_gib()
+                    return out
+                t.restore = timed_restore
+                made.append(t)
+                return t
+            io["host_gib_before"] = host_available_gib()
+            out = run_with_restarts(make, steps, {ZOO_FAIL_AT: "crash"})
+            t_b, other = out["trainer"], out["loss_history"]
+            executed = steps + ZOO_FAIL_AT + steps - ZOO_IMAGE_AT
+            resumed = steps - ZOO_IMAGE_AT
+        else:
+            t_b = trainer("b")
+            t_b.run(steps)
+            other = t_b.metrics_history["loss"]
+            executed, resumed = 2 * steps, steps
+        launches = {name: mod.launches for name, mod in counters.items()}
+        variants = _variants()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        after = _score(model, t_a.params, batches[0])
+        same_losses = np.array_equal(np.float64(losses[-resumed:]),
+                                     np.float64(other[-resumed:]))
+        same_state = _tree_equal(t_a.params, t_b.params) and _tree_equal(
+            t_a.opt_state, t_b.opt_state)
+    spread = max(before) - min(before)
+    falls = before[0] - after > spread
+    aux_ok = all(np.isfinite(a) and (a > 0 if cfg.moe_num_experts
+                                     else a == 0)
+                 for a in aux["a"] + aux["b"]) and len(aux["a"]) == steps
+    qk = 2 if cfg.qk_norm else 0
+    per_step = {"flash_attention": 2 * layers, "ssd_scan": 0,
+                "rmsnorm": 2 * (2 + qk) * layers + 1}
+    want = {k: v * executed for k, v in per_step.items()}
+    med = float(np.median(step_ms[1:]))
+    tokens = B * S
+    flops = train_flops(cfg, n_params, B, S)
+    log(f"[train-zoo] {tag}: {n_params} params (f32 masters, bf16 "
+        f"compute, remat, kernels), batch {B} x {S}; losses (a) "
+        f"{[round(x, 4) for x in losses]}; aux_loss (a) "
+        f"{[round(x, 4) for x in aux['a']]}; peak device memory "
+        f"{peak_gb:.2f} GiB; {card}")
+    for dtype, e in err.items():
+        k, w = e["kernels"], e["2% off"]
+        log(f"[train-zoo] {tag}: first step's grads in {dtype} against "
+            f"the plain {dtype} path, worst leaf by max |diff| / max "
+            f"|grad|: kernels {k[0]:.4g} ({k[1]}); witness with the "
+            f"attention forward 2% off {w[0]:.4g} ({w[1]}); limit {tol} "
+            f"(float32); {grads_s:.1f} s")
+    log(f"[train-zoo] {tag}: step {med:.2f} ms (median but the first of "
+        f"(a), host clock, each step ending in the loss's read-back; all "
+        f"{[round(x, 1) for x in step_ms]}), {tokens / med * 1e3:.0f} "
+        f"tokens/s, {flops / 1e12:.3f} TFLOP/step, MFU "
+        f"{flops / (med * 1e-3) / BF16_PEAK:.2%} of 989 TFLOP/s bf16; "
+        f"{card}")
+    if crash:
+        st = io["image"]
+        log(f"[train-zoo] {tag}: (b) sync image at step {ZOO_IMAGE_AT}: "
+            f"{io['image_bytes']} bytes, freeze "
+            f"{st['lock_s'] + st['frozen_s']:.3f} s, checkpoint() "
+            f"{st.get('total_s', st.get('locked_total_s')):.2f} s (write "
+            f"{st['write_s']:.2f} s, hash {st.get('hash_s') or 0:.2f} s); "
+            f"crash at step {ZOO_FAIL_AT}, cold restore "
+            f"{io['restore_s']:.2f} s; host "
+            f"MemAvailable {io['host_gib_before']:.1f} GiB before (b), "
+            f"{io['host_gib_before_restore']:.1f} before the restore, "
+            f"{io['host_gib_after_restore']:.1f} after; {card}")
+    second = "(b) after its restore" if crash else "the second run"
+    log(f"[train-zoo] {tag}: {second}: losses of the last {resumed} "
+        f"steps bitwise (a)'s: {same_losses}; final params and AdamW "
+        f"state bitwise: {same_state}; aux_loss "
+        f"finite{' and > 0' if cfg.moe_num_experts else ''} at every "
+        f"step: {aux_ok}; step 0's batch scored {before[0]:.5f} before, "
+        f"{after:.5f} after (a): drop {before[0] - after:.5f} against the "
+        f"{steps} batches' spread {spread:.5f}: {falls}; launches over "
+        f"{executed} executed steps {launches} (want {want}); by variant "
+        f"{variants}")
+    bad = [name for name, ok in (
+        ("losses", same_losses), ("params and AdamW state", same_state),
+        ("aux loss", aux_ok), ("loss falls", falls),
+        ("grads", err["float32"]["kernels"][0] <= tol),
+        ("witness", err["float32"]["2% off"][0] > tol),
+        ("launches", launches == want),
+        ("flash on tc only", variants["flash_attention"]["fma"] == 0))
+        if not ok]
+    if bad:
+        raise SystemExit(f"{tag} training failed: {bad}")
+    return {"launches": launches, "variants": variants}
+
+
+def run_examples() -> dict:
+    """Phase 10's last part: each of ``examples/torch/``'s
+    ``main(device="cuda", run_dir)``, in this process (each asserts what
+    its JAX counterpart asserts); what each printed goes to the log as
+    ``[examples]`` lines.  The examples run their smoke configs on the
+    plain path, as the JAX package's do: no kernel launches."""
+    import importlib.util
+    import io
+    _zero_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                f"example_{name}", HERE / "examples" / "torch" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                mod.main(device="cuda", run_dir=os.path.join(workdir, name))
+            wall = time.perf_counter() - t0
+            for line in printed.getvalue().splitlines():
+                log(f"[examples] {name}: {line}")
+            log(f"[examples] {name}: {wall:.2f} s; {card_line()}")
+    return {"launches": {n: m.launches for n, m in _counters().items()},
+            "variants": _variants()}
+
+
+def phase_train_zoo(seed: int) -> dict:
+    """Phase 10: each arch of ZOO_TRAIN, then the examples, each in a
+    child process of its own (its pinned host buffers leave with it);
+    {path: (launches, variants)}."""
+    out = {}
+    t_phase = time.perf_counter()
+    for arch, layers, *_ in ZOO_TRAIN:
+        t0 = time.perf_counter()
+        res = run_child(f"phase 10 {arch}", train_zoo_path, arch, seed)
+        out[f"{arch} train ({layers} layers)"] = (res["launches"],
+                                                  res["variants"])
+        log(f"[train-zoo] {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = run_child("phase 10 examples", run_examples)
+    out["examples (smoke configs)"] = (res["launches"], res["variants"])
+    log(f"[train-zoo] examples: {time.perf_counter() - t0:.1f} s; phase 10 "
+        f"wall {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -3806,7 +4232,8 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     on the serving paths); flash attention's and the SSD scan's variants
     (tc at the bf16 slice, fma at the f32 slice) and long-prompt timings;
     RMSNorm at d = 5120 and its two designs; each kernel at the zoo
-    paths' shapes and at those of the encoder-decoder and VLM paths."""
+    paths' shapes, at those of the encoder-decoder and VLM paths and at
+    the zoo's training shapes."""
     out = []
     for name, route, source, replaces in KERNEL_ROWS:
         row = dict(name=name, route=route, source=source, replaces=replaces,
@@ -3841,8 +4268,8 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
         k: rows[f"rmsnorm/{NORM_DESIGN_SHAPE[1]}"][k] for k in TIMES})
     rn_row["designs_ms"] = rows["rmsnorm/designs"]
     for row in out:
-        row["zoo"] = rows["zoo"][row["name"]]
-        row["mm"] = rows["mm"][row["name"]]
+        for group in ("zoo", "mm", "train"):
+            row[group] = rows[group][row["name"]]
     return out
 
 
@@ -3911,10 +4338,10 @@ def serve_one(arch: str, seed: int, layers=None) -> dict:
     return {"launches": launches, "variants": variants}
 
 
-def orchestrate(seed: int) -> dict:
-    """Phase 6; its paths' launches."""
+def orchestrate(seed: int, layers: int = ORCH_LAYERS) -> dict:
+    """Phase 6 (at `layers` layers); its paths' launches."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        return phase_orchestration(seed, workdir, card_line())
+        return phase_orchestration(seed, workdir, card_line(), layers)
 
 
 def _child(asked_at: float, what: str, out: str, fn, *args) -> None:
@@ -3954,9 +4381,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--path", help="serve this model of SERVE_PATHS, "
                     "ZOO_PATHS or MM_PATHS only (as the script serves it), "
-                    "or run phase 8 (c) alone (--path elastic), and write "
-                    "its launches to --out")
-    ap.add_argument("--layers", type=int, help="with --path: serve it at "
+                    "or run phase 8 (c) (--path elastic), phase 6 (--path "
+                    "orch) or phase 5 (a)-(c) (--path repl) alone, and "
+                    "write its launches to --out")
+    ap.add_argument("--layers", type=int, help="with --path: run it at "
                     "this many layers (tools/cut_ab.py times a depth cut)")
     ap.add_argument("--orch", action="store_true", help="run phase 6 "
                     "only and write its paths' launches to --out")
@@ -3966,8 +4394,10 @@ def main() -> int:
                     "only and write its paths' launches to --out")
     ap.add_argument("--dryrun", action="store_true", help="run phase 9 "
                     "only and write its path's launches to --out")
-    ap.add_argument("--out", help="with --path, --orch, --chaos, --launch "
-                    "or --dryrun: the launches' JSON")
+    ap.add_argument("--train-zoo", action="store_true", help="run phase 10 "
+                    "only and write its paths' launches to --out")
+    ap.add_argument("--out", help="with --path, --orch, --chaos, --launch, "
+                    "--dryrun or --train-zoo: the launches' JSON")
     args = ap.parse_args()
 
     global CHILDREN
@@ -3984,11 +4414,13 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     torch_settings()
-    if args.launch or args.path == ELASTIC_PATH:
+    if args.launch or args.train_zoo or args.path == ELASTIC_PATH:
         CHILDREN = fork_server()
         try:
             if args.launch:
                 res = phase_launch(args.seed, card_line())
+            elif args.train_zoo:
+                res = phase_train_zoo(args.seed)
             else:
                 with tempfile.TemporaryDirectory(
                         prefix="chip_smoke_") as workdir:
@@ -4013,9 +4445,18 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(res, f)
         return 0
+    if args.path == REPL_PATH:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = {REPL_PATH: phase_replication(
+                args.seed, workdir, card_line(),
+                args.layers or REPL_LAYERS)}
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+        return 0
     if args.path or args.orch or args.chaos:
-        res = (serve_one(args.path, args.seed, args.layers) if args.path
-               else orchestrate(args.seed) if args.orch
+        res = (orchestrate(args.seed, args.layers or ORCH_LAYERS)
+               if args.orch or args.path == ORCH_PATH
+               else serve_one(args.path, args.seed, args.layers) if args.path
                else chaos())
         with open(args.out, "w") as f:
             json.dump(res, f)
@@ -4076,9 +4517,11 @@ def main() -> int:
         mark("phase 8")
         by_path.update(run_dryrun(args.seed, cli, card))
         mark("phase 9")
+        by_path.update(phase_train_zoo(args.seed))
+        mark("phase 10")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
-            f"process started (what the run's time limit and its 925 s "
-            f"budget apply to), {time.perf_counter() - t_start:.1f} s from "
+            f"process started (what the run's 1200 s limit and its 1000 s "
+            f"target apply to), {time.perf_counter() - t_start:.1f} s from "
             f"after the imports; {card}")
         print(json.dumps({"kernels": kernel_rows(rows, by_path)}))
         print(card)

@@ -160,10 +160,13 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
 
 
 def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
-                 eps: float = 1e-5) -> torch.Tensor:
-    """Per-head q/k norm (Qwen3): x (..., hd), scale (hd,).  Plain torch:
-    the reference computes it outside any kernel too."""
-    return rmsnorm({"scale": scale}, x, eps)
+                 eps: float = 1e-5, use_kernels: bool = False
+                 ) -> torch.Tensor:
+    """Per-head q/k norm (Qwen3): x (..., hd), scale (hd,); with
+    ``use_kernels`` through the RMSNorm kernel, one row per (token,
+    head).  The reference computes it outside any kernel: the same
+    function."""
+    return rmsnorm({"scale": scale}, x, eps, use_kernels)
 
 
 # ======================================================================
@@ -248,10 +251,11 @@ def attention_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
-         rope: bool = True):
+         rope: bool = True, use_kernels: bool = False):
     """Project to q (B,S,H,hd), k/v (B,S,KV,hd), q/k-normed per head
-    (Qwen3) when the config asks, with RoPE (M-RoPE for a ``cfg.mrope``
-    config, positions (3, B, S)) applied."""
+    (Qwen3, through the RMSNorm kernel with ``use_kernels``) when the
+    config asks, with RoPE (M-RoPE for a ``cfg.mrope`` config, positions
+    (3, B, S)) applied."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -266,8 +270,8 @@ def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps, use_kernels)
+        k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps, use_kernels)
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)

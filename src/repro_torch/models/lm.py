@@ -29,13 +29,14 @@ Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
 
 ``use_kernels`` routes training and prefill attention through the
 flash-attention kernel (with the window of an SWA layer), their SSD scan
-through the SSD-scan kernel, and the block, final and gated norms through
-the RMSNorm kernel (``repro_torch.kernels.ops``, differentiable: kernel
-forward, oracle backward); those compute the same functions as the plain
-layers.  Decode attention reads the whole cache for one query per
-sequence, and the decode SSM step is one recurrence step: both stay plain
-``torch`` math, as in the reference; so do the MoE router and experts and
-the q/k-norm, which the reference computes outside any kernel.
+through the SSD-scan kernel, and the block, final and gated norms and
+Qwen3's q/k-norm (one row per token and head) through the RMSNorm kernel
+(``repro_torch.kernels.ops``, differentiable: kernel forward, oracle
+backward); those compute the same functions as the plain layers (the
+reference computes the q/k-norm outside any kernel).  Decode attention
+reads the whole cache for one query per sequence, and the decode SSM step
+is one recurrence step: both stay plain ``torch`` math, as in the
+reference; so do the MoE router and experts.
 
 Unlike the reference, ``decode_step`` writes the new K/V, SSM state and
 conv tails into the cache in place (no second cache per token) and
@@ -331,7 +332,8 @@ class LM:
         cfg = self.cfg
         B, S = h.shape[:2]
         window = self._window(j)
-        q, k, v = L._qkv(lp["attn"], cfg, h, positions)
+        q, k, v = L._qkv(lp["attn"], cfg, h, positions,
+                         use_kernels=self.use_kernels)
         ka, va = L.maybe_expand_gqa(q, k, v) if expand_gqa else (k, v)
         o = L.attention(q, ka, va, causal=True, window=window,
                         use_kernels=self.use_kernels)
@@ -349,7 +351,8 @@ class LM:
         posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         if cfg.mrope:        # the cache index in all three components
             posv = posv.expand(3, B, 1)
-        q, k_new, v_new = L._qkv(lp["attn"], cfg, x[:, None, :], posv)
+        q, k_new, v_new = L._qkv(lp["attn"], cfg, x[:, None, :], posv,
+                                 use_kernels=self.use_kernels)
         slot = pos % S_c if ring else pos
         k_cache[:, slot] = k_new[:, 0]
         v_cache[:, slot] = v_new[:, 0]

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither ``jax`` nor ``repro``.
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, and
+neither do its examples (``examples/torch/``).
 
 Also: ``chip_smoke.py`` refuses to run (non-zero, no result printed)
 without a CUDA device or away from the repository.
@@ -85,7 +86,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples" / "torch").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     bad = {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes", "zstandard"}

@@ -70,7 +70,9 @@ def _assert_params_equal(a, b):
 
 
 # ------------------------------------------------ tests/test_determinism
-@pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "qwen3-moe-30b-a3b",
+                                  "h2o-danube-1.8b", "qwen2-vl-7b",
+                                  "jamba-v0.1-52b"])
 def test_bitwise_deterministic_restart(tmp_path, arch):
     t_ref = make_trainer(str(tmp_path / "ref"), arch)
     t_ref.run(12)
@@ -306,6 +308,25 @@ def _load(jt, tt, params, opt):
 def test_trainer_losses_match_jax(tmp_path, mesh1):
     jt = _jax_trainer(str(tmp_path / "jax"), mesh1)
     tt = _port_trainer(str(tmp_path / "port"))
+    _load(jt, tt, *_np_state(jt))
+    jt.run(6)
+    tt.run(6)
+    np.testing.assert_allclose(tt.metrics_history["loss"],
+                               jt.metrics_history["loss"],
+                               rtol=PARITY_RTOL)
+    assert int(tt.opt_state.step) == int(jt.opt_state.step) == 9
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "h2o-danube-1.8b"])
+def test_zoo_trainer_losses_match_jax(arch, tmp_path):
+    """MoE (the aux loss in the total, capacity drops) and the sliding
+    window: 6 steps of both packages' trainers from the same params and
+    AdamW state, as ``test_trainer_losses_match_jax``.  The JAX MoE block
+    needs the mesh's expert axis: a (1, 1) ``("data", "model")`` mesh."""
+    from repro.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    jt = _jax_trainer(str(tmp_path / "jax"), mesh, arch)
+    tt = _port_trainer(str(tmp_path / "port"), arch)
     _load(jt, tt, *_np_state(jt))
     jt.run(6)
     tt.run(6)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""What a depth cut of one ``chip_smoke.py`` serving path would save, timed
-in turns on one card.
+"""What a depth cut of one ``chip_smoke.py`` path would save, timed in
+turns on one card.
 
     python3 tools/cut_ab.py --path ARCH --layers N [--seed S]   # one GPU
 
-Serves the path alone, as the whole script serves it
-(``chip_smoke.py --path ARCH``, a process of its own: prefill, decode,
-images, cold restores, the logit check and the profile; ``--path
-elastic``: phase 8 (c), the elastic restores), at N layers and
+Runs the path alone, as the whole script runs it (``chip_smoke.py --path
+ARCH``, a process of its own): a serving path's prefill, decode, images,
+cold restores, logit check and profile; ``--path elastic``: phase 8 (c),
+the elastic restores; ``--path orch``: phase 6, the orchestrator, the
+interception baseline and the fleet; ``--path repl``: phase 5 (a)-(c),
+replication and the serving pre-copy migration.  It runs at N layers and
 at the path's own depth, in the order cut, own, own, cut, so a drift of
 the host over the four runs falls on both depths alike.  Each run's time
 is the process's wall time, from its start to its exit.  The kernels are
@@ -40,7 +42,7 @@ def run(arch: str, seed: int, layers) -> float:
         if layers is not None:
             cmd += ["--layers", str(layers)]
         t0 = time.perf_counter()
-        rc = subprocess.run(cmd, timeout=900).returncode
+        rc = subprocess.run(cmd, timeout=1200).returncode
         wall = time.perf_counter() - t0
     if rc:
         raise SystemExit(f"{arch} at {layers or 'its own'} layers failed "
@@ -50,7 +52,9 @@ def run(arch: str, seed: int, layers) -> float:
 
 def main() -> int:
     paths = [p[0] for p in chip_smoke.SERVE_PATHS + chip_smoke.ZOO_PATHS
-             + chip_smoke.MM_PATHS] + [chip_smoke.ELASTIC_PATH]
+             + chip_smoke.MM_PATHS] + [chip_smoke.ELASTIC_PATH,
+                                       chip_smoke.ORCH_PATH,
+                                       chip_smoke.REPL_PATH]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", required=True, choices=paths)
     ap.add_argument("--layers", type=int, required=True)
