@@ -278,8 +278,26 @@ examples of ``examples/torch/`` run in one child process with
 what its JAX counterpart asserts; ``[examples]`` lines carry what they
 print.
 
+Phase 11 runs the train and serve launchers over every card of the host,
+one process per card (``repro_torch.launch.dist``, N =
+``torch.cuda.device_count()`` ranks; alone: ``--dist``), qwen1.5-0.5b at
+full width and 1 of its 24 layers, global batch 4 x 512 (N x 512 when N
+does not divide 4): (a) 12 steps with sync images every 4; (b) from
+(a)'s step-4 image, the last rank SIGKILLed after its step-8 pack and
+before its ``PREPARED`` marker (a fault on the chaos hook plane): no
+step-8 manifest, the other ranks out within the barrier's deadline, and
+``--restore`` from step 4 must reach (a)'s final loss bitwise and (a)'s
+step-12 entries CRC for CRC; (c) two CPU ranks (gloo), beside (b),
+write a smoke image and then restore (a)'s image, and the card's ranks
+restore theirs, every leaf's block bit-equal (with N >= 2, (a)'s image
+on one rank too); (d) the serve launcher, a snapshot at token 8 resumed
+token-exact by ``--restore``.  ``[dist]`` lines give each rank's step
+time, pack bytes and commit barrier wait; on one card a line says that
+more than one rank was held only by the CPU tests.
+
 ``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9,
-``--train-zoo --out F`` phase 10.  ``--path ARCH --out F`` serves one
+``--train-zoo --out F`` phase 10, ``--dist --out F`` phase 11 (``--path
+dist``: at ``--layers``).  ``--path ARCH --out F`` serves one
 path alone, as the script serves it (``--path orch``: phase 6, ``--path
 repl``: phase 5 (a)-(c), ``--path elastic``: phase 8 (c); ``--layers
 N``: at N layers; ``tools/cut_ab.py`` times such a depth cut against the
@@ -3288,16 +3306,21 @@ LAUNCH_KERNELS = ("flash_attention", "rmsnorm")
 
 def _launcher(module: str, argv: list) -> dict:
     """One launcher run in this (child) process: ``main(argv)`` of
-    ``repro_torch.launch.<module>``, its exit code, what it printed and
-    its JSON, and the kernels' launches over the run (counters zeroed
-    just before it)."""
+    ``repro_torch.launch.<module>`` (see `_captured`)."""
     import importlib
-    import io
     main_fn = importlib.import_module(f"repro_torch.launch.{module}").main
+    return _captured(main_fn, list(argv))
+
+
+def _captured(fn, *args) -> dict:
+    """``fn(*args)`` in this (child) process: its exit code, what it
+    printed and its JSON, and the kernels' launches over the run
+    (counters zeroed just before it)."""
+    import io
     out, err = io.StringIO(), io.StringIO()
     _zero_counters()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = main_fn(list(argv))
+        rc = fn(*args)
     launches = {name: mod.launches for name, mod in _counters().items()}
     text = out.getvalue()
     start = text.find("{\n")
@@ -4203,6 +4226,363 @@ def phase_train_zoo(seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+DIST_ARCH = "qwen1.5-0.5b"
+DIST_PATH = "dist"         # --path: phase 11 alone (tools/cut_ab.py)
+# full width, cut to 1 of 24 layers for the run's budget: in turns
+# (tools/cut_ab.py --path dist --layers 1, H100) 24 -> 1 layer saved 81.4
+# s; each image keeps the 155.6 M-param embedding (2.02 of 5.57 GB)
+DIST_LAYERS = 1
+DIST_STEPS, DIST_EVERY, DIST_KILL_AT = 12, 4, 8
+DIST_SEQ = 512
+DIST_TIMEOUT_S = 60        # --dist-timeout: each collective, the barrier
+DIST_TOKENS, DIST_SNAPSHOT_AT = 16, 8
+DIST_SMOKE = ["--smoke", "--steps", "4", "--ckpt-every", "4", "--ckpt-mode",
+              "sync", "--keep", "0", "--batch-size", "4", "--seq-len", "16",
+              "--dist-timeout", str(DIST_TIMEOUT_S)]
+
+
+def dist_batch(n: int) -> int:
+    """Phase 11's global batch rows: 4 when the ranks divide it, else one
+    row per rank."""
+    return 4 if 4 % n == 0 else n
+
+
+def _rank_launches(res: dict) -> dict:
+    """A launcher run's kernel launches over all its ranks (its JSON's
+    ``per_rank``), else this process's counters (rank 0 alone)."""
+    per_rank = (res.get("json") or {}).get("per_rank")
+    if not per_rank:
+        return res["launches"]
+    return {k: sum(r["launches"][k] for r in per_rank)
+            for k in res["launches"]}
+
+
+def dist_rank(argv, group) -> int:
+    """A rank of phase 11's launcher runs: ``rank_main`` of the ``train``
+    or ``serve`` launcher (``argv[0]``) on DIST_ARCH at its full width cut
+    to ``argv[1]`` layers, with the launcher's arguments ``argv[3:]``.
+    ``argv[2]`` ``"R:S"`` (or ``"-"``): rank R is SIGKILLed between its
+    pack of step S's image and its PREPARED marker, a fault on the chaos
+    hook plane."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist, serve, train
+    kind, layers, kill, *rest = argv
+    cfg = dataclasses.replace(get_config(DIST_ARCH), num_layers=int(layers))
+    if kill != "-":
+        rank, step = map(int, kill.split(":"))
+        if group.rank == rank:
+            from repro_torch.chaos import hooks
+            hooks.install(dist.KillBeforePrepare(step))
+    launcher = {"train": train, "serve": serve}[kind]
+    return launcher.rank_main(rest, group, cfg=cfg)
+
+
+def _dist_launcher(kind: str, layers: int, kill: str, n: int,
+                   argv: list) -> dict:
+    """`dist_rank` in `n` card ranks through ``launch.dist.launch``, this
+    (child) process rank 0 (see `_captured`)."""
+    from repro_torch.launch import dist
+    run = argv[argv.index("--run-dir") + 1]
+    return _captured(dist.launch, "chip_smoke:dist_rank",
+                     [kind, str(layers), kill, *argv], n, "cuda", run,
+                     DIST_TIMEOUT_S)
+
+
+def _dist_run(what: str, kind: str, n: int, layers: int, argv: list,
+              kill: str = "-", want_rc=0) -> dict:
+    """A launcher run in a child process (rank 0 there, the other ranks
+    spawned by ``launch.dist``); `want_rc` None: the child may be killed
+    (the last rank of one is rank 0)."""
+    t0 = time.perf_counter()
+    res = run_child(what, _dist_launcher, kind, layers, kill, n, argv,
+                    killed_ok=want_rc is None)
+    wall = time.perf_counter() - t0
+    if res is None:
+        return {"killed": True, "wall_s": wall, "json": None,
+                "launches": {k: 0 for k in _counters()},
+                "variants": _variants()}
+    if want_rc is not None and res["rc"] != want_rc:
+        raise SystemExit(f"phase 11 {what}: exit {res['rc']}, not "
+                         f"{want_rc}\n{res['out'][-2000:]}\n{res['err']}")
+    res["launches"] = _rank_launches(res)
+    res["wall_s"] = wall
+    return res
+
+
+def _train_argv(n: int, run: str, *extra) -> list:
+    return ["--arch", DIST_ARCH, "--device", "cuda", "--nproc", str(n),
+            "--steps", str(DIST_STEPS),
+            "--ckpt-every", str(DIST_EVERY), "--ckpt-mode", "sync",
+            "--keep", "0", "--batch-size", str(dist_batch(n)), "--seq-len",
+            str(DIST_SEQ), "--dist-timeout", str(DIST_TIMEOUT_S),
+            "--run-dir", run, *extra]
+
+
+def _entry_crcs(run: str, step: int) -> dict:
+    from repro_torch.core.snapshot_io import SnapshotStore
+    crcs = SnapshotStore(run).manifest(step)["entry_crcs"]
+    return {k: v for k, v in crcs.items() if k.startswith("train_state::")}
+
+
+def dist_check_rank(argv, group) -> int:
+    """One rank of a cross-device check: ``elastic_restore`` of the newest
+    image in ``argv[0]`` onto this group's process mesh (``argv[1]``:
+    "smoke", or the layers of DIST_ARCH at full width), every leaf's block
+    held bitwise against the image's whole leaf (read whole, on the
+    host) cut at this rank's index."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.device_plugin import flatten_with_paths
+    from repro_torch.core.snapshot_io import SnapshotStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.encdec import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.elastic import elastic_restore
+    from repro_torch.sharding import state_shardings
+    from repro_torch.serialization.pack import dtype_from_str
+    from repro_torch.sharding.policy import index_to_json, rank_index
+    run, layers = argv
+    cfg = (get_smoke_config(DIST_ARCH) if layers == "smoke" else
+           dataclasses.replace(get_config(DIST_ARCH), num_layers=int(layers)))
+    model = build_model(cfg, compute_dtype=torch.float32, remat=False,
+                        device=group.device)
+    mesh = make_host_mesh(data=group.world, model=1, device=group.device,
+                          group=group)
+    got = elastic_restore(run, mesh, model, AdamW(lr=constant(0.0)))
+    flat = flatten_with_paths({"params": got["params"], "opt": got["opt"]})
+    sh = flatten_with_paths(state_shardings(model, mesh))
+    reader = SnapshotStore(run).reader()
+    bad = []
+    try:
+        for k, t in flat.items():
+            meta = reader.meta["train_state"][k]
+            shape = tuple(meta["shape"])
+            idx = rank_index(sh[k], shape)
+            # the saved blocks that meet this rank's, laid out whole
+            entry = reader.load_entry("train_state", k,
+                                      region=index_to_json(idx, shape))
+            whole = np.zeros(shape, dtype_from_str(meta["dtype"]))
+            for blk in entry["shards"]:
+                if blk["data"] is not None:
+                    at = tuple(slice(a, b) for a, b in blk["index"])
+                    whole[at] = np.asarray(blk["data"]).reshape(
+                        whole[at].shape)
+            want = np.ascontiguousarray(whole[idx])
+            have = t.detach().cpu().contiguous().numpy()
+            if have.tobytes() != want.tobytes():
+                bad.append(k)
+    finally:
+        reader.close()
+    if bad:
+        raise SystemExit(f"rank {group.rank}: {len(bad)} leaves differ from "
+                         f"the image, e.g. {bad[:3]}")
+    return 0
+
+
+def wait_image(run: str, proc=None, timeout_s: float = 300.0) -> None:
+    """Wait for a committed image in `run` (while `proc` lives)."""
+    from repro_torch.core.snapshot_io import SnapshotStore
+    t0 = time.monotonic()
+    while not SnapshotStore(run).list_steps():
+        if proc is not None and proc.exitcode is not None:
+            raise SystemExit(f"phase 11: no image in {run}; its writer "
+                             f"exited {proc.exitcode}")
+        if time.monotonic() - t0 > timeout_s:
+            raise SystemExit(f"phase 11: no image in {run} after "
+                             f"{timeout_s:.0f} s")
+        time.sleep(0.05)
+
+
+def dist_train_then_check(argv, group) -> int:
+    """The train launcher's rank on DIST_SMOKE into ``argv[2]``, then, in
+    the same group, `dist_check_rank` of ``argv[:2]`` once that image is
+    committed."""
+    import io
+    from repro_torch.launch import train
+    with contextlib.redirect_stdout(io.StringIO()):      # its JSON
+        rc = train.rank_main(DIST_SMOKE + ["--device", group.device.type,
+                                           "--run-dir", argv[2]], group)
+    wait_image(argv[0])
+    return rc or dist_check_rank(argv[:2], group)
+
+
+def dist_check(run: str, layers: str, ranks: int, device: str,
+               train_first: str = None) -> dict:
+    """`dist_check_rank` over `ranks` ranks on `device` (this process is
+    rank 0; with `train_first`, `dist_train_then_check` into that run
+    directory); the time it took."""
+    from repro_torch.launch import dist
+    t0 = time.perf_counter()
+    if device == "cpu":
+        # CPU ranks beside the card's work: two threads each (this child
+        # and the rank it spawns)
+        os.environ["OMP_NUM_THREADS"] = "2"
+        import torch
+        torch.set_num_threads(2)
+    if train_first:
+        rc = dist.launch("chip_smoke:dist_train_then_check",
+                         [run, layers, train_first], ranks, device,
+                         train_first, DIST_TIMEOUT_S)
+    else:
+        rc = dist.launch("chip_smoke:dist_check_rank", [run, layers], ranks,
+                         device, run, DIST_TIMEOUT_S)
+    if rc:
+        raise SystemExit(f"phase 11 (c): {ranks} {device} rank(s) did not "
+                         f"restore {run} bit-equal")
+    return {"wall_s": time.perf_counter() - t0}
+
+
+def phase_dist(seed: int, card: str, layers: int = DIST_LAYERS) -> dict:
+    """Phase 11: the launchers over every card of the host, one process per
+    card (``launch.dist``; N = ``torch.cuda.device_count()``), at
+    qwen1.5-0.5b's full width and `layers` layers.  (a) 12 steps with sync
+    images every 4; (b) the same with the last rank killed between its
+    step-8 pack and its PREPARED marker: no step-8 manifest, and
+    ``--restore`` from step 4 reaches (a)'s final loss and (a)'s step-12
+    entries (params, AdamW state) CRC for CRC; (c) images across devices
+    and world sizes restored bit-equal: (a)'s step-12 image on 2 CPU
+    ranks (beside (b)), a smoke image of those 2 CPU ranks on the card's
+    N ranks, and with N >= 2 (a)'s image on one rank; (d) the serve launcher
+    snapshots and resumes token-exact.  The train launcher's JSON gives
+    each rank's step time, pack bytes and commit barrier wait (e)."""
+    import torch
+    n = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    B = dist_batch(n)
+    log(f"[dist] ranks {n} (one per card), {DIST_ARCH} at full width, "
+        f"{layers} of 24 layers, global batch {B} x {DIST_SEQ}; {card}")
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        run_a, run_b = (os.path.join(workdir, x) for x in ("a", "b"))
+        a = _dist_run("(a) train", "train", n, layers, _train_argv(n, run_a))
+        _check_kernels("(a) train", a["launches"], a["variants"])
+        ja = a["json"]
+        if ja["ranks"] != n or ja["snapshots"] != [4, 8, 12]:
+            raise SystemExit(f"phase 11 (a): ranks {ja['ranks']}, images "
+                             f"{ja['snapshots']}")
+        for r in ja["per_rank"]:
+            log(f"[dist] (a) rank {r['rank']}: step {r['step_ms']:.2f} ms "
+                f"(median of steps 2-{DIST_STEPS}; the first "
+                f"{r['first_step_ms']:.1f} ms), pack {int(r['pack_bytes'])} "
+                f"bytes (step 12), commit barrier wait "
+                f"{r['barrier_wait_s'] * 1e3:.2f} ms, device peak "
+                f"{r['peak_bytes']} bytes (max_memory_allocated; its "
+                f"blocks of params and moments {r['block_bytes']} bytes, "
+                f"each step gathering every param leaf whole); {card}")
+        log(f"[dist] (a) {DIST_STEPS} steps + 3 sync images: wall "
+            f"{a['wall_s']:.1f} s, final loss {ja['final_loss']!r}")
+        runs.append(a)
+
+        # (c), first half, beside (b) and on the host's cores: 2 CPU ranks
+        # write a smoke image, then restore (a)'s step-12 image
+        cpu_img = os.path.join(workdir, "c")
+        t_cpu = time.perf_counter()
+        cpu = start_child("(c) 2 CPU ranks", dist_check, run_a,
+                          str(layers), 2, "cpu", cpu_img)
+
+        # (b) resumes (a)'s step-4 image (hard links: the bytes (a)
+        # wrote, bit for bit, at no write cost)
+        victim = n - 1
+        step4 = os.path.join("snapshots", f"step_{DIST_EVERY:08d}")
+        shutil.copytree(os.path.join(run_a, step4),
+                        os.path.join(run_b, step4), copy_function=os.link)
+        b = _dist_run("(b) train, last rank killed", "train", n, layers,
+                      _train_argv(n, run_b, "--restore"),
+                      kill=f"{victim}:{DIST_KILL_AT}",
+                      want_rc=None if n == 1 else 1)
+        from repro_torch.core.snapshot_io import SnapshotStore
+        torn = sorted(os.listdir(os.path.join(
+            run_b, "snapshots", f"step_{DIST_KILL_AT:08d}")))
+        if SnapshotStore(run_b).list_steps() != [4] or \
+                f"host{victim:04d}.pack.0" not in torn:
+            raise SystemExit(f"phase 11 (b): images "
+                             f"{SnapshotStore(run_b).list_steps()} after "
+                             f"the kill, step {DIST_KILL_AT}: {torn}")
+        if n > 1 and b["wall_s"] > DIST_STEPS * 30 + DIST_TIMEOUT_S:
+            raise SystemExit(f"phase 11 (b): rank 0 took {b['wall_s']:.1f}"
+                             f" s to exit")
+        back = _dist_run("(b) train --restore", "train", n, layers,
+                         _train_argv(n, run_b, "--restore"))
+        jb = back["json"]
+        if f"at step 4" not in back["out"] or \
+                jb["final_loss"] != ja["final_loss"]:
+            raise SystemExit(f"phase 11 (b): final loss {jb['final_loss']!r}"
+                             f" after the restore, {ja['final_loss']!r} "
+                             f"uninterrupted")
+        crc_a, crc_b = _entry_crcs(run_a, 12), _entry_crcs(run_b, 12)
+        if crc_a != crc_b:
+            diff = sorted(k for k in crc_a if crc_a[k] != crc_b.get(k))
+            raise SystemExit(f"phase 11 (b): step-12 entries differ: "
+                             f"{diff[:5]}")
+        log(f"[dist] (b) from (a)'s step-4 image: rank {victim} "
+            f"SIGKILLed after its step-"
+            f"{DIST_KILL_AT} pack, before PREPARED ("
+            f"{'the one rank: the launcher died with it' if n == 1 else 'rank 0 exited 1 on the barrier deadline'}"
+            f", {b['wall_s']:.1f} s): no step-{DIST_KILL_AT} manifest "
+            f"({torn}); --restore from step 4 in "
+            f"{jb['restore_s']:.3f} s reached final loss "
+            f"{jb['final_loss']!r} bitwise and (a)'s {len(crc_a)} step-12 "
+            f"entries CRC for CRC ({back['wall_s']:.1f} s); {card}")
+        runs += [b, back]
+
+        t0 = time.perf_counter()
+        wait_image(cpu_img, cpu[1])
+        onto_card = run_child("(c) CPU image -> card", dist_check, cpu_img,
+                              "smoke", n, "cuda")
+        cpu = join_child(cpu)
+        line = (f"[dist] (c) bit-equal: (a)'s step-12 image ({n} card "
+                f"rank(s)) on 2 CPU ranks, which first wrote a smoke image ("
+                f"{cpu['wall_s']:.1f} s for both, beside (b): "
+                f"{time.perf_counter() - t_cpu:.1f} s from their start), "
+                f"that image on {n} card rank(s) ({onto_card['wall_s']:.1f}"
+                f" s)")
+        if n >= 2:
+            one = run_child("(c) (a) image -> 1 rank", dist_check, run_a,
+                            str(layers), 1, "cuda")
+            line += (f", (a)'s step-12 image on 1 card rank "
+                     f"({one['wall_s']:.1f} s)")
+        log(f"{line}; (c) after (b) {time.perf_counter() - t0:.1f} s; "
+            f"{card}")
+
+        run_s = os.path.join(workdir, "s")
+        serve = ["--arch", DIST_ARCH, "--device", "cuda", "--nproc", str(n),
+                 "--batch", str(B), "--prompt-len",
+                 str(DIST_SEQ), "--max-seq", str(2 * DIST_SEQ), "--tokens",
+                 str(DIST_TOKENS), "--dist-timeout", str(DIST_TIMEOUT_S),
+                 "--run-dir", run_s]
+        snap = _dist_run("(d) serve --snapshot-at", "serve", n, layers,
+                         serve + ["--snapshot-at", str(DIST_SNAPSHOT_AT)])
+        srv_back = _dist_run("(d) serve --restore", "serve", n, layers,
+                             serve + ["--restore"])
+        if srv_back["json"]["tokens_sha256"] != snap["json"]["tokens_sha256"]:
+            raise SystemExit("phase 11 (d): the restored tokens differ")
+        ts = snap["json"]["timings"]
+        log(f"[dist] (d) serve B {B} x {DIST_SEQ} over {n} rank(s): "
+            f"{srv_back['json']['generated']} tokens token-exact after "
+            f"--snapshot-at {DIST_SNAPSHOT_AT} + --restore; decode "
+            f"{ts['decode_s_per_token'] * 1e3:.2f} ms/token, checkpoint "
+            f"{ts['checkpoint_s']:.3f} s, restore "
+            f"{srv_back['json']['timings']['restore_s']:.3f} s; packs "
+            f"{[int(r['pack_bytes']) for r in snap['json']['per_rank']]} "
+            f"bytes, barrier wait "
+            f"{[round(r['barrier_wait_s'] * 1e3, 2) for r in snap['json']['per_rank']]}"
+            f" ms; {card}")
+        runs += [snap, srv_back]
+    if n == 1:
+        log("[dist] one card: phase 11 ran 1 rank through the whole "
+            "multi-rank path (process group, per-rank packs, two-phase "
+            "commit, restores across devices); more than one rank was held "
+            "only by the CPU tests (tests/test_torch_dist*.py, gloo)")
+    launches, variants = _merge_launches(runs)
+    log(f"[dist] phase 11 wall {time.perf_counter() - t_phase:.1f} s, "
+        f"launches flash / RMSNorm {launches['flash_attention']} / "
+        f"{launches['rmsnorm']}; {card}")
+    return {f"{DIST_ARCH} dist (phase 11)": (launches, variants)}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_ROWS = (
     ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -4353,24 +4733,43 @@ def _child(asked_at: float, what: str, out: str, fn, *args) -> None:
         json.dump(res, f)
 
 
-def run_child(what: str, fn, *args):
-    """fn(*args) in a child process from the fork server, waited for (after
-    `free_memory`); what it returned, through a JSON file."""
+def start_child(what: str, fn, *args):
+    """fn(*args) started in a child process from the fork server (after
+    `free_memory`); `join_child` waits for it."""
     free_memory(what)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        out = os.path.join(workdir, "result.json")
-        proc = CHILDREN.Process(target=_child, args=(time.time(), what, out,
-                                                     fn, *args))
-        proc.start()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    out = os.path.join(workdir, "result.json")
+    proc = CHILDREN.Process(target=_child, args=(time.time(), what, out, fn,
+                                                 *args))
+    proc.start()
+    return what, proc, workdir
+
+
+def join_child(child, killed_ok: bool = False):
+    """What a started child's fn returned, through a JSON file (None when
+    the child was killed by a signal and `killed_ok`)."""
+    what, proc, workdir = child
+    try:
         proc.join(timeout=1000)
         if proc.is_alive():
             proc.kill()
             proc.join()
+        if killed_ok and proc.exitcode and proc.exitcode < 0:
+            return None
         if proc.exitcode:
             raise SystemExit(f"{what}: the child process failed (exit "
                              f"{proc.exitcode})")
-        with open(out) as f:
+        with open(os.path.join(workdir, "result.json")) as f:
             return json.load(f)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_child(what: str, fn, *args, killed_ok: bool = False):
+    """fn(*args) in a child process from the fork server, waited for (after
+    `free_memory`); what it returned, through a JSON file (None when the
+    child was killed by a signal and `killed_ok`)."""
+    return join_child(start_child(what, fn, *args), killed_ok)
 
 
 CHILDREN = None      # fork_server()'s context, made by main()
@@ -4382,8 +4781,8 @@ def main() -> int:
     ap.add_argument("--path", help="serve this model of SERVE_PATHS, "
                     "ZOO_PATHS or MM_PATHS only (as the script serves it), "
                     "or run phase 8 (c) (--path elastic), phase 6 (--path "
-                    "orch) or phase 5 (a)-(c) (--path repl) alone, and "
-                    "write its launches to --out")
+                    "orch), phase 5 (a)-(c) (--path repl) or phase 11 "
+                    "(--path dist) alone, and write its launches to --out")
     ap.add_argument("--layers", type=int, help="with --path: run it at "
                     "this many layers (tools/cut_ab.py times a depth cut)")
     ap.add_argument("--orch", action="store_true", help="run phase 6 "
@@ -4396,6 +4795,9 @@ def main() -> int:
                     "only and write its path's launches to --out")
     ap.add_argument("--train-zoo", action="store_true", help="run phase 10 "
                     "only and write its paths' launches to --out")
+    ap.add_argument("--dist", action="store_true", help="run phase 11 "
+                    "only (--path dist: at --layers) and write its path's "
+                    "launches to --out")
     ap.add_argument("--out", help="with --path, --orch, --chaos, --launch, "
                     "--dryrun or --train-zoo: the launches' JSON")
     args = ap.parse_args()
@@ -4414,13 +4816,19 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     torch_settings()
-    if args.launch or args.train_zoo or args.path == ELASTIC_PATH:
+    if args.dist:
+        args.path = DIST_PATH
+    if (args.launch or args.train_zoo
+            or args.path in (ELASTIC_PATH, DIST_PATH)):
         CHILDREN = fork_server()
         try:
             if args.launch:
                 res = phase_launch(args.seed, card_line())
             elif args.train_zoo:
                 res = phase_train_zoo(args.seed)
+            elif args.path == DIST_PATH:
+                res = phase_dist(args.seed, card_line(),
+                                 args.layers or DIST_LAYERS)
             else:
                 with tempfile.TemporaryDirectory(
                         prefix="chip_smoke_") as workdir:
@@ -4519,6 +4927,8 @@ def main() -> int:
         mark("phase 9")
         by_path.update(phase_train_zoo(args.seed))
         mark("phase 10")
+        by_path.update(phase_dist(args.seed, card))
+        mark("phase 11")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
             f"process started (what the run's 1200 s limit and its 1000 s "
             f"target apply to), {time.perf_counter() - t_start:.1f} s from "

@@ -22,6 +22,8 @@ def capabilities() -> Dict[str, Any]:
     from repro_torch.core.backends import available_backends
     from repro_torch.core.plugins import PLUGIN_API_VERSION
 
+    from repro_torch.core.topology import process_info
+
     cuda = torch.cuda.is_available()
     return {
         "plugin_api_version": PLUGIN_API_VERSION,
@@ -31,6 +33,9 @@ def capabilities() -> Dict[str, Any]:
             "cuda_available": cuda,
             "device_count": torch.cuda.device_count() if cuda else 0,
             "device_name": torch.cuda.get_device_name(0) if cuda else None,
+            # this process's rank and the group's size (0 and 1 outside
+            # a group), as the reference's process_index / process_count
+            **process_info(),
         },
         "kernels": {
             "triton": importlib.util.find_spec("triton") is not None,
@@ -49,7 +54,8 @@ def capabilities() -> Dict[str, Any]:
             "incremental": True,
             "compression": True,
             "replication": True,
-            "elastic_restore": True,      # runtime/elastic.py, slot meshes
+            "elastic_restore": True,      # runtime/elastic.py, any meshes
+            "multi_process": True,        # launch/dist.py, a rank per card
             "parallel_restore": True,
             "chunked_packs": True,        # pack v2: per-chunk CRC + codec
             "striped_io": True,           # N pack files/host, appender each

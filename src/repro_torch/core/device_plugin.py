@@ -41,12 +41,20 @@ saved block straight into the device tensor at its index when the
 target's blocks are the saved ones, and otherwise assembles the tensor
 on the host and copies it once (``ctx.stats["placed_blocks"]`` and
 ``["assembled_entries"]`` count the two).
+
+On a process mesh (``launch.mesh.ProcessMesh``, one rank per card) a
+tensor is this rank's block: its entry names every distinct block of the
+whole tensor, and this rank holds the bytes of its own block only when
+its slot holds the block's replica 0 (the rank whose pack writes it).  A
+restore onto a process mesh reads only the saved blocks that overlap
+this rank's block and places them; the block is cut from them when the
+layouts differ (:func:`needed_pack_entries` names what a rank reads).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +66,9 @@ from repro_torch.core.topology import (compatibility, mesh_fingerprint,
 from repro_torch.devices import resolve_device
 from repro_torch.serialization.pack import (dtype_from_str, host_numpy,
                                             numpy_to_tensor, tensor_dtype_str)
-from repro_torch.sharding.policy import fit_sharding, index_to_json
+from repro_torch.sharding.policy import (fit_sharding, index_to_json,
+                                         is_process_sharding, local_layout,
+                                         rank_index)
 
 PyTree = Any
 
@@ -138,26 +148,40 @@ def flatten_shardings(shardings: Optional[Dict[str, PyTree]]
 
 # ---------------------------------------------------------------- entries
 def _blocks(t: torch.Tensor, sharding) -> List[tuple]:
-    """The index tuples of the blocks `t` is written as: one per
-    distinct block of `sharding`, or the whole tensor."""
+    """The index tuples (into `t`) of the blocks `t` is written as: one
+    per distinct block of `sharding`, or the whole tensor; on a process
+    mesh, all of `t` when this rank writes its block, else none."""
+    whole = tuple(slice(0, int(s)) for s in t.shape)
     if sharding is None:
-        return [tuple(slice(0, int(s)) for s in t.shape)]
+        return [whole]
+    if is_process_sharding(sharding):
+        return [] if local_layout(sharding, tuple(t.shape))[2] is None \
+            else [whole]
     return sharding.shard_indices(tuple(t.shape))
 
 
 def tensor_entry(t: torch.Tensor, hosts: List[torch.Tensor],
                  sharding=None) -> Dict[str, Any]:
     """Image entry for `t`, whose blocks' bytes are already in the host
-    tensors `hosts` (one per block of `sharding`, in its order)."""
-    shape = tuple(int(s) for s in t.shape)
+    tensors `hosts` (one per block of `sharding`, in its order).  On a
+    process mesh the entry is the whole tensor's: every distinct block,
+    with bytes (``data``) only for the one this rank writes."""
+    if is_process_sharding(sharding):
+        shape, blocks, mine = local_layout(sharding, tuple(t.shape))
+        shards = [{"index": index_to_json(idx, shape),
+                   "data": host_numpy(hosts[0]) if i == mine else None}
+                  for i, idx in enumerate(blocks)]
+    else:
+        shape = tuple(int(s) for s in t.shape)
+        shards = [{"index": index_to_json(idx, shape),
+                   "data": host_numpy(h)}
+                  for idx, h in zip(_blocks(t, sharding), hosts)]
     return {
         "kind": "device_array",
         "shape": list(shape),
         "dtype": tensor_dtype_str(t),
         "sharding": sharding_descriptor(t, sharding),
-        "shards": [{"index": index_to_json(idx, shape),
-                    "data": host_numpy(h)}
-                   for idx, h in zip(_blocks(t, sharding), hosts)],
+        "shards": shards,
     }
 
 
@@ -296,6 +320,49 @@ def place_blocks(entry: Dict[str, Any], sharding, device: torch.device,
     return out
 
 
+def _overlap(a, b) -> Optional[List[List[int]]]:
+    """The intersection of two ``[[start, stop], ...]`` blocks, or None."""
+    out = [[max(x0, y0), min(x1, y1)] for (x0, x1), (y0, y1) in zip(a, b)]
+    return out if all(lo < hi for lo, hi in out) else None
+
+
+def process_region(entry: Dict[str, Any], sharding) -> Optional[list]:
+    """The block (``[[start, stop], ...]``) of `entry`'s tensor this rank
+    holds under `sharding`, when that is a process mesh's; else None."""
+    if entry["kind"] != "device_array" or not is_process_sharding(sharding):
+        return None
+    shape = tuple(entry["shape"])
+    return index_to_json(rank_index(fit_sharding(sharding, shape), shape),
+                         shape)
+
+
+def place_region(entry: Dict[str, Any], region: list,
+                 device: torch.device, non_blocking: bool = False
+                 ) -> Tuple[torch.Tensor, bool]:
+    """The `region` block of `entry`'s tensor on `device`, and whether it
+    was one saved block placed as it is (else cut from the saved blocks
+    that overlap it, which must have been loaded)."""
+    piece = tuple(b - a for a, b in region)
+    for sh in entry["shards"]:
+        if [list(x) for x in sh["index"]] == region:
+            host = numpy_to_tensor(np.asarray(sh["data"]).reshape(piece),
+                                   entry["dtype"])
+            return _to_device(host, device, non_blocking), True
+    out = np.empty(piece, dtype=dtype_from_str(entry["dtype"]))
+    for sh in entry["shards"]:
+        hit = _overlap(sh["index"], region)
+        if hit is None:
+            continue
+        src_shape = tuple(b - a for a, b in sh["index"])
+        src = tuple(slice(lo - a, hi - a)
+                    for (lo, hi), (a, _) in zip(hit, sh["index"]))
+        dst = tuple(slice(lo - a, hi - a)
+                    for (lo, hi), (a, _) in zip(hit, region))
+        out[dst] = np.asarray(sh["data"]).reshape(src_shape)[src]
+    return _to_device(numpy_to_tensor(out, entry["dtype"]), device,
+                      non_blocking), False
+
+
 def _entry_value(entry: Dict[str, Any], device: Optional[torch.device],
                  non_blocking: bool = False, sharding=None,
                  stats: Optional[Dict[str, float]] = None):
@@ -305,6 +372,13 @@ def _entry_value(entry: Dict[str, Any], device: Optional[torch.device],
     blocks are the saved ones, each block is placed at its index;
     otherwise the tensor is assembled on the host and copied once."""
     if entry["kind"] == "device_array":
+        region = process_region(entry, sharding)
+        if region is not None and device is not None:
+            t, placed = place_region(entry, region, device, non_blocking)
+            if stats is not None:
+                key = "placed_blocks" if placed else "assembled_entries"
+                stats[key] = stats.get(key, 0.0) + 1
+            return t
         if device is not None and sharding is not None:
             t = place_blocks(entry, sharding, device, non_blocking)
             if t is not None:
@@ -443,7 +517,8 @@ class TorchBackend(StreamBoundary, Plugin):
             ctx.device_snapshot[name] = cap
             for e in cap.values():
                 if e["kind"] == "device_array":
-                    dev_bytes += sum(s["data"].nbytes for s in e["shards"])
+                    dev_bytes += sum(s["data"].nbytes for s in e["shards"]
+                                     if s["data"] is not None)
         ctx.stats["device_to_host_s"] = time.perf_counter() - t0
         ctx.stats["capture_s"] = ctx.stats["device_to_host_s"]
         ctx.stats["device_bytes"] = float(dev_bytes)
@@ -488,12 +563,34 @@ class TorchBackend(StreamBoundary, Plugin):
         layout, stats = self._layout(ctx), ctx.stats
 
         def place(reader, state: str, path: str):
-            entry = reader.load_entry(state, path)
-            return _entry_value(
-                entry, self._target(), non_blocking=True,
-                sharding=self._target_sharding(layout, state, path, entry),
-                stats=stats)
+            entry, sh = self._load(reader, layout, state, path)
+            return _entry_value(entry, self._target(), non_blocking=True,
+                                sharding=sh, stats=stats)
         return place
+
+    @classmethod
+    def _load(cls, reader, layout, state: str, path: str):
+        """One leaf's entry, read for the target `layout` (on a process
+        mesh, only the saved blocks that overlap this rank's), and the
+        sharding it is placed in."""
+        meta = reader.meta[state][path]
+        sh = cls._target_sharding(layout, state, path, meta)
+        region = process_region(meta, sh)
+        return reader.load_entry(state, path, region=region), sh
+
+    @classmethod
+    def needed_pack_entries(cls, reader, mesh, shardings) -> List[str]:
+        """The pack entries a restore onto `mesh` with `shardings`
+        ({state: tree}) reads: on a process mesh, this rank's blocks'
+        (what it verifies before it trusts an image)."""
+        layout = (mesh, flatten_shardings(shardings))
+        names = ["__meta__", "__host__"]
+        for state in reader.state_names():
+            for path, meta in reader.meta[state].items():
+                sh = cls._target_sharding(layout, state, path, meta)
+                names += reader.pack_entries(
+                    state, path, region=process_region(meta, sh))
+        return names
 
     def resume_devices_late(self, ctx: HookContext) -> None:
         """host -> device restore; with restore_threads > 1 worker threads
@@ -522,15 +619,14 @@ class TorchBackend(StreamBoundary, Plugin):
             if threads > 1 and len(keys) > 1:
                 from concurrent.futures import ThreadPoolExecutor
                 with ThreadPoolExecutor(max_workers=threads) as ex:
-                    entries: List[Dict[str, Any]] = list(ex.map(
-                        lambda k: reader.load_entry(name, k), keys))
+                    loaded = list(ex.map(
+                        lambda k: self._load(reader, layout, name, k), keys))
             else:
-                entries = [reader.load_entry(name, k) for k in keys]
+                loaded = [self._load(reader, layout, name, k) for k in keys]
             t_place = time.perf_counter()
-            restored = {key: _entry_value(
-                entry, self._target(),
-                sharding=self._target_sharding(layout, name, key, entry),
-                stats=ctx.stats) for key, entry in zip(keys, entries)}
+            restored = {key: _entry_value(entry, self._target(),
+                                          sharding=sh, stats=ctx.stats)
+                        for key, (entry, sh) in zip(keys, loaded)}
             place_s += time.perf_counter() - t_place
             ctx.restored[name] = unflatten_paths(restored)
         self.lock.unlock()

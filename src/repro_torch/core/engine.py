@@ -47,12 +47,26 @@ restore onto ``mesh=`` (default: the engine's) with optional target
 the layouts agree, and reassembles otherwise;
 ``last_stats["topology_mode"]`` says identical, translated or
 resharded.
+
+Across processes (``mesh=`` a ``launch.mesh.ProcessMesh``, one rank per
+card; its group gives rank, world and collectives): every rank's engine
+captures its own blocks into ``host{rank:04d}.pack`` and the image is
+committed by the two-phase commit of ``core/multihost.py`` (each rank
+prepares, rank 0 writes the merged manifest once all have, a crash
+before that leaves no image), with the group's timeout as the barrier's
+deadline.  The ranks agree on
+an attempt token when a dump starts, and on the step a restore takes:
+the newest image whose entries every rank verifies (each rank checks
+only the blocks it reads).  With more than one rank, incremental images,
+lazy restore, concurrent capture and replication raise: they do not run
+across processes yet.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+import uuid
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -112,6 +126,11 @@ class SnapshotEngine:
         self.options.validate()
         self.run_dir = run_dir
         self.mesh = mesh
+        # across processes: the process mesh whose ranks commit together
+        self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
+            else None
+        if self.ranks is not None and self.ranks.world > 1:
+            self._check_across_ranks(replicator)
         os.makedirs(run_dir, exist_ok=True)
         self.store = SnapshotStore(run_dir)
         if isinstance(backend, str):
@@ -161,6 +180,43 @@ class SnapshotEngine:
         self.last_stats: Dict[str, Any] = {}
         # step of the newest image committed by THIS engine instance
         self.last_commit_step: Optional[int] = None
+
+    def _check_across_ranks(self, replicator) -> None:
+        from repro_torch.api.options import OptionsError
+        o = self.options
+        bad = [what for what, on in (
+            ("incremental images", o.incremental),
+            ("lazy restore", o.restore_mode == "lazy"),
+            ("concurrent capture", o.capture == "concurrent"),
+            ("replication", bool(o.replicate_to) or replicator is not None))
+            if on]
+        if bad:
+            raise OptionsError(
+                f"{', '.join(bad)}: not across processes yet (a mesh of "
+                f"{self.ranks.world} ranks); run them on one rank")
+
+    @property
+    def is_primary(self) -> bool:
+        """Rank 0 of a process mesh, or the one process."""
+        return self.ranks is None or self.ranks.rank == 0
+
+    def _barrier(self, step: int, attempt: Optional[str]):
+        """The two-phase commit of `step` across the ranks (None with
+        no process mesh); its deadline is the group's timeout."""
+        if self.ranks is None:
+            return None
+        from repro_torch.core.multihost import MultiHostCommit
+        return MultiHostCommit(self.run_dir, step, self.ranks.rank,
+                               self.ranks.world,
+                               deadline_s=self.ranks.group.timeout_s,
+                               attempt=attempt, poll_s=0.002)
+
+    def _agree_attempt(self, ctx: HookContext) -> None:
+        """Every rank takes rank 0's token for this dump (a collective:
+        every rank dumps the same steps, in the same order)."""
+        if self.ranks is not None:
+            ctx.attempt = self.ranks.group.broadcast_object(
+                uuid.uuid4().hex)
 
     # ------------------------------------------------------------ wiring
     def attach(self, provider: StateProvider, shardings=None) -> None:
@@ -221,6 +277,7 @@ class SnapshotEngine:
             # (raises if it died; the state must not become an image)
             self.restore_barrier()
         ctx = HookContext("dump", step)
+        self._agree_attempt(ctx)
         ctx.roots = self._provider()
         ctx.shardings = self.capture_shardings()
         self.registry.init_all("dump")
@@ -329,6 +386,7 @@ class SnapshotEngine:
             self.restore_barrier()
 
         ctx = HookContext("dump", step)
+        self._agree_attempt(ctx)
         ctx.roots = self._provider()
         self.registry.init_all("dump")
         ctx.stats["t_begin"] = time.perf_counter()
@@ -351,7 +409,7 @@ class SnapshotEngine:
             pinned = self.device_plugin.flatten_keys(ctx.roots)
             tracker.pin(pinned)
             self.device_plugin.begin_tracking(tracker)
-            writer = self._make_writer(step)
+            writer = self._make_writer(step, getattr(ctx, "attempt", None))
         except Exception:
             self.device_plugin.end_tracking()
             self.device_plugin.lock.unlock()
@@ -371,7 +429,8 @@ class SnapshotEngine:
         """The in-flight soft-freeze capture handle, if any."""
         return self._concurrent
 
-    def _make_writer(self, step: int) -> SnapshotWriter:
+    def _make_writer(self, step: int,
+                     attempt: Optional[str] = None) -> SnapshotWriter:
         opts = self.options
         prev_manifest = None
         if self.incremental:
@@ -381,13 +440,16 @@ class SnapshotEngine:
             prev_steps = [s for s in self.store.list_steps() if s < step]
             if prev_steps:
                 prev_manifest = self.store.manifest(prev_steps[-1])
-        return SnapshotWriter(self.run_dir, step, host_id=0,
+        return SnapshotWriter(self.run_dir, step,
+                              host_id=0 if self.ranks is None
+                              else self.ranks.rank,
                               compress=opts.compress,
                               prev_manifest=prev_manifest,
                               pack_format=opts.pack_format,
                               chunk_bytes=opts.chunk_mb << 20,
                               stripes=opts.stripes,
-                              io_threads=opts.io_threads)
+                              io_threads=opts.io_threads,
+                              barrier=self._barrier(step, attempt))
 
     @staticmethod
     def _writer_stats(ctx: HookContext, writer: SnapshotWriter) -> None:
@@ -402,10 +464,13 @@ class SnapshotEngine:
         if stripe_bytes and max(stripe_bytes) > 0:
             ctx.stats["stripe_utilization"] = (
                 min(stripe_bytes) / max(stripe_bytes))
+        ctx.stats["pack_bytes"] = float(writer.pack_bytes)
+        if writer.barrier is not None:
+            ctx.stats["barrier_wait_s"] = writer.barrier_wait_s
 
     def _write(self, ctx: HookContext) -> str:
         t0 = time.perf_counter()
-        writer = self._make_writer(ctx.step)
+        writer = self._make_writer(ctx.step, getattr(ctx, "attempt", None))
         try:
             with obs_trace.span("dump.write", step=ctx.step, mode=self.mode):
                 writer.write_states(ctx.device_snapshot)
@@ -468,7 +533,7 @@ class SnapshotEngine:
             # chaos: lost-writeback site (image committed and replicated)
             chaos_hooks.fire("engine.dump_done", run_dir=self.run_dir,
                              step=ctx.step, path=path)
-        if self.options.keep:
+        if self.options.keep and self.is_primary:
             self.store.gc(self.options.keep)
         return path
 
@@ -538,6 +603,36 @@ class SnapshotEngine:
                 reader.close()
                 raise
         return reader
+
+    def _open_agreed(self, step: Optional[int], verify: bool,
+                     io_threads: int, mesh, shardings):
+        """(reader, step) of the newest image (or `step`) that every rank
+        verifies, each rank checking only the entries it will read; the
+        ranks take rank 0's list of steps and agree on each candidate."""
+        group = self.ranks.group
+        steps = group.broadcast_object(
+            [s for s in self.store.list_steps()
+             if s not in self._quarantined] if step is None else [step])
+        for s in reversed(steps):
+            reader, err = None, None
+            try:
+                reader = self.store.reader(s, verify=verify,
+                                           io_threads=io_threads)
+                if verify:
+                    reader.verify_entries(
+                        self.device_plugin.needed_pack_entries(
+                            reader, mesh, shardings))
+            except Exception as e:                 # noqa: BLE001
+                err = e
+            if group.all_ranks(err is None):
+                return reader, s
+            if reader is not None:
+                reader.close()
+            if step is not None:
+                raise RuntimeError(f"image step {step} does not verify on "
+                                   f"every rank (here: {err!r})")
+        raise FileNotFoundError(
+            f"no snapshot under {self.run_dir} verifies on every rank")
 
     def _make_healer(self, step: int):
         """Background-stream heal hook: re-pull the image (and its delta
@@ -613,7 +708,11 @@ class SnapshotEngine:
         sp_crit = obs_trace.span("restore.critical",
                                  mode="lazy" if lazy else "eager")
         with sp_crit, self.store.lock:
-            if step is None:
+            if self.ranks is not None:
+                reader, step = self._open_agreed(
+                    step, verify, io_threads,
+                    mesh if mesh is not None else self.mesh, shardings)
+            elif step is None:
                 # newest valid image: fall back past torn/corrupt ones and
                 # past steps whose lazy stream died (the quarantine)
                 for s in reversed(self.store.list_steps()):

@@ -22,6 +22,14 @@ On restore every host reads only the entries whose shards it will hold
 (the manifest's locations table is global), so restore bandwidth scales
 with host count — the paper's per-GPU restore parallelism, at host
 granularity.
+
+The port runs it across the ranks of a process group, one per card
+(``core/snapshot_io.py``'s writer, given a barrier by the engine): a
+rank is a host.  Each marker carries the rank's part of the manifest
+(:meth:`MultiHostCommit.prepared_meta` reads them back for the merge),
+and an ``attempt`` token, agreed by every rank when the dump starts,
+keeps a marker or a manifest left by an earlier attempt at the same step
+(a torn commit, a re-dump) from counting for this one.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.snapshot_io import MANIFEST, snapshot_dir
-from repro_torch.serialization.integrity import atomic_write_bytes
+from repro_torch.serialization.integrity import (atomic_write_bytes,
+                                                  read_json)
 
 
 class BarrierTimeout(RuntimeError):
@@ -45,12 +54,15 @@ class MultiHostCommit:
     """Two-phase commit for one snapshot step across `num_hosts` hosts."""
 
     def __init__(self, run_dir: str, step: int, host_id: int,
-                 num_hosts: int, deadline_s: float = 300.0):
+                 num_hosts: int, deadline_s: float = 300.0,
+                 attempt: Optional[str] = None, poll_s: float = 0.05):
         self.run_dir = run_dir
         self.step = step
         self.host_id = host_id
         self.num_hosts = num_hosts
         self.deadline_s = deadline_s
+        self.attempt = attempt
+        self.poll_s = poll_s
         self.dir = snapshot_dir(run_dir, step)
 
     # ------------------------------------------------------------ phase 1
@@ -58,22 +70,45 @@ class MultiHostCommit:
         """Mark this host's pack as durably written (called after the
         host's SnapshotWriter has fsync'd its pack)."""
         import json
-        payload = json.dumps({"host": self.host_id,
-                              "time": time.time(),
-                              "meta": meta or {}}).encode()
-        atomic_write_bytes(_prepared_path(self.dir, self.host_id), payload)
+        record = {"host": self.host_id, "time": time.time(),
+                  "meta": meta or {}}
+        if self.attempt is not None:
+            record["attempt"] = self.attempt
+        atomic_write_bytes(_prepared_path(self.dir, self.host_id),
+                           json.dumps(record).encode())
+
+    def _markers(self) -> Dict[int, Dict[str, Any]]:
+        """host -> its marker's record, this attempt's only (a marker
+        still being written, ``PREPARED.i.tmp``, is not one)."""
+        import json
+        if not os.path.isdir(self.dir):
+            return {}
+        out = {}
+        for n in os.listdir(self.dir):
+            parts = n.split(".")
+            if len(parts) != 2 or parts[0] != "PREPARED":
+                continue
+            try:
+                with open(os.path.join(self.dir, n)) as f:
+                    record = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if self.attempt is None or \
+                    record.get("attempt") == self.attempt:
+                out[int(parts[1])] = record
+        return out
 
     def prepared_hosts(self) -> List[int]:
-        if not os.path.isdir(self.dir):
-            return []
-        out = []
-        for n in os.listdir(self.dir):
-            if n.startswith("PREPARED."):
-                out.append(int(n.split(".")[1]))
-        return sorted(out)
+        return sorted(self._markers())
+
+    def prepared_meta(self) -> Dict[int, Dict[str, Any]]:
+        """host -> the `meta` its marker carries."""
+        return {h: r.get("meta", {}) for h, r in self._markers().items()}
 
     # ------------------------------------------------------------ barrier
-    def wait_all_prepared(self, poll_s: float = 0.05) -> List[int]:
+    def wait_all_prepared(self, poll_s: Optional[float] = None
+                          ) -> List[int]:
+        poll_s = self.poll_s if poll_s is None else poll_s
         t0 = time.monotonic()
         while True:
             hosts = self.prepared_hosts()
@@ -107,12 +142,19 @@ class MultiHostCommit:
         return path
 
     def committed(self) -> bool:
-        return os.path.exists(os.path.join(self.dir, MANIFEST))
+        path = os.path.join(self.dir, MANIFEST)
+        if self.attempt is None or not os.path.exists(path):
+            return os.path.exists(path)
+        try:
+            return read_json(path).get("attempt") == self.attempt
+        except (OSError, ValueError):
+            return False
 
-    def wait_committed(self, poll_s: float = 0.05) -> None:
+    def wait_committed(self, poll_s: Optional[float] = None) -> None:
         """Non-coordinator hosts: block until the coordinator commits (or
         the deadline passes — after which the snapshot must be treated as
         aborted and the host resumes)."""
+        poll_s = self.poll_s if poll_s is None else poll_s
         t0 = time.monotonic()
         while not self.committed():
             if time.monotonic() - t0 > self.deadline_s:

@@ -24,6 +24,15 @@ Host blobs (``__meta__``, ``__host__``) are msgpack with numpy arrays as
 ``{"__np__": True, "dtype", "shape", "data"}`` maps — the reference's
 ``_mp_default`` encoding — through the port's ``msgpack_lite``.
 
+Across the ranks of a process group (a writer given a ``barrier``, a
+``core.multihost.MultiHostCommit``) each rank writes its own
+``host{rank:04d}.pack`` with the blocks it holds; rank 0 adds the blobs
+(``__meta__`` lists every block of every leaf) and, once every rank has
+prepared, the manifest, whose ``locations`` table covers every rank's
+entries.  A reader follows ``locations`` whatever pack an entry is in,
+and a rank restoring its own block reads only the blocks that overlap it
+(``load_entry(..., region=)``).
+
 """
 from __future__ import annotations
 
@@ -82,6 +91,12 @@ def snapshot_dir(run_dir: str, step: int) -> str:
     return os.path.join(run_dir, "snapshots", f"step_{step:08d}")
 
 
+def _overlaps(index, region) -> bool:
+    """Whether a saved block ``[[start, stop], ...]`` meets `region`."""
+    return all(max(a, c) < min(b, d)
+               for (a, b), (c, d) in zip(index, region))
+
+
 def _loc_step(loc: str) -> int:
     """'step_00000042/host0000.pack' -> 42."""
     return int(loc.split("/")[0][5:])
@@ -97,7 +112,7 @@ class SnapshotWriter:
                  prev_manifest: Optional[Dict[str, Any]] = None,
                  pack_format: int = 2,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
-                 stripes: int = 2, io_threads: int = 0):
+                 stripes: int = 2, io_threads: int = 0, barrier=None):
         if pack_format not in (1, 2):
             raise ValueError(f"pack_format must be 1 or 2, got {pack_format}")
         self.run_dir = run_dir
@@ -105,6 +120,11 @@ class SnapshotWriter:
         self.format = pack_format
         self.dir = snapshot_dir(run_dir, step)
         os.makedirs(self.dir, exist_ok=True)
+        # across ranks: rank 0 writes the blobs and commits the manifest
+        self.barrier = barrier
+        self.primary = host_id == 0
+        self.barrier_wait_s = 0.0
+        self.pack_bytes = 0
         self.pack_name = f"host{host_id:04d}.pack"
         self._loc = os.path.join(f"step_{step:08d}", self.pack_name)
         base = os.path.join(self.dir, self.pack_name)
@@ -241,14 +261,16 @@ class SnapshotWriter:
         self.locations[name] = self._loc
         self.written_bytes += raw.nbytes
 
-    @staticmethod
-    def _pieces(state: str, path: str, e: Dict[str, Any]
+    def _pieces(self, state: str, path: str, e: Dict[str, Any]
                 ) -> List[Tuple[str, np.ndarray, Optional[str]]]:
-        """(pack entry name, data, stored dtype) of one captured leaf."""
+        """(pack entry name, data, stored dtype) of one captured leaf:
+        the blocks this writer holds bytes of (all but another rank's),
+        and a host array on rank 0 only."""
         if e["kind"] == "device_array":
             return [(f"{state}::{path}::s{i}", s["data"], e["dtype"])
-                    for i, s in enumerate(e["shards"])]
-        if e["kind"] == "np":
+                    for i, s in enumerate(e["shards"])
+                    if s["data"] is not None]
+        if e["kind"] == "np" and self.primary:
             return [(f"{state}::{path}::np", e["data"], None)]
         return []
 
@@ -347,6 +369,8 @@ class SnapshotWriter:
         return getattr(self._writer, "superseded_bytes", 0)
 
     def write_host_state(self, host_state: Dict[str, Any]) -> None:
+        if not self.primary:
+            return                      # rank 0's pack holds the blobs
         blob = pack_host_blob(host_state)
         self._writer.add_bytes("__host__", blob)
         self.locations["__host__"] = self._loc
@@ -364,9 +388,14 @@ class SnapshotWriter:
                stats: Optional[Dict[str, Any]] = None,
                extra: Optional[Dict[str, Any]] = None) -> str:
         with obs_trace.span("dump.commit", step=self.step):
-            self._writer.add_bytes("__meta__", pack_host_blob(self.meta))
-            self.locations["__meta__"] = self._loc
+            if self.primary:
+                self._writer.add_bytes("__meta__", pack_host_blob(self.meta))
+                self.locations["__meta__"] = self._loc
             self._writer.close()
+            self.pack_bytes = sum(
+                os.path.getsize(os.path.join(self.dir, f))
+                for f in self.files
+                if os.path.exists(os.path.join(self.dir, f)))
             self._close_parent_packs()
             reused_chunks = getattr(self._writer, "reused_chunk_bytes", 0)
             self.written_bytes -= reused_chunks
@@ -399,12 +428,64 @@ class SnapshotWriter:
                 manifest["stripes"] = self.stripes
             if extra:
                 manifest.update(extra)
-            if chaos_hooks.INJECTOR is not None:
-                # chaos: commit-kill site — payload in place, no manifest yet
-                chaos_hooks.fire("snapshot.pre_manifest", step=self.step,
-                                 path=self.dir)
-            atomic_write_json(os.path.join(self.dir, MANIFEST), manifest)
+            if self.barrier is not None:
+                return self._commit_across_ranks(manifest)
+            self._write_manifest(manifest)
         return self.dir
+
+    def _write_manifest(self, manifest: Dict[str, Any]) -> None:
+        if chaos_hooks.INJECTOR is not None:
+            # chaos: commit-kill site — payload in place, no manifest yet
+            chaos_hooks.fire("snapshot.pre_manifest", step=self.step,
+                             path=self.dir)
+        atomic_write_json(os.path.join(self.dir, MANIFEST), manifest)
+
+    #: a rank's part of the manifest, carried in its PREPARED marker
+    _RANK_KEYS = ("locations", "entry_crcs", "files", "states",
+                  "restore_order", "entry_bytes", "written_bytes",
+                  "reused_bytes", "ref_steps")
+
+    def _commit_across_ranks(self, manifest: Dict[str, Any]) -> str:
+        """The two-phase commit (``core/multihost.py``): this rank's pack
+        is closed; it prepares with its part of the manifest, then rank 0
+        waits for every rank's marker and writes the merged manifest,
+        while the others wait for it.  ``barrier_wait_s`` is the wait."""
+        from repro_torch.core.multihost import merge_host_manifests
+        b = self.barrier
+        if chaos_hooks.INJECTOR is not None:
+            # chaos: rank-loss site — this rank's pack written, no marker
+            chaos_hooks.fire("multihost.prepare", step=self.step,
+                             host_id=b.host_id, path=self.dir)
+        b.prepare({k: manifest[k] for k in self._RANK_KEYS})
+        t0 = time.perf_counter()
+        if not b.is_coordinator:
+            b.wait_committed()
+            self.barrier_wait_s = time.perf_counter() - t0
+            return self.dir
+
+        def write() -> str:
+            self.barrier_wait_s = time.perf_counter() - t0
+            parts = b.prepared_meta()
+            merged = merge_host_manifests(self.run_dir, self.step,
+                                          b.num_hosts, manifest["topology"],
+                                          parts)
+            out = dict(manifest, num_hosts=b.num_hosts,
+                       locations=merged["locations"],
+                       entry_crcs=merged["entry_crcs"],
+                       files=merged["files"], states=merged["states"],
+                       attempt=b.attempt)
+            hosts = [parts[h] for h in sorted(parts)]
+            out["restore_order"] = [n for m in hosts
+                                    for n in m["restore_order"]]
+            out["entry_bytes"] = {k: v for m in hosts
+                                  for k, v in m["entry_bytes"].items()}
+            out["ref_steps"] = sorted({s for m in hosts
+                                       for s in m["ref_steps"]})
+            for k in ("written_bytes", "reused_bytes"):
+                out[k] = sum(m[k] for m in hosts)
+            self._write_manifest(out)
+            return self.dir
+        return b.commit(write)
 
     # ------------------------------------------------------ pipeline stats
     @property
@@ -511,12 +592,15 @@ class SnapshotReader:
         out.append("__host__")
         return out
 
-    def pack_entries(self, state: str, path: str) -> List[str]:
-        """The pack-entry names backing one logical (state, path) leaf."""
+    def pack_entries(self, state: str, path: str,
+                     region: Optional[list] = None) -> List[str]:
+        """The pack-entry names backing one logical (state, path) leaf
+        (with `region`, the blocks that overlap it)."""
         m = self.meta[state][path]
         if m["kind"] == "device_array":
             return [f"{state}::{path}::s{i}"
-                    for i in range(len(m["shards"]))]
+                    for i, idx in enumerate(m["shards"])
+                    if region is None or _overlaps(idx, region)]
         if m["kind"] == "np":
             return [f"{state}::{path}::np"]
         return []                          # host value: lives in the meta
@@ -549,11 +633,17 @@ class SnapshotReader:
                     if pack.format == 2 else 0
         return total
 
-    def load_entry(self, state: str, path: str) -> Dict[str, Any]:
+    def load_entry(self, state: str, path: str,
+                   region: Optional[list] = None) -> Dict[str, Any]:
+        """One leaf's entry; with `region` (``[[start, stop], ...]``)
+        only the blocks that overlap it are read (the others' ``data``
+        is None)."""
         m = self.meta[state][path]
         if m["kind"] == "device_array":
             shards = [{"index": idx,
-                       "data": self._read_array(f"{state}::{path}::s{i}")}
+                       "data": (self._read_array(f"{state}::{path}::s{i}")
+                                if region is None or _overlaps(idx, region)
+                                else None)}
                       for i, idx in enumerate(m["shards"])]
             return {"kind": "device_array", "shape": m["shape"],
                     "dtype": m["dtype"], "sharding": m["sharding"],

@@ -18,7 +18,10 @@ slots, so a (4, 2) mesh of the port and one of the reference's 8 CPU
 devices fingerprint the same.  With no mesh, ``mesh_fingerprint`` names
 the one device (the CUDA device name, or ``"cpu"``).  A tensor given no
 sharding carries the reference's "other" descriptor, which a restore
-places whole.
+places whole.  A process mesh (one rank per card) counts its ranks as
+both its devices and its ``process_count``, as the reference counts
+``jax.process_count()``; :func:`process_info` reports this process's
+rank among them.
 """
 from __future__ import annotations
 
@@ -39,7 +42,19 @@ def mesh_fingerprint(mesh=None, device: Optional[torch.device] = None
             "n_devices": mesh.size,
             "mesh_shape": [int(s) for s in mesh.devices.shape],
             "mesh_axes": list(mesh.axis_names),
-            "process_count": 1}
+            "process_count": (mesh.world if getattr(
+                mesh, "is_process_mesh", False) else 1)}
+
+
+def process_info() -> Dict[str, int]:
+    """This process's place in its ``torch.distributed`` group, 0 of 1
+    outside one (the reference's ``jax.process_index()`` /
+    ``jax.process_count()``)."""
+    import torch.distributed as tdist
+    if tdist.is_available() and tdist.is_initialized():
+        return {"process_index": tdist.get_rank(),
+                "process_count": tdist.get_world_size()}
+    return {"process_index": 0, "process_count": 1}
 
 
 def compatibility(saved: Dict[str, Any], target: Dict[str, Any]) -> str:

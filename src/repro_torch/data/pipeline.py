@@ -15,6 +15,10 @@ vision patches) are generated per the config's frontend-stub contract.
 A copy of the JAX package's ``data/pipeline.py`` (numpy only, on the
 port's ``ModelConfig``): its batches are bitwise the reference's for every
 ``(seed, step, host_id)``, so both packages train on the same tokens.
+Across the ranks of a process group every rank draws the same global
+batch and keeps its rows (:func:`local_rows`): the rows the reference's
+``data`` axis gives that rank's device, so the inputs are bit-equal to
+the reference's at any world size.
 """
 from __future__ import annotations
 
@@ -93,3 +97,18 @@ class TokenPipeline:
 
     def __next__(self):
         return self.next()
+
+
+def local_rows(batch: Dict[str, np.ndarray], rank: int, world: int
+               ) -> Dict[str, np.ndarray]:
+    """Rank `rank`'s rows of a global batch: the `rank`-th of `world`
+    equal blocks of the batch dim (the block a ``data``-sharded batch
+    puts on that rank's device)."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % world:
+            raise ValueError(f"batch of {v.shape[0]} rows does not divide "
+                             f"over {world} ranks")
+        n = v.shape[0] // world
+        out[k] = v[rank * n:(rank + 1) * n]
+    return out

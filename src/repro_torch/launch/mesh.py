@@ -17,9 +17,14 @@ port takes the same posture on the device it runs on:
     block per distinct shard, replica 0 only) and how a restore places
     it.
 
-A mesh across several cards (one process per card, ``torch.distributed``
-and DTensor, images committed through ``core/multihost.py``) needs a
-machine with more than one card.
+A :class:`ProcessMesh` spans the ranks of a process group
+(:class:`repro_torch.distributed.Group`, one process per card) and
+carries it: slot ``i`` names rank ``i``'s device, and this process holds
+``local_slots``.  Its tensors hold only this rank's block of each
+sharding; the sharding's block arithmetic is the same
+(``repro_torch.sharding.policy``), and images are committed through
+``core/multihost.py``.  ``make_host_mesh(..., group=)`` builds one with
+a slot per rank (the launchers' ``data = world size``, ``model = 1``).
 
 The reference's JAX-version shims (``_axis_type_support``,
 ``AXIS_TYPE`` / ``HAS_AXIS_TYPES``, ``use_mesh``) have no torch meaning
@@ -32,12 +37,13 @@ importing this module touches no device.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.distributed import Group
 
 
 class Mesh:
@@ -55,14 +61,21 @@ class Mesh:
             raise ValueError(f"repeated mesh axis name in {axis_names}")
         if devices.size == 0:
             raise ValueError("a mesh needs at least one slot")
+        self._check_devices(devices)
+        self.devices = devices
+        self.axis_names = axis_names
+
+    #: a mesh over the ranks of a process group (:class:`ProcessMesh`)
+    is_process_mesh = False
+
+    @staticmethod
+    def _check_devices(devices: np.ndarray) -> None:
         distinct = {torch.device(d) for d in devices.flat}
         if len(distinct) != 1:
             raise ValueError(
                 f"a mesh's slots must all name one device, got "
                 f"{sorted(map(str, distinct))}: a mesh across several "
                 f"devices needs one process per device")
-        self.devices = devices
-        self.axis_names = axis_names
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -90,6 +103,63 @@ class Mesh:
         return f"Mesh({axes}; {self.device})"
 
 
+class ProcessMesh(Mesh):
+    """A named grid whose slot ``i`` (row-major) is rank ``i`` of
+    `group`: ``devices`` holds each rank's device, ``rank`` is this
+    process's rank, ``local_slots`` the slots it holds (one: its rank).
+    ``device`` is this process's device."""
+
+    is_process_mesh = True
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 group: Group):
+        super().__init__(devices, axis_names)
+        if self.size != group.world:
+            raise ValueError(f"a mesh of {self.size} slots over a group of "
+                             f"{group.world} ranks")
+        self.group = group
+
+    @staticmethod
+    def _check_devices(devices: np.ndarray) -> None:
+        pass                     # each slot is a process of its own
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def world(self) -> int:
+        return self.group.world
+
+    @property
+    def local_slots(self) -> Tuple[int, ...]:
+        return (self.rank,)
+
+    @property
+    def local_coord(self) -> Tuple[int, ...]:
+        """This process's slot as a mesh coordinate."""
+        return tuple(int(i) for i in np.unravel_index(
+            self.rank, self.devices.shape))
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices.flat[self.rank]
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, ProcessMesh)
+                and self.axis_names == other.axis_names
+                and self.devices.shape == other.devices.shape
+                and self.rank == other.rank
+                and list(self.devices.flat) == list(other.devices.flat))
+
+    def __hash__(self) -> int:
+        return hash((self.axis_names, self.devices.shape, self.rank))
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
+        return f"ProcessMesh({axes}; rank {self.rank} on {self.device})"
+
+
 def make_mesh(shape: Tuple[int, ...], axis_names: Sequence[str], *,
               devices=None) -> Mesh:
     """A mesh of `shape` slots.  `devices`: None (the card; raises
@@ -111,13 +181,24 @@ def make_mesh(shape: Tuple[int, ...], axis_names: Sequence[str], *,
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
-                   device: DeviceLike = None) -> Mesh:
+                   device: DeviceLike = None,
+                   group: Optional[Group] = None) -> Mesh:
     """The small mesh of the launchers and tests: ``("data", "model")``,
-    or ``("pod", "data", "model")`` with `pod`, on `device`."""
-    if pod:
-        return make_mesh((pod, data, model), ("pod", "data", "model"),
-                         devices=device)
-    return make_mesh((data, model), ("data", "model"), devices=device)
+    or ``("pod", "data", "model")`` with `pod`.  With `group`, a
+    :class:`ProcessMesh` over its ranks (`device`, if given, must be this
+    rank's); otherwise slots on `device`."""
+    shape, axes = (((pod, data, model), ("pod", "data", "model")) if pod
+                   else ((data, model), ("data", "model")))
+    if group is not None:
+        if device is not None and resolve_device(device) != group.device:
+            raise ValueError(f"rank {group.rank} runs on {group.device}, "
+                             f"not {device}")
+        grid = np.empty(math.prod(shape), dtype=object)
+        for r in range(grid.size):         # one host: rank r on cuda:r
+            grid[r] = (torch.device(group.device.type, r)
+                       if group.device.type == "cuda" else group.device)
+        return ProcessMesh(grid.reshape(shape), axes, group)
+    return make_mesh(shape, axes, devices=device)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --batch 4 --prompt-len 16 --tokens 32 [--snapshot-at 16] [--restore] \\
-      [--smoke --device cpu]
+      [--nproc N] [--smoke --device cpu]
 
 Port of the reference's ``launch/serve.py``: its flags and printed JSON,
 plus ``--device`` (default ``cuda``, which raises without a card), the
@@ -13,7 +13,15 @@ serving cold-start story (paper §6).  ``--smoke`` serves the reduced
 config in f32; without it the published config serves in bf16 over f32
 masters, on the card through the hand-written kernels, with the
 deterministic settings of :func:`repro_torch.devices.set_deterministic`.
-The state is laid over ``make_host_mesh(data=1)`` on the device.
+
+As the reference serves over every device of the host, the launcher
+runs one process per card (:mod:`repro_torch.launch.dist`; ``--nproc``,
+by default every card on ``cuda`` and 1 on the CPU): the state is laid
+over ``make_host_mesh(data=ranks, model=1)``, each rank serves its rows
+of the batch against its block of the KV cache with the params'
+``d_model`` blocks gathered, and each writes its own pack of a snapshot.
+The batch must divide over the ranks.  Rank 0 prints the JSON (with
+``ranks``).
 """
 from __future__ import annotations
 
@@ -24,12 +32,17 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="ranks, one per card (default: every card of the "
+                    "host on cuda, 1 on the CPU)")
+    ap.add_argument("--dist-timeout", type=float, default=300.0,
+                    help="seconds: every collective and the commit barrier")
     ap.add_argument("--policy", default="baseline")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -39,30 +52,45 @@ def main(argv=None) -> int:
     ap.add_argument("--snapshot-at", type=int, default=None)
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
 
-    from repro_torch.devices import resolve_device, set_deterministic
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        set_deterministic()
 
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    from repro_torch.launch import dist
+    return dist.launch("repro_torch.launch.serve:rank_main", argv,
+                       args.nproc, args.device, args.run_dir,
+                       args.dist_timeout)
+
+
+def rank_main(argv, group, *, cfg=None) -> int:
+    """One rank's run of the launcher's `argv` in `group`
+    (``launch.dist`` has set it up).  `cfg`: the model config (default:
+    ``--arch``'s, reduced with ``--smoke``)."""
+    args = _parser().parse_args(argv)
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.encdec import build_model
     from repro_torch.runtime.server import DecodeServer
     from repro_torch.sharding import get_policy
+
+    rank, world, device = group.rank, group.world, group.device
 
     def sync() -> float:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    mesh = make_host_mesh(data=1, device=device)
+    if cfg is None:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
+    mesh = make_host_mesh(data=world, model=1, device=device, group=group)
     compute = torch.float32 if args.smoke else torch.bfloat16
     model = build_model(cfg, compute_dtype=compute, remat=False,
                         use_kernels=device.type == "cuda", device=device)
@@ -81,7 +109,8 @@ def main(argv=None) -> int:
         t0 = sync()
         pos = srv.restore()
         timings["restore_s"] = sync() - t0
-        print(f"[serve] restored mid-generation snapshot at pos {pos}")
+        if rank == 0:
+            print(f"[serve] restored mid-generation snapshot at pos {pos}")
 
     remaining = args.tokens - (srv.pos - args.prompt_len)
     decoded, t_decode = 0, 0.0
@@ -96,7 +125,8 @@ def main(argv=None) -> int:
         timings["checkpoint_s"] = time.perf_counter() - t0
         st = srv.session.last_stats
         timings["freeze_s"] = st.get("lock_s", 0.0) + st.get("frozen_s", 0.0)
-        print(f"[serve] serving snapshot at pos {srv.pos} -> {path}")
+        if rank == 0:
+            print(f"[serve] serving snapshot at pos {srv.pos} -> {path}")
         remaining -= first
     t0 = sync()
     srv.decode(max(remaining, 0))
@@ -107,6 +137,15 @@ def main(argv=None) -> int:
 
     out = srv.tokens
     gen = np.ascontiguousarray(out[:, args.prompt_len:], dtype=np.int32)
+    stats = srv.session.engine.last_stats
+    per_rank = group.gather_objects({
+        "rank": rank, "pack_bytes": stats.get("pack_bytes"),
+        "barrier_wait_s": stats.get("barrier_wait_s"),
+        "launches": {"flash_attention": flash_attention.launches,
+                     "rmsnorm": rmsnorm.launches,
+                     "ssd_scan": ssd_scan.launches}})
+    if rank:
+        return 0
     print(json.dumps({
         "arch": cfg.name,
         "generated": int(out.shape[1] - args.prompt_len),
@@ -114,7 +153,8 @@ def main(argv=None) -> int:
         .tolist(),
         "pos": srv.pos,
         "tokens_sha256": hashlib.sha256(gen.tobytes()).hexdigest(),
-        "timings": timings, "device": str(device),
+        "timings": timings, "device": str(device), "ranks": world,
+        "per_rank": per_rank,
     }, indent=1))
     return 0
 

@@ -10,11 +10,16 @@ updates the params and the moments in place (under ``torch.no_grad()``)
 and returns the same objects: one copy of the model's state on the card,
 not two.  A snapshot is not affected: the capture copies every tensor
 before the job resumes.
+
+Across the ranks of a process mesh each rank updates its own blocks;
+the clip's norm must be the whole gradient's, so the trainer passes
+``grad_sq``, which sums the squares of the blocks this rank holds
+replica 0 of and all-reduces the sum.  ``opt/step`` is replicated.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -62,11 +67,22 @@ class AdamW:
                         m=_zeros_like(params, "meta"),
                         v=_zeros_like(params, "meta"))
 
+    @staticmethod
+    def grad_sq(g_flat: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The squared global norm: every leaf's sum of squares, in leaf
+        order (the reference's)."""
+        return sum(torch.sum(torch.square(g.float()))
+                   for g in g_flat.values())
+
     @torch.no_grad()
-    def update(self, grads: PyTree, state: OptState, params: PyTree
+    def update(self, grads: PyTree, state: OptState, params: PyTree,
+               grad_sq: Optional[Callable[[Dict[str, torch.Tensor]],
+                                          torch.Tensor]] = None
                ) -> Tuple[PyTree, OptState, Dict[str, torch.Tensor]]:
         """One step, in place: `params`, `state.m`, `state.v` and
-        `state.step` are updated and returned."""
+        `state.step` are updated and returned.  `grad_sq` computes the
+        squared global norm from the flat grads (default
+        :meth:`grad_sq`; across ranks, one that all-reduces)."""
         p_flat = flatten_with_paths(params)
         g_flat = flatten_with_paths(grads)
         m_flat = flatten_with_paths(state.m)
@@ -76,8 +92,7 @@ class AdamW:
                              "leaves")
         state.step.add_(1)
         step = state.step.to(torch.float32)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in g_flat.values()))
+        gnorm = torch.sqrt((grad_sq or self.grad_sq)(g_flat))
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         c1 = 1.0 - b1 ** step

@@ -19,6 +19,15 @@ cache carry named shardings on the mesh (the cache's batch- or
 sequence-sharded by the reference's rule, fitted to its shape), so
 images hold each tensor's blocks and a restore lays them out on this
 mesh; ``mesh=None`` writes every tensor whole.
+
+With a process mesh (one rank per card, ``data`` = the world size) the
+batch and the cache go over ``data``: each rank prefills and decodes its
+rows of the batch against its block of the cache (batch-sharded, the
+cache's ``cache_seq`` losing the contested axis by the policy's rule),
+with the params' ``d_model`` blocks gathered whole once per load or
+restore.  The tokens are gathered every step, so every rank holds the
+whole generation and rank 0's pack carries it in the decode cursor.  The
+global batch must divide over the ranks.
 """
 from __future__ import annotations
 
@@ -32,11 +41,13 @@ import torch.nn.functional as F
 from repro_torch.api import CheckpointOptions, CheckpointSession
 from repro_torch.api.session import SnapshotWriteFailed
 from repro_torch.core.lazy import covers
+from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
 from repro_torch.runtime.fault import SimulatedFailure
 from repro_torch.sharding import state_shardings
+from repro_torch.sharding.policy import gather_leaf, local_block, map_tree
 
 
 class DecodeServer:
@@ -69,6 +80,10 @@ class DecodeServer:
         self._param_shardings = (
             state_shardings(self.model, mesh, policy)["params"]
             if mesh is not None else None)
+        # across processes: this rank's slot; the params gathered whole
+        self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
+            else None
+        self._whole = None
         self.session = CheckpointSession(run_dir, options,
                                          device=self.device, mesh=mesh)
         self._pending_cache_template = None   # lazy: cache still streaming
@@ -105,7 +120,37 @@ class DecodeServer:
         self.tokens = st["tokens"]
 
     def load(self, params) -> None:
+        """Serve `params` (whole tensors; across ranks each keeps its
+        blocks for the image and the whole tree for compute)."""
+        if self.ranks is not None:
+            self._whole = params
+            params = map_tree(local_block, params, self._param_shardings)
         self.params = params
+
+    @property
+    def compute_params(self):
+        """The params the model runs on: the whole tree (gathered from
+        the ranks' blocks once after a restore)."""
+        if self.ranks is None:
+            return self.params
+        if self._whole is None:
+            self._whole = map_tree(gather_leaf, self.params,
+                                   self._param_shardings)
+        return self._whole
+
+    def _rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a batch-major array (all of it alone)."""
+        if self.ranks is None:
+            return a
+        return local_rows({"a": a}, self.ranks.rank, self.ranks.world)["a"]
+
+    def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy next tokens of the whole batch from this rank's logits
+        (gathered over the ranks)."""
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.ranks is not None:
+            nxt = torch.cat(self.ranks.group.all_gather(nxt))
+        return nxt.cpu().numpy()
 
     # ------------------------------------------------------------- serving
     def start(self, batch: Dict[str, Any]) -> None:
@@ -118,15 +163,17 @@ class DecodeServer:
         if S >= self.max_seq:
             raise ValueError(f"prompt length {S} leaves no room in "
                              f"max_seq={self.max_seq}")
-        inputs = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
+        inputs = {"tokens": torch.as_tensor(self._rows(prompt),
+                                            dtype=torch.long,
                                             device=self.device)}
         for key in ("frames", "vision_embeds", "positions"):
             if batch.get(key) is not None:
-                inputs[key] = torch.as_tensor(batch[key], device=self.device)
-        logits, cache = self.model.prefill(self.params, inputs)
+                inputs[key] = torch.as_tensor(
+                    self._rows(np.asarray(batch[key])), device=self.device)
+        logits, cache = self.model.prefill(self.compute_params, inputs)
         self.cache = self._pad_cache(
             cache, self.model.cache_abstract(B, self.max_seq))
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        nxt = self._next_tokens(logits)
         self.tokens = np.concatenate([prompt, nxt[:, None]], axis=1)
         self.pos = S
 
@@ -187,11 +234,11 @@ class DecodeServer:
             if straggle_at is not None and self.pos == straggle_at:
                 time.sleep(0.25)                   # injected straggler
             self._finish_lazy_restore()   # first touch of the cache
-            last = torch.as_tensor(self.tokens[:, -1], dtype=torch.long,
-                                   device=self.device)
+            last = torch.as_tensor(self._rows(self.tokens[:, -1]),
+                                   dtype=torch.long, device=self.device)
             logits, self.cache = self.model.decode_step(
-                self.params, self.cache, last, self.pos)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+                self.compute_params, self.cache, last, self.pos)
+            nxt = self._next_tokens(logits)
             self.tokens = np.concatenate([self.tokens, nxt[:, None]], axis=1)
             self.pos += 1
             executed += 1
@@ -230,6 +277,7 @@ class DecodeServer:
         decode cursor: no prefill re-execution."""
         template = {"params": self.params, "cache": self.cache}
         engine = self.session.engine
+        self._whole = None           # gathered again from the new blocks
         if self.session.options.restore_mode == "lazy":
             # resume-before-read: params place now, the cache streams
             # behind the server and is joined before the first decode step
@@ -267,6 +315,7 @@ class DecodeServer:
         device state (params, cache, a lazy template), so it is freed at
         once."""
         self.params = self.cache = self._pending_cache_template = None
+        self._whole = None
         self.session.engine.release()
 
     def _finish_lazy_restore(self) -> None:

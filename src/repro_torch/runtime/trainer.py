@@ -33,6 +33,22 @@ ride beside it: images hold each tensor's distinct blocks and name the
 mesh, and a restore lays the image out on this mesh (identical,
 translated or resharded).  Compute is the same whole-tensor step either
 way; ``mesh=None`` writes every tensor whole.
+
+With a process mesh (``launch.mesh.ProcessMesh``, one rank per card,
+``data`` = the world size) the state is laid out as the reference's
+GSPMD lays it: each rank holds its block of every param and moment (the
+policy's ``d_model`` blocks over ``data``) and takes its rows of the
+global batch.  A step gathers every param leaf whole, computes the loss
+and grads on its rows with the local loss weighted by its share of the
+global token count (so the grads summed over the ranks are those of the
+global mean), reduce-scatters the grads back to the blocks and updates
+the blocks, the clip's norm all-reduced.  The logged loss is the global
+mean.  Decisions the ranks must take together -- the just-in-time
+checkpoint of a straggler, a preemption -- are agreed first (any rank's
+flag acts on all); ``fail_at`` and ``ckpt_every`` are the same on every
+rank by construction.  Gathering whole leaves once per step holds one
+whole copy of the params per rank beside the blocks (a per-layer gather
+is later work).
 """
 from __future__ import annotations
 
@@ -48,6 +64,7 @@ from repro_torch.core.device_plugin import flatten_with_paths, unflatten_like
 from repro_torch.core.lazy import covers
 from repro_torch.core.snapshot_io import snapshot_dir
 from repro_torch.data import TokenPipeline
+from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
@@ -56,24 +73,32 @@ from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
                                        SimulatedFailure, StragglerMonitor)
 from repro_torch.sharding import state_shardings
+from repro_torch.sharding.policy import (gather_leaf, local_block,
+                                         map_tree, scatter_grad)
 
 PyTree = Any
 
 
 def loss_and_grads(model, params: PyTree, batch,
                    on_grad: Optional[Callable[[str, torch.Tensor], None]]
-                   = None) -> Tuple[Dict[str, torch.Tensor], PyTree]:
+                   = None,
+                   scale: Optional[Callable[[Dict[str, torch.Tensor]],
+                                            torch.Tensor]] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], PyTree]:
     """``model.loss``'s metrics and the grads of its total for every
     param (the counterpart of ``jax.value_and_grad``), taken on views of
     the params: nothing accumulates in ``.grad``.  ``on_grad(path,
     grad)`` runs as each param's grad is formed (the dry run lays it out
-    over its shards there)."""
+    over its shards there).  ``scale(metrics)`` weights the total before
+    the backward (a rank's share of the global token count)."""
     flat = {k: p.detach().requires_grad_()
             for k, p in flatten_with_paths(params).items()}
     if on_grad is not None:
         for k, t in flat.items():
             t.register_hook(lambda g, k=k: on_grad(k, g))
     total, metrics = model.loss(unflatten_like(params, flat), batch)
+    if scale is not None:
+        total = total * scale(metrics)
     # a declared leaf no layer reads (pre_mlp_norm without an FFN) gets
     # zeros, as from jax.grad
     grads = torch.autograd.grad(total, list(flat.values()),
@@ -123,10 +148,25 @@ class Trainer:
         # {"params", "opt"} named shardings on the mesh (None: whole)
         self.shardings = (state_shardings(self.model, mesh, policy)
                           if mesh is not None else None)
+        # across processes: the process mesh this rank is a slot of
+        self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
+            else None
+        if self.ranks is not None:
+            if tcfg.batch_size % self.ranks.world:
+                raise ValueError(f"global batch {tcfg.batch_size} does not "
+                                 f"divide over {self.ranks.world} ranks")
+            # the leaves whose block this rank holds replica 0 of: the
+            # clip's norm counts each block once over the ranks
+            coord = self.ranks.local_coord
+            self._primary = {
+                k: sh.replica_ids(tuple(a.shape))[coord] == 0
+                for (k, a), sh in zip(
+                    flatten_with_paths(self.model.init_abstract()).items(),
+                    flatten_with_paths(self.shardings["params"]).values())}
         self.params = None
         self.opt_state = None
         self.step = 0
-        self.metrics_history: Dict[str, list] = {"loss": []}
+        self.metrics_history: Dict[str, list] = {"loss": [], "step_s": []}
         self.straggler = StragglerMonitor()
         if session is None:
             opts = tcfg.ckpt
@@ -162,12 +202,51 @@ class Trainer:
 
     # ------------------------------------------------------------- steps
     def _train_step(self, batch) -> Dict[str, torch.Tensor]:
+        if self.ranks is not None:
+            return self._train_step_ranks(batch)
         metrics, grads = loss_and_grads(self.model, self.params, batch)
         _, _, om = self.opt.update(grads, self.opt_state, self.params)
         return {**metrics, **om}
 
+    def _train_step_ranks(self, batch) -> Dict[str, torch.Tensor]:
+        """One step over the ranks: gather, local loss and grads weighted
+        by the rank's token share, reduce-scatter, blockwise update."""
+        shardings = self.shardings["params"]
+        group = self.ranks.group
+        ntok = {}
+
+        def share(metrics):
+            n = metrics["ntokens"].float()
+            ntok["local"] = n.detach()
+            ntok["global"] = group.all_reduce(n.detach().clone())
+            return n.detach() / ntok["global"]
+
+        whole = map_tree(gather_leaf, self.params, shardings)
+        metrics, grads = loss_and_grads(self.model, whole, batch,
+                                        scale=share)
+        del whole
+        grads = map_tree(scatter_grad, grads, shardings)
+
+        def grad_sq(g_flat):
+            total = sum(torch.sum(torch.square(g.float()))
+                        for k, g in g_flat.items() if self._primary[k])
+            return group.all_reduce(torch.as_tensor(
+                total, dtype=torch.float32, device=self.device))
+
+        _, _, om = self.opt.update(grads, self.opt_state, self.params,
+                                   grad_sq=grad_sq)
+        if self.ranks.world > 1:
+            metrics["loss"] = group.all_reduce(
+                metrics["loss"] * ntok["local"]) / ntok["global"]
+            metrics["ntokens"] = ntok["global"]
+        return {**metrics, **om}
+
     def initialize(self) -> None:
         self.params = self.model.init(self.tcfg.seed)
+        if self.ranks is not None:
+            # this rank's block of every param; the whole tree goes
+            self.params = map_tree(local_block, self.params,
+                                   self.shardings["params"])
         self.opt_state = self.opt.init(self.params)
         self.step = 0
 
@@ -231,8 +310,11 @@ class Trainer:
         self.engine.release()
 
     def _batch(self) -> Dict[str, torch.Tensor]:
+        batch = self.pipeline.next()
+        if self.ranks is not None:
+            batch = local_rows(batch, self.ranks.rank, self.ranks.world)
         out = {k: torch.as_tensor(v).to(self.device)
-               for k, v in self.pipeline.next().items()}
+               for k, v in batch.items()}
         out["tokens"] = out["tokens"].long()
         return out
 
@@ -265,7 +347,7 @@ class Trainer:
                 # the soft-freeze capture finished speculating: take its
                 # short validate pause now, between steps
                 self.session.checkpoint_finalize()
-            if preempt is not None and preempt():
+            if preempt is not None and self._agree(preempt()):
                 # a dump captures the live roots: the streamed optimizer
                 # state must have landed, and an open soft-freeze capture
                 # must settle (its validate pause re-reads the roots)
@@ -296,9 +378,10 @@ class Trainer:
             loss = float(metrics["loss"])
             self.metrics_history["loss"].append(loss)
             dt = time.perf_counter() - t0
+            self.metrics_history["step_s"].append(dt)
             self.step += 1
             executed += 1
-            if self.straggler.record(dt):
+            if self._agree(self.straggler.record(dt)):
                 self.jit_ckpt.on_signal(self.step)     # just-in-time ckpt
             if (self.tcfg.ckpt_every
                     and self.step % self.tcfg.ckpt_every == 0):
@@ -316,6 +399,12 @@ class Trainer:
                 "loss": (self.metrics_history["loss"][-1]
                          if self.metrics_history["loss"] else None),
                 "wall_s": time.perf_counter() - t_loop}
+
+    def _agree(self, flag: bool) -> bool:
+        """A decision every rank takes together: true on all when true
+        on any (a collective; this process alone without ranks)."""
+        return (self.ranks.group.any_rank(flag) if self.ranks is not None
+                else flag)
 
     def run(self, num_steps: int, fail_at: Optional[int] = None,
             straggle_at: Optional[int] = None) -> Dict[str, Any]:

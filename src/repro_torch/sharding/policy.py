@@ -7,10 +7,15 @@ maps them onto mesh axes.  The tables, the first-dim-wins rule for a
 contested axis and the divisibility fit are the reference's, so a
 policy gives the same ``PartitionSpec`` in both packages.
 
-The port's meshes are grids of slots on one device
-(:mod:`repro_torch.launch.mesh`): compute runs on whole tensors, and a
+On the port's slot meshes (grids of slots on one device,
+:mod:`repro_torch.launch.mesh`) compute runs on whole tensors, and a
 :class:`NamedSharding` decides what an image holds and how a restore
-places it.  Its block arithmetic is JAX's: a dim sharded over the axes
+places it.  On a ``ProcessMesh`` (one rank per slot) a tensor holds only
+its rank's block: :func:`local_block` cuts it from the whole,
+:func:`gather_leaf` rebuilds the whole from every rank's block and
+:func:`scatter_grad` sums a whole gradient over the ranks into each
+rank's block, by the same block arithmetic and the collectives of the
+mesh's group.  The block arithmetic is JAX's: a dim sharded over the axes
 ``(a, b)`` is cut into ``|a|·|b|`` equal blocks with ``a`` the major
 axis; a slot's replica id counts, in mesh order, the slots before it
 that hold the same block.  The reference's ``constrain``
@@ -161,6 +166,84 @@ class NamedSharding:
         idx_map = self.devices_indices_map(shape)
         rids = self.replica_ids(shape)
         return [idx_map[c] for c in idx_map if rids[c] == 0]
+
+
+# ----------------------------------------------------------------------
+# blocks on a process mesh (one rank per slot)
+# ----------------------------------------------------------------------
+def is_process_sharding(sharding) -> bool:
+    return sharding is not None and getattr(sharding.mesh,
+                                            "is_process_mesh", False)
+
+
+def global_shape(sharding: NamedSharding, local_shape) -> Tuple[int, ...]:
+    """The whole tensor's shape, from the shape of one rank's block."""
+    sizes = sharding.mesh.shape
+    return tuple(int(n) * math.prod(sizes[a] for a in axes)
+                 for n, axes in zip(local_shape,
+                                    sharding._dim_axes(len(local_shape))))
+
+
+def rank_index(sharding: NamedSharding, shape, rank: Optional[int] = None
+               ) -> Tuple[slice, ...]:
+    """The block of a `shape` tensor that `rank`'s slot holds (default:
+    this process's)."""
+    mesh = sharding.mesh
+    rank = mesh.rank if rank is None else rank
+    coord = tuple(int(i) for i in np.unravel_index(rank, mesh.devices.shape))
+    return sharding.devices_indices_map(tuple(shape))[coord]
+
+
+def local_layout(sharding: NamedSharding, local_shape
+                 ) -> Tuple[Tuple[int, ...], List[Tuple[slice, ...]],
+                            Optional[int]]:
+    """(whole shape, the distinct blocks in mesh order, the position in
+    them of the block this process writes, or None when another rank
+    holds its replica 0)."""
+    shape = global_shape(sharding, local_shape)
+    blocks = sharding.shard_indices(shape)
+    mine = None
+    if sharding.replica_ids(shape)[sharding.mesh.local_coord] == 0:
+        key = _index_key(rank_index(sharding, shape), shape)
+        mine = [_index_key(b, shape) for b in blocks].index(key)
+    return shape, blocks, mine
+
+
+def local_block(t, sharding: NamedSharding):
+    """This rank's block of the whole tensor `t`, as a tensor of its own."""
+    return t[rank_index(sharding, tuple(t.shape))].contiguous().clone()
+
+
+def _whole(index, shape) -> bool:
+    return all(x == (0, int(d)) for x, d in
+               zip(_index_key(index, shape), shape))
+
+
+def gather_leaf(t, sharding: NamedSharding):
+    """The whole tensor from every rank's block `t` (an all-gather, each
+    block placed at its index); a replicated leaf is `t` itself."""
+    shape = global_shape(sharding, tuple(t.shape))
+    if _whole(rank_index(sharding, shape), shape):
+        return t
+    parts = sharding.mesh.group.all_gather(t)
+    out = t.new_empty(shape)
+    for r, part in enumerate(parts):
+        out[rank_index(sharding, shape, r)] = part
+    return out
+
+
+def scatter_grad(g, sharding: NamedSharding):
+    """This rank's block of the sum over the ranks of the whole tensors
+    `g`: a reduce-scatter of the blocks laid out in rank order, or an
+    all-reduce for a replicated leaf."""
+    import torch
+    group = sharding.mesh.group
+    shape = tuple(g.shape)
+    idx = [rank_index(sharding, shape, r) for r in range(sharding.mesh.size)]
+    if all(_whole(i, shape) for i in idx):
+        return group.all_reduce(g.contiguous())
+    flat = torch.cat([g[i].reshape(-1) for i in idx])
+    return group.reduce_scatter(flat).view(sharding.shard_shape(shape))
 
 
 def _mesh_coords(mesh) -> List[Tuple[int, ...]]:

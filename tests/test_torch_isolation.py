@@ -52,6 +52,7 @@ SUBPACKAGES = ["repro_torch", "repro_torch.api", "repro_torch.core",
                "repro_torch.runtime.elastic", "repro_torch.launch",
                "repro_torch.launch.mesh", "repro_torch.launch.shapes",
                "repro_torch.launch.train", "repro_torch.launch.serve",
+               "repro_torch.launch.dist", "repro_torch.distributed",
                "repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun"]
 
 

@@ -9,7 +9,9 @@ ARCH``, a process of its own): a serving path's prefill, decode, images,
 cold restores, logit check and profile; ``--path elastic``: phase 8 (c),
 the elastic restores; ``--path orch``: phase 6, the orchestrator, the
 interception baseline and the fleet; ``--path repl``: phase 5 (a)-(c),
-replication and the serving pre-copy migration.  It runs at N layers and
+replication and the serving pre-copy migration; ``--path dist``: phase 11,
+the launchers over every card of the host (one rank per card), images
+across devices and world sizes.  It runs at N layers and
 at the path's own depth, in the order cut, own, own, cut, so a drift of
 the host over the four runs falls on both depths alike.  Each run's time
 is the process's wall time, from its start to its exit.  The kernels are
@@ -54,7 +56,8 @@ def main() -> int:
     paths = [p[0] for p in chip_smoke.SERVE_PATHS + chip_smoke.ZOO_PATHS
              + chip_smoke.MM_PATHS] + [chip_smoke.ELASTIC_PATH,
                                        chip_smoke.ORCH_PATH,
-                                       chip_smoke.REPL_PATH]
+                                       chip_smoke.REPL_PATH,
+                                       chip_smoke.DIST_PATH]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", required=True, choices=paths)
     ap.add_argument("--layers", type=int, required=True)
