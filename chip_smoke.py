@@ -60,7 +60,7 @@ kernels on, each path with one sync image mid-decode that a fresh server
 cold-restores and must continue token-exact: h2o-danube-1.8b at 4 of
 its 24 layers (cut for the run's time budget) over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
 window binds in prefill, the SWA ring of 4096 wraps in decode),
-qwen3-moe-30b-a3b at 4 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
+qwen3-moe-30b-a3b at 2 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
 experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
 jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
 in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
@@ -70,8 +70,8 @@ the import again), so its pinned host buffers are gone before the next
 path, and its image is deleted after it.  Flash attention and, for
 jamba, the SSD scan must run on the tensor-core kernels alone; the kernel
 path's forward logits over every position must be no further from the
-f32 plain path, on average, than LOGIT_SLACK times the bf16 plain path's (danube and qwen3 at
-4 layers of the full-width params).
+f32 plain path, on average, than LOGIT_SLACK times the bf16 plain path's
+(danube at 4 layers of the full-width params, qwen3 at its 2).
 
 Phase 2c serves the encoder-decoder and the VLM at their published
 widths, bf16 compute, kernels on, each in a process of its own as in
@@ -99,7 +99,8 @@ qwen2-vl's 28/4; RMSNorm on qwen3-moe's q/k-norm rows) in bf16 and f32
 same times each input's largest |grad|); each forward must launch its
 kernel once.
 
-Phase 3 trains qwen1.5-0.5b at full width (bf16 over f32 masters, kernels,
+Phase 3 trains qwen1.5-0.5b at full width, cut to 4 of its 24 layers for
+the run's time budget (bf16 over f32 masters, kernels,
 remat, batch 4 x 512, AdamW, deterministic settings): (a) 12 steps with an
 async image every 4; (b) a run that crashes at step 7 and restores from
 its step-4 sync image must give (a)'s losses of steps 5-12 and final
@@ -108,8 +109,8 @@ async and (b)'s sync step-12 images, bitwise equal; (d) the loss falls:
 step 0's batch scores lower after (a) than before by more than (a)'s 12
 batches' scores spread before training (the steps' own losses, each on a
 new batch, move within that spread); (e) flash attention and RMSNorm
-launch 2 x 24 and 2 x 2 x 24 + 1 times per executed step (forward and
-remat recompute).  Phase 3b trains mamba2-2.7b at full width cut to 4 of
+launch 2 x L and 2 x 2 x L + 1 times per executed step, L layers
+(forward and remat recompute).  Phase 3b trains mamba2-2.7b at full width cut to 4 of
 its 64 layers (batch 2 x 512, 3 steps): a finite loss, 2 x 4 SSD launches
 per step, and first-step grads of the mamba leaves within MAMBA_GRAD_TOL
 of the plain bf16 path's, where a witness (the SSD kernel's rounding in
@@ -185,8 +186,9 @@ read just after it, before the reference runs, replays and timed turns
 that check it.
 Phase 7 drives the chaos campaigns, the observability plane and the CLI
 (``repro_torch.chaos``, ``repro_torch.obs``, ``repro_torch.cli``) in a
-child process (alone: ``--chaos``), calling ``repro_torch.cli.main`` in
-that process: (a) ``chaos-campaign RUN --jobs 100 --hosts 20 --seed 0
+child process (alone: ``--chaos``), started once phase 1 is done and run
+beside phases 2-2c (its sim is host work; its times are taken under their
+load), calling ``repro_torch.cli.main`` in that process: (a) ``chaos-campaign RUN --jobs 100 --hosts 20 --seed 0
 --faults all=1 --capture sweep`` on the card (each sim job's state 2048
 float64 on it): exit 0, the invariant held in both modes, every planned
 fault injected (11 classes sync, 12 concurrent), each ``dirty_burst`` a
@@ -252,7 +254,9 @@ limit on the command's time does.
 
 Phase 10 trains the decoder zoo at published widths (bf16 over f32
 masters, kernels, remat, AdamW, deterministic settings; alone:
-``--train-zoo``), each arch in a child process of its own:
+``--train-zoo``), each arch in a child process of its own, the whole
+phase beside phase 8 (whose launchers run in children of their own; the
+times of both are taken under the other's load):
 qwen3-moe-30b-a3b at 1 of its 48 layers (B 4 x 512; 128 experts top-8,
 capacity drops, q/k-norm through the RMSNorm kernel) and h2o-danube-1.8b
 at 2 of 24 (B 1 x 4608: the 4096 window binds), each (a) 6 steps
@@ -282,7 +286,8 @@ Phase 11 runs the train and serve launchers over every card of the host,
 one process per card (``repro_torch.launch.dist``, N =
 ``torch.cuda.device_count()`` ranks; alone: ``--dist``), qwen1.5-0.5b at
 full width and 1 of its 24 layers, global batch 4 x 512 (N x 512 when N
-does not divide 4): (a) 12 steps with sync images every 4; (b) from
+does not divide 4): (a) 12 steps with sync images every 4 (and a
+just-in-time one wherever the straggler monitor flags a step); (b) from
 (a)'s step-4 image, the last rank SIGKILLed after its step-8 pack and
 before its ``PREPARED`` marker (a fault on the chaos hook plane): no
 step-8 manifest, the other ranks out within the barrier's deadline, and
@@ -291,17 +296,26 @@ step-12 entries CRC for CRC; (c) two CPU ranks (gloo), beside (b),
 write a smoke image and then restore (a)'s image, and the card's ranks
 restore theirs, every leaf's block bit-equal (with N >= 2, (a)'s image
 on one rank too); (d) the serve launcher, a snapshot at token 8 resumed
-token-exact by ``--restore``.  ``[dist]`` lines give each rank's step
-time, pack bytes and commit barrier wait; on one card a line says that
-more than one rank was held only by the CPU tests.
+token-exact by ``--restore``; (e) the engine's modes across the ranks,
+through the train launcher's rank with the caller's options: (e1) 12
+steps with soft-freeze captures every 4 steps (``capture="concurrent"``,
+incremental images, replicated to a peer directory in copy mode), losses
+bitwise (a)'s; (e2) with (e1)'s run directory deleted (and the replica's
+images whose validate pause came at step 12), a lazy ``--restore`` pulls
+the replica's newest and runs to step 12: (a)'s losses bitwise and (a)'s
+step-12 entries CRC for CRC.  ``[dist]`` lines give each rank's step
+time, pack bytes and commit barrier wait, and (e)'s pauses, bytes, push
+and restore times; on one card a line says that more than one rank was
+held only by the CPU tests.
 
 ``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9,
 ``--train-zoo --out F`` phase 10, ``--dist --out F`` phase 11 (``--path
 dist``: at ``--layers``).  ``--path ARCH --out F`` serves one
 path alone, as the script serves it (``--path orch``: phase 6, ``--path
-repl``: phase 5 (a)-(c), ``--path elastic``: phase 8 (c); ``--layers
-N``: at N layers; ``tools/cut_ab.py`` times such a depth cut against the
-path's own depth, in turns).
+repl``: phase 5 (a)-(c), ``--path elastic``: phase 8 (c), ``--path
+train``: phase 3's qwen1.5 training; ``--layers N``: at N layers;
+``tools/cut_ab.py`` times such a depth cut against the path's own depth,
+in turns).
 
 Every phase must pass; the script exits non-zero otherwise, and at once
 (printing no result) when no CUDA device is present or the package is not
@@ -322,6 +336,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1317,21 +1332,23 @@ def profile_serving(model, params, batch, dev,
 # layer)).  Depth and param dtype are cut only where
 # the card's memory or the run's time forces it: qwen3-moe-30b-a3b's 48
 # layers are 61 GB of bf16 params (their image too slow to write for this
-# run), so 4 of them (12 until phase 7 came in, 6 until phase 9:
-# tools/cut_ab.py, the cut to 6 saved 17.2 s, that to 4 17.5 s);
+# run), so 2 of them (12 until phase 7 came in, 6 until phase 9, 4 until
+# a whole run overran its limit: tools/cut_ab.py, the cut to 6 saved 17.2
+# s, that to 4 17.5 s, that to 2 --layers 2);
 # jamba-v0.1-52b's 32 layers are 105 GB, so one whole
 # period of 8 (7 Mamba, 1 attention, 4 MoE, 4 dense MLP; its depth must be
 # a multiple of 8).  h2o-danube at 4 of its 24 layers, cut for the run's
 # time (tools/cut_ab.py: 24 -> 12 -15.7 s, 12 -> 4 -10.9 s); its
 # prompt of 4608 puts the window (4096) inside the prefill and wraps the
-# ring in decode.  As for mamba2, the logit check keeps 4 layers where
-# many random layers carry both bf16 paths O(1) logits away from f32, so
-# that a wrong kernel would not show; jamba keeps its one period of 8.
+# ring in decode.  As for mamba2, the logit check keeps 4 layers (qwen3-moe
+# its 2) where many random layers carry both bf16 paths O(1) logits away
+# from f32, so that a wrong kernel would not show; jamba keeps its one
+# period of 8.
 ZOO_PATHS = (
     ("h2o-danube-1.8b", 4, "float32", 2, 4608, 4672, 48,
      ("flash_attention", "rmsnorm"), 4),
-    ("qwen3-moe-30b-a3b", 4, "bfloat16", 4, 512, 576, 32,
-     ("flash_attention", "rmsnorm"), 4),
+    ("qwen3-moe-30b-a3b", 2, "bfloat16", 4, 512, 576, 32,
+     ("flash_attention", "rmsnorm"), 2),
     ("jamba-v0.1-52b", 8, "bfloat16", 2, 1024, 1088, 32,
      ("flash_attention", "rmsnorm", "ssd_scan"), None),
 )
@@ -1538,6 +1555,12 @@ def _leaves(tree):
 
 # ----------------------------------------------------------------- phase 3
 TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_PATH = "train"      # --path: phase 3's qwen1.5 training alone
+# full width, cut to 12 of 24 layers to pay for phase 11 (e) (in turns,
+# tools/cut_ab.py --path train --layers 12; NVIDIA H100 80GB HBM3, 700.00
+# W: 24 -> 12 saved 41.7 s), then to 4 when a whole run overran its
+# 1200 s limit (tools/cut_ab.py --path train --layers 4)
+TRAIN_LAYERS = 4
 TRAIN_B, TRAIN_S = 4, 512
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 7
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 4
@@ -1631,7 +1654,8 @@ def _snapshot_line(tag, trainer, card) -> None:
         f"{st['write_s']:.2f} s, image {image} bytes; {card}")
 
 
-def phase_training(seed: int, workdir: str, card: str) -> dict:
+def phase_training(seed: int, workdir: str, card: str,
+                   layers: int = TRAIN_LAYERS) -> dict:
     """Train qwen1.5-0.5b at full width through the kernels: (a) 12 steps
     with async images every 4; (b) a crash at step 7 and a restore from the
     step-4 (sync) image, bitwise (a)'s losses of steps 5-12 and final
@@ -1646,7 +1670,7 @@ def phase_training(seed: int, workdir: str, card: str) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import Trainer, run_with_restarts
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
     dev = torch.device("cuda")
     model = LM(cfg, compute_dtype=torch.bfloat16, use_kernels=True,
                device=dev)                              # remat=True
@@ -3280,13 +3304,6 @@ def chaos() -> dict:
         return phase_chaos(workdir, card_line())
 
 
-def run_chaos() -> dict:
-    """`phase_chaos` in a child process, as phase 6 runs; its path's
-    launches."""
-    res = run_child("phase 7", chaos)
-    return {k: tuple(v) for k, v in res.items()}
-
-
 # ----------------------------------------------------------------- phase 8
 LAUNCH_TRAIN = ["--arch", "whisper-tiny", "--steps", "8", "--ckpt-every",
                 "4"]
@@ -4278,6 +4295,160 @@ def dist_rank(argv, group) -> int:
     return launcher.rank_main(rest, group, cfg=cfg)
 
 
+def dist_modes_rank(argv, group) -> int:
+    """A rank of phase 11 (e): the train launcher's ``rank_main`` on
+    DIST_ARCH at ``argv[0]`` layers with the engine's modes as
+    ``CheckpointOptions`` (the launcher has no flag for them): soft-freeze
+    captures of incremental images, replicated in copy mode to the peer
+    directory ``argv[1]``, restored lazily (``--restore``); each image's
+    numbers, of every rank, go to the JSON file ``argv[2]``; the
+    launcher's arguments ``argv[3:]``."""
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.core.engine import SnapshotEngine
+    layers, peer, numbers, *rest = argv
+    cfg = dataclasses.replace(get_config(DIST_ARCH), num_layers=int(layers))
+    ckpt = CheckpointOptions(mode="sync", keep=0, incremental=True,
+                             capture="concurrent", replicate_to=peer,
+                             restore_mode="lazy")
+    # each image's numbers once it is committed and pushed (the
+    # launcher's JSON has the last image's only)
+    dumps, after = [], SnapshotEngine._after_commit
+
+    def after_commit(engine, ctx, path):
+        out = after(engine, ctx, path)
+        dumps.append({"step": ctx.step, **{k: ctx.stats.get(k) for k in (
+            "replicate_s", "replica_bytes_copied", "barrier_wait_s",
+            "written_bytes", "reused_bytes")}})
+        return out
+    SnapshotEngine._after_commit = after_commit
+    rc = train.rank_main(rest, group, cfg=cfg, ckpt=ckpt)
+    dumps = group.gather_objects(dumps)
+    if group.rank == 0:
+        with open(numbers, "w") as f:
+            json.dump(dumps, f)
+    return rc
+
+
+def _modes_run(what: str, n: int, layers: int, peer: str, numbers: str,
+               argv: list) -> dict:
+    """`dist_modes_rank` in `n` card ranks (a child process, rank 0)."""
+    from repro_torch.launch import dist
+    run = argv[argv.index("--run-dir") + 1]
+    t0 = time.perf_counter()
+    res = run_child(what, _captured, dist.launch,
+                    "chip_smoke:dist_modes_rank",
+                    [str(layers), peer, numbers, *argv], n, "cuda", run,
+                    DIST_TIMEOUT_S)
+    if res["rc"] != 0:
+        raise SystemExit(f"phase 11 {what}: exit {res['rc']}\n"
+                         f"{res['out'][-2000:]}\n{res['err']}")
+    res["launches"] = _rank_launches(res)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _image_steps(run: str) -> dict:
+    """{image step: (the trainer's step at its validate pause, its
+    loss history)} of every image in `run`."""
+    from repro_torch.core.snapshot_io import SnapshotStore
+    store, out = SnapshotStore(run), {}
+    for step in store.list_steps():
+        reader = store.reader(step, verify=False)
+        try:
+            st = reader.host_state()["trainer"]
+        finally:
+            reader.close()
+        out[step] = (st["step"], st["loss_hist"])
+    return out
+
+
+def dist_modes(workdir: str, n: int, layers: int, run_a: str,
+               card: str) -> list:
+    """Phase 11 (e): (e1) (a)'s job under the engine's modes, (e2) a lazy
+    restore of it from the replica alone (see the module docstring).
+    Returns the two runs (their launches)."""
+    from repro_torch.core.snapshot_io import MANIFEST, SnapshotStore
+    want = _image_steps(run_a)[DIST_STEPS][1]
+    crc_a = _entry_crcs(run_a, DIST_STEPS)
+    run_e, peer = (os.path.join(workdir, x) for x in ("e", "peer"))
+    argv = _train_argv(n, run_e, "--restore")
+    e1 = _modes_run("(e1) concurrent, incremental, replicated", n, layers,
+                    peer, os.path.join(workdir, "e1.json"),
+                    _train_argv(n, run_e))
+    images = _image_steps(run_e)
+    store = SnapshotStore(run_e)
+    # a step off the grid is a just-in-time image (the straggler monitor
+    # fires while a speculation slows the steps)
+    if not {DIST_EVERY * k for k in (1, 2, 3)} <= set(images) or \
+            images[DIST_STEPS][1] != want:
+        raise SystemExit(f"phase 11 (e1): images {images} against (a)'s "
+                         f"losses {want}")
+    for step in sorted(images):
+        man = store.manifest(step)
+        cs = man["capture_stats"]
+        log(f"[dist] (e1) image {step} (validate pause at step "
+            f"{images[step][0]}, parent {man['parent']}): pin_pause_s "
+            f"{cs['pin_pause_s']:.4f}, validate_pause_s "
+            f"{cs['validate_pause_s']:.3f}, speculate_s "
+            f"{cs['speculate_s']:.3f}, recaptured_bytes "
+            f"{cs['recaptured_bytes']:.0f}, written_bytes "
+            f"{man['written_bytes']} / reused_bytes {man['reused_bytes']}"
+            f"; {card}")
+    with open(os.path.join(workdir, "e1.json")) as f:
+        numbers = json.load(f)
+    for rank, dumps in enumerate(numbers):
+        for d in dumps:
+            log(f"[dist] (e1) rank {rank}, image {d['step']}: "
+                f"replicate_s {d['replicate_s']:.3f} (copy mode, "
+                f"{d['replica_bytes_copied']} bytes copied), barrier_wait_s "
+                f"{d['barrier_wait_s']:.4f}, written_bytes "
+                f"{d['written_bytes']:.0f} / reused_bytes "
+                f"{d['reused_bytes']:.0f}; {card}")
+    for r in e1["json"]["per_rank"]:
+        log(f"[dist] (e1) rank {r['rank']}: step {r['step_ms']:.2f} ms "
+            f"(median of steps 2-{DIST_STEPS}); {card}")
+    # the replica as it stood when the newest image holding a step below
+    # 12 was its newest: (e2) then has steps to run
+    keep = max((s for s, (at, _) in images.items() if at < DIST_STEPS),
+               default=None)
+    if keep is None:
+        raise SystemExit(f"phase 11 (e1): every image's validate pause came "
+                         f"at step {DIST_STEPS}: {images}")
+    for step in SnapshotStore(peer).list_steps():
+        if step > keep:
+            shutil.rmtree(os.path.join(peer, "snapshots", f"step_{step:08d}"))
+    shutil.rmtree(run_e)
+    e2 = _modes_run("(e2) lazy restore from the replica", n, layers, peer,
+                    os.path.join(workdir, "e2.json"), argv)
+    got = _image_steps(run_e)
+    crc_e = _entry_crcs(run_e, DIST_STEPS)
+    rst = e2["json"]["per_rank"][0]["restore"]
+    first = images[keep][0]
+    if not rst or not rst["restored_from_replica"] or \
+            rst["restore_mode"] != "lazy" or \
+            got[DIST_STEPS][1] != want or crc_e != crc_a:
+        diff = sorted(k for k in crc_a if crc_a[k] != crc_e.get(k))
+        raise SystemExit(f"phase 11 (e2): restore {rst}, losses "
+                         f"{got[DIST_STEPS][1]} against {want}, entries "
+                         f"differing {diff[:5]}")
+    for r in e2["json"]["per_rank"]:
+        rs = r["restore"]
+        log(f"[dist] (e2) rank {r['rank']}: image {keep} pulled from the "
+            f"replica (validate pause at step {first}), lazy: "
+            f"restore_critical_s {rs['restore_critical_s']:.3f} "
+            f"(critical_bytes {rs['critical_bytes']:.0f}), "
+            f"restore_background_s {rs['restore_background_s']:.3f} "
+            f"(background_bytes {rs['background_bytes']:.0f}); ran steps "
+            f"{first + 1}-{DIST_STEPS}: losses {first + 1}-{DIST_STEPS} "
+            f"bitwise (a)'s, step-{DIST_STEPS} entries CRC for CRC ("
+            f"{len(crc_a)}); {card}")
+    log(f"[dist] (e) walls: (e1) {e1['wall_s']:.1f} s, (e2) "
+        f"{e2['wall_s']:.1f} s; {card}")
+    return [e1, e2]
+
+
 def _dist_launcher(kind: str, layers: int, kill: str, n: int,
                    argv: list) -> dict:
     """`dist_rank` in `n` card ranks through ``launch.dist.launch``, this
@@ -4460,9 +4631,15 @@ def phase_dist(seed: int, card: str, layers: int = DIST_LAYERS) -> dict:
         a = _dist_run("(a) train", "train", n, layers, _train_argv(n, run_a))
         _check_kernels("(a) train", a["launches"], a["variants"])
         ja = a["json"]
-        if ja["ranks"] != n or ja["snapshots"] != [4, 8, 12]:
+        # the period's images, and one more wherever the straggler
+        # monitor flagged a slow step (a just-in-time image)
+        want = sorted({4, 8, 12} | set(ja["jit_snapshots"]))
+        if ja["ranks"] != n or ja["snapshots"] != want:
             raise SystemExit(f"phase 11 (a): ranks {ja['ranks']}, images "
-                             f"{ja['snapshots']}")
+                             f"{ja['snapshots']}, want {want}")
+        if ja["jit_snapshots"]:
+            log(f"[dist] (a) just-in-time images at steps "
+                f"{ja['jit_snapshots']} (the straggler monitor); {card}")
         for r in ja["per_rank"]:
             log(f"[dist] (a) rank {r['rank']}: step {r['step_ms']:.2f} ms "
                 f"(median of steps 2-{DIST_STEPS}; the first "
@@ -4571,11 +4748,13 @@ def phase_dist(seed: int, card: str, layers: int = DIST_LAYERS) -> dict:
             f"{[round(r['barrier_wait_s'] * 1e3, 2) for r in snap['json']['per_rank']]}"
             f" ms; {card}")
         runs += [snap, srv_back]
+        runs += dist_modes(workdir, n, layers, run_a, card)
     if n == 1:
         log("[dist] one card: phase 11 ran 1 rank through the whole "
             "multi-rank path (process group, per-rank packs, two-phase "
-            "commit, restores across devices); more than one rank was held "
-            "only by the CPU tests (tests/test_torch_dist*.py, gloo)")
+            "commit, restores across devices, the engine's modes); more "
+            "than one rank was held only by the CPU tests "
+            "(tests/test_torch_dist*.py, gloo)")
     launches, variants = _merge_launches(runs)
     log(f"[dist] phase 11 wall {time.perf_counter() - t_phase:.1f} s, "
         f"launches flash / RMSNorm {launches['flash_attention']} / "
@@ -4742,7 +4921,17 @@ def start_child(what: str, fn, *args):
     proc = CHILDREN.Process(target=_child, args=(time.time(), what, out, fn,
                                                  *args))
     proc.start()
+    STARTED.append(proc)
     return what, proc, workdir
+
+
+def kill_children() -> None:
+    """Kill the started children that are still running (a phase failed
+    before it joined them) and wait for them."""
+    for proc in STARTED:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
 
 
 def join_child(child, killed_ok: bool = False):
@@ -4765,6 +4954,31 @@ def join_child(child, killed_ok: bool = False):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+class Beside(threading.Thread):
+    """fn(*args) on a thread of this process, beside the phases the main
+    thread runs (fn drives child processes, which do the work);
+    `result()` waits for it and returns what fn returned, or raises what
+    it raised."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._fn, self._args = fn, args
+        self._out, self._err = None, None
+        self.start()
+
+    def run(self) -> None:
+        try:
+            self._out = self._fn(*self._args)
+        except BaseException as e:                   # noqa: BLE001
+            self._err = e
+
+    def result(self):
+        self.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 def run_child(what: str, fn, *args, killed_ok: bool = False):
     """fn(*args) in a child process from the fork server, waited for (after
     `free_memory`); what it returned, through a JSON file (None when the
@@ -4773,6 +4987,7 @@ def run_child(what: str, fn, *args, killed_ok: bool = False):
 
 
 CHILDREN = None      # fork_server()'s context, made by main()
+STARTED = []         # every child process start_child started
 
 
 def main() -> int:
@@ -4781,7 +4996,8 @@ def main() -> int:
     ap.add_argument("--path", help="serve this model of SERVE_PATHS, "
                     "ZOO_PATHS or MM_PATHS only (as the script serves it), "
                     "or run phase 8 (c) (--path elastic), phase 6 (--path "
-                    "orch), phase 5 (a)-(c) (--path repl) or phase 11 "
+                    "orch), phase 5 (a)-(c) (--path repl), phase 3's "
+                    "qwen1.5 training (--path train) or phase 11 "
                     "(--path dist) alone, and write its launches to --out")
     ap.add_argument("--layers", type=int, help="with --path: run it at "
                     "this many layers (tools/cut_ab.py times a depth cut)")
@@ -4839,6 +5055,7 @@ def main() -> int:
                 json.dump(res, f)
             return 0
         finally:
+            kill_children()
             stop_fork_server()
     if args.dryrun:
         cli = DryrunCLI()
@@ -4850,6 +5067,14 @@ def main() -> int:
                 f" s; {card_line()}")
         finally:
             cli.stop()
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+        return 0
+    if args.path == TRAIN_PATH:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = {TRAIN_PATH: phase_training(
+                args.seed, workdir, card_line(),
+                args.layers or TRAIN_LAYERS)}
         with open(args.out, "w") as f:
             json.dump(res, f)
         return 0
@@ -4883,8 +5108,11 @@ def main() -> int:
             f"this process (done {t_import[1]:.1f} s after its start)")
 
         rows = phase_kernels(args.seed)
+        mark("phase 1 kernels")
         phase_grads(args.seed)
         mark("phase 1")
+        # phase 7 beside phases 2-2c: the chaos sim is host work
+        chaos_child = start_child("phase 7", chaos)
         for arch in [p[0] for p in SERVE_PATHS + ZOO_PATHS + MM_PATHS]:
             check_small_reference(arch, args.seed)
         by_path = {}
@@ -4903,6 +5131,9 @@ def main() -> int:
             by_path[path[0]] = run_zoo_path(path, args.seed)
             mark(f"phase 2c {path[0]}")
         mark("phase 2c")
+        by_path.update({k: tuple(v)
+                        for k, v in join_child(chaos_child).items()})
+        mark("phase 7 (beside phases 2-2c)")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             by_path[f"{TRAIN_ARCH} train"] = phase_training(
                 args.seed, workdir, card)
@@ -4919,14 +5150,15 @@ def main() -> int:
         mark("phase 5")
         by_path.update(run_orchestration(args.seed))
         mark("phase 6")
-        by_path.update(run_chaos())
-        mark("phase 7")
+        # phase 10 beside phase 8: each drives child processes of its
+        # own, one at a time
+        zoo = Beside(phase_train_zoo, args.seed)
         by_path.update(phase_launch(args.seed, card))
         mark("phase 8")
+        by_path.update(zoo.result())
+        mark("phase 10 (beside phase 8)")
         by_path.update(run_dryrun(args.seed, cli, card))
         mark("phase 9")
-        by_path.update(phase_train_zoo(args.seed))
-        mark("phase 10")
         by_path.update(phase_dist(args.seed, card))
         mark("phase 11")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
@@ -4941,6 +5173,7 @@ def main() -> int:
         return 0
     finally:
         cli.stop()
+        kill_children()
         stop_fork_server()
 
 

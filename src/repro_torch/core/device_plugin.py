@@ -579,14 +579,19 @@ class TorchBackend(StreamBoundary, Plugin):
         return reader.load_entry(state, path, region=region), sh
 
     @classmethod
-    def needed_pack_entries(cls, reader, mesh, shardings) -> List[str]:
+    def needed_pack_entries(cls, reader, mesh, shardings,
+                            leaves=None) -> List[str]:
         """The pack entries a restore onto `mesh` with `shardings`
         ({state: tree}) reads: on a process mesh, this rank's blocks'
-        (what it verifies before it trusts an image)."""
+        (what it verifies before it trusts an image); with `leaves` (a
+        set of (state, path): a lazy restore's critical set), only
+        theirs."""
         layout = (mesh, flatten_shardings(shardings))
         names = ["__meta__", "__host__"]
         for state in reader.state_names():
             for path, meta in reader.meta[state].items():
+                if leaves is not None and (state, path) not in leaves:
+                    continue
                 sh = cls._target_sharding(layout, state, path, meta)
                 names += reader.pack_entries(
                     state, path, region=process_region(meta, sh))

@@ -57,9 +57,27 @@ before that leaves no image), with the group's timeout as the barrier's
 deadline.  The ranks agree on
 an attempt token when a dump starts, and on the step a restore takes:
 the newest image whose entries every rank verifies (each rank checks
-only the blocks it reads).  With more than one rank, incremental images,
-lazy restore, concurrent capture and replication raise: they do not run
-across processes yet.
+only the blocks it reads).  The engine's modes work across the ranks:
+
+  * incremental: rank 0 picks the parent (the newest image below the
+    step in its store) and broadcasts it with the attempt token; each
+    rank dedups the blocks it holds against the parent's entries of the
+    same name *and* extent (after a restore onto another world size a
+    name may cover another block), and the merged manifest names the
+    parent every rank used, with the written and reused bytes summed;
+  * lazy restore: each rank verifies only the critical entries that meet
+    its own blocks before it resumes, streams the rest of its blocks on
+    the materializer's stream, and :meth:`restore_barrier` is a
+    collective: a stream that failed on any rank quarantines the step on
+    every rank, so the retry falls back on every rank together;
+  * concurrent capture: each rank speculates its own blocks; the trainer
+    finalizes once every rank's speculation is done (a collective), and
+    the patch and the commit go through each rank's writer and barrier;
+  * replication: each rank pushes its own pack, and once every rank has
+    reported its push (a filesystem barrier on the peer, as the commit's)
+    rank 0 lands the manifest, last; a restore that finds no image every
+    rank verifies has rank 0 pull the replica's newest, and every rank
+    opens the pulled step.
 """
 from __future__ import annotations
 
@@ -129,8 +147,6 @@ class SnapshotEngine:
         # across processes: the process mesh whose ranks commit together
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
-        if self.ranks is not None and self.ranks.world > 1:
-            self._check_across_ranks(replicator)
         os.makedirs(run_dir, exist_ok=True)
         self.store = SnapshotStore(run_dir)
         if isinstance(backend, str):
@@ -153,6 +169,15 @@ class SnapshotEngine:
             else:
                 from repro_torch.core.replication import DirReplicator
                 self.replicator = DirReplicator(self.options.replicate_to)
+        if self.replicator is not None and self.ranks is not None:
+            if not hasattr(self.replicator, "bind_ranks"):
+                from repro_torch.api.options import OptionsError
+                raise OptionsError(
+                    f"replicator {type(self.replicator).__name__} cannot "
+                    f"push across the ranks of a process mesh")
+            # each rank pushes its own pack; rank 0 lands the manifest
+            self.replicator.bind_ranks(self.ranks.rank, self.ranks.world,
+                                       self.ranks.group.timeout_s)
         if self.options.capture == "concurrent":
             from repro_torch.api.options import OptionsError
             feats = getattr(self.device_plugin, "features", frozenset())
@@ -178,22 +203,11 @@ class SnapshotEngine:
         self._last_restored: Optional[Dict[str, Any]] = None
         self._quarantined: set = set()
         self.last_stats: Dict[str, Any] = {}
+        # the newest restore's stats (a lazy one's stream time added at
+        # the join); later dumps leave them as they are
+        self.last_restore_stats: Dict[str, Any] = {}
         # step of the newest image committed by THIS engine instance
         self.last_commit_step: Optional[int] = None
-
-    def _check_across_ranks(self, replicator) -> None:
-        from repro_torch.api.options import OptionsError
-        o = self.options
-        bad = [what for what, on in (
-            ("incremental images", o.incremental),
-            ("lazy restore", o.restore_mode == "lazy"),
-            ("concurrent capture", o.capture == "concurrent"),
-            ("replication", bool(o.replicate_to) or replicator is not None))
-            if on]
-        if bad:
-            raise OptionsError(
-                f"{', '.join(bad)}: not across processes yet (a mesh of "
-                f"{self.ranks.world} ranks); run them on one rank")
 
     @property
     def is_primary(self) -> bool:
@@ -212,11 +226,19 @@ class SnapshotEngine:
                                attempt=attempt, poll_s=0.002)
 
     def _agree_attempt(self, ctx: HookContext) -> None:
-        """Every rank takes rank 0's token for this dump (a collective:
-        every rank dumps the same steps, in the same order)."""
+        """Every rank takes rank 0's token for this dump and, for an
+        incremental image, rank 0's parent: the newest image strictly
+        below the step (a re-dump of a step must never take the image it
+        is about to overwrite as its own parent).  A collective: every
+        rank dumps the same steps, in the same order."""
+        parent = None
+        if self.incremental and self.is_primary:
+            below = [s for s in self.store.list_steps() if s < ctx.step]
+            parent = below[-1] if below else None
         if self.ranks is not None:
-            ctx.attempt = self.ranks.group.broadcast_object(
-                uuid.uuid4().hex)
+            ctx.attempt, parent = self.ranks.group.broadcast_object(
+                (uuid.uuid4().hex, parent))
+        ctx.parent = parent
 
     # ------------------------------------------------------------ wiring
     def attach(self, provider: StateProvider, shardings=None) -> None:
@@ -409,7 +431,7 @@ class SnapshotEngine:
             pinned = self.device_plugin.flatten_keys(ctx.roots)
             tracker.pin(pinned)
             self.device_plugin.begin_tracking(tracker)
-            writer = self._make_writer(step, getattr(ctx, "attempt", None))
+            writer = self._make_writer(ctx)
         except Exception:
             self.device_plugin.end_tracking()
             self.device_plugin.lock.unlock()
@@ -429,27 +451,32 @@ class SnapshotEngine:
         """The in-flight soft-freeze capture handle, if any."""
         return self._concurrent
 
-    def _make_writer(self, step: int,
-                     attempt: Optional[str] = None) -> SnapshotWriter:
+    def _make_writer(self, ctx: HookContext) -> SnapshotWriter:
+        """The writer of `ctx`'s image, with the agreed attempt's barrier
+        and, when incremental, the agreed parent's manifest and block
+        layout (its ``__meta__``)."""
         opts = self.options
-        prev_manifest = None
-        if self.incremental:
-            # parent = newest step strictly below the one being dumped: a
-            # re-dump of an existing step must never take the image it is
-            # about to overwrite as its own parent
-            prev_steps = [s for s in self.store.list_steps() if s < step]
-            if prev_steps:
-                prev_manifest = self.store.manifest(prev_steps[-1])
-        return SnapshotWriter(self.run_dir, step,
+        prev_manifest = prev_meta = None
+        parent = getattr(ctx, "parent", None)
+        if self.incremental and parent is not None:
+            prev_manifest = self.store.manifest(parent)
+            reader = self.store.reader(parent, verify=False)
+            try:
+                prev_meta = reader.meta
+            finally:
+                reader.close()
+        return SnapshotWriter(self.run_dir, ctx.step,
                               host_id=0 if self.ranks is None
                               else self.ranks.rank,
                               compress=opts.compress,
                               prev_manifest=prev_manifest,
+                              prev_meta=prev_meta,
                               pack_format=opts.pack_format,
                               chunk_bytes=opts.chunk_mb << 20,
                               stripes=opts.stripes,
                               io_threads=opts.io_threads,
-                              barrier=self._barrier(step, attempt))
+                              barrier=self._barrier(
+                                  ctx.step, getattr(ctx, "attempt", None)))
 
     @staticmethod
     def _writer_stats(ctx: HookContext, writer: SnapshotWriter) -> None:
@@ -465,12 +492,14 @@ class SnapshotEngine:
             ctx.stats["stripe_utilization"] = (
                 min(stripe_bytes) / max(stripe_bytes))
         ctx.stats["pack_bytes"] = float(writer.pack_bytes)
+        if writer.parent_step is not None:
+            ctx.stats["parent_step"] = writer.parent_step
         if writer.barrier is not None:
             ctx.stats["barrier_wait_s"] = writer.barrier_wait_s
 
     def _write(self, ctx: HookContext) -> str:
         t0 = time.perf_counter()
-        writer = self._make_writer(ctx.step, getattr(ctx, "attempt", None))
+        writer = self._make_writer(ctx)
         try:
             with obs_trace.span("dump.write", step=ctx.step, mode=self.mode):
                 writer.write_states(ctx.device_snapshot)
@@ -582,15 +611,18 @@ class SnapshotEngine:
         """Pre-restore image check: eager verifies every entry; lazy
         verifies the critical set (plus the blobs read eagerly), so the job
         resumes before the cold entries are read — every background chunk
-        read re-checks its stored CRC, so the guarantee is the same."""
+        read re-checks its stored CRC, so the guarantee is the same.  The
+        verified bytes stay in the reader for the placement that follows
+        (`keep`): the restore reads each byte from disk once."""
         if lazy:
             from repro_torch.core.lazy import (critical_pack_names,
                                                split_schedule)
             critical, _ = split_schedule(reader,
                                          self.options.critical_states)
-            reader.verify_entries(critical_pack_names(reader, critical))
+            reader.verify_entries(critical_pack_names(reader, critical),
+                                  keep=True)
         else:
-            reader.verify_all()
+            reader.verify_all(keep=True)
 
     def _open_verified(self, step: int, verify: bool, io_threads: int,
                        lazy: bool):
@@ -605,10 +637,12 @@ class SnapshotEngine:
         return reader
 
     def _open_agreed(self, step: Optional[int], verify: bool,
-                     io_threads: int, mesh, shardings):
+                     io_threads: int, mesh, shardings, lazy: bool):
         """(reader, step) of the newest image (or `step`) that every rank
-        verifies, each rank checking only the entries it will read; the
-        ranks take rank 0's list of steps and agree on each candidate."""
+        verifies, each rank checking only the entries it will read (when
+        `lazy`, only the critical ones: the stream re-checks every chunk
+        it reads); the ranks take rank 0's list of steps and agree on
+        each candidate."""
         group = self.ranks.group
         steps = group.broadcast_object(
             [s for s in self.store.list_steps()
@@ -619,9 +653,14 @@ class SnapshotEngine:
                 reader = self.store.reader(s, verify=verify,
                                            io_threads=io_threads)
                 if verify:
+                    leaves = None
+                    if lazy:
+                        from repro_torch.core.lazy import split_schedule
+                        leaves = set(split_schedule(
+                            reader, self.options.critical_states)[0])
                     reader.verify_entries(
                         self.device_plugin.needed_pack_entries(
-                            reader, mesh, shardings))
+                            reader, mesh, shardings, leaves), keep=True)
             except Exception as e:                 # noqa: BLE001
                 err = e
             if group.all_ranks(err is None):
@@ -640,6 +679,11 @@ class SnapshotEngine:
         in place instead of killing the stream."""
         rep = self.replicator
         if rep is None or not hasattr(rep, "pull"):
+            return None
+        if self.ranks is not None and self.ranks.world > 1:
+            # a pull rewrites the step directory that the other ranks'
+            # streams read: across ranks a torn chunk fails the stream,
+            # and the collective join falls back on every rank instead
             return None
 
         def heal(state: str, path: str, exc: BaseException) -> bool:
@@ -709,9 +753,23 @@ class SnapshotEngine:
                                  mode="lazy" if lazy else "eager")
         with sp_crit, self.store.lock:
             if self.ranks is not None:
-                reader, step = self._open_agreed(
-                    step, verify, io_threads,
-                    mesh if mesh is not None else self.mesh, shardings)
+                try:
+                    reader, step = self._open_agreed(
+                        step, verify, io_threads,
+                        mesh if mesh is not None else self.mesh, shardings,
+                        lazy)
+                except FileNotFoundError:
+                    if self.replicator is None:
+                        raise
+                    # rank 0 pulls the replica's newest; every rank then
+                    # opens the pulled step
+                    got = self.ranks.group.broadcast_object(
+                        self.replicator.pull_latest(self.run_dir)
+                        if self.is_primary else None)
+                    if got is None:
+                        raise
+                    return self._from_replica(got, verify=verify, wait=wait,
+                                              mesh=mesh, shardings=shardings)
             elif step is None:
                 # newest valid image: fall back past torn/corrupt ones and
                 # past steps whose lazy stream died (the quarantine)
@@ -729,12 +787,9 @@ class SnapshotEngine:
                     if self.replicator is not None:
                         got = self.replicator.pull_latest(self.run_dir)
                         if got is not None:
-                            self._quarantined.discard(got)
-                            out = self.restore(step=got, verify=verify,
-                                               wait=wait, mesh=mesh,
-                                               shardings=shardings)
-                            self.last_stats["restored_from_replica"] = True
-                            return out
+                            return self._from_replica(
+                                got, verify=verify, wait=wait, mesh=mesh,
+                                shardings=shardings)
                     raise FileNotFoundError(
                         f"no restorable snapshot under {self.run_dir}")
             else:
@@ -788,6 +843,7 @@ class SnapshotEngine:
                          mode=ctx.stats["restore_mode"])
         self.last_stats = dict(ctx.stats)
         self.last_stats["topology_mode"] = ctx.topology_map.get("mode")
+        self.last_restore_stats = dict(self.last_stats, step=step)
         self._last_restored = ctx.restored
         if materializer is not None:
             self._lazy = materializer
@@ -798,6 +854,14 @@ class SnapshotEngine:
                 return self.restore_barrier()
         return ctx.restored
 
+    def _from_replica(self, step: int, **kw) -> Dict[str, Any]:
+        """Restore `step`, just pulled from the replica."""
+        self._quarantined.discard(step)
+        out = self.restore(step=step, **kw)
+        self.last_stats["restored_from_replica"] = True
+        self.last_restore_stats["restored_from_replica"] = True
+        return out
+
     def restore_barrier(self) -> Optional[Dict[str, Any]]:
         """Join the background restore stream: blocks until every lazily
         scheduled entry has landed (and, on CUDA, orders the caller's
@@ -805,17 +869,34 @@ class SnapshotEngine:
         tree.  If the stream died, raises
         :class:`repro_torch.core.lazy.LazyRestoreError` and quarantines
         the step, so a retried :meth:`restore` falls back to the previous
-        committed image.  A no-op after eager restores."""
+        committed image.  A no-op after eager restores.
+
+        Across ranks the join is a collective (every rank restored
+        lazily, and joins at the same point of its run): a stream that
+        failed on any rank quarantines the step and raises on every rank,
+        so no rank goes on into a step's collectives alone."""
         mat = self._lazy
         if mat is None:
             return self._last_restored
+        err = None
         try:
             mat.join()
-        except BaseException:
-            if self._lazy_step is not None:
-                self._quarantined.add(self._lazy_step)
+        except BaseException as e:            # noqa: BLE001
+            err = e
+        failed = err is not None
+        if self.ranks is not None:
+            failed = not self.ranks.group.all_ranks(not failed)
+        if failed:
+            step = self._lazy_step
+            if step is not None:
+                self._quarantined.add(step)
             self._lazy, self._lazy_ctx, self._lazy_step = None, None, None
-            raise
+            if err is not None:
+                raise err
+            from repro_torch.core.lazy import LazyRestoreError
+            raise LazyRestoreError(
+                f"the lazy restore stream of step {step} failed on another "
+                f"rank; quarantined here too")
         for k in ("background_s", "background_bytes",
                   "background_entries", "healed_entries"):
             self.last_stats[k] = mat.stats.get(k, 0.0)
@@ -823,6 +904,9 @@ class SnapshotEngine:
             if k in self._lazy_ctx.stats:     # counted by the stream too
                 self.last_stats[k] = self._lazy_ctx.stats[k]
         self.last_stats["restore_background_s"] = mat.stats["background_s"]
+        for k in ("restore_background_s", "background_bytes",
+                  "background_entries"):
+            self.last_restore_stats[k] = self.last_stats[k]
         restored = self._lazy_ctx.restored
         self._last_restored = restored
         self._lazy, self._lazy_ctx, self._lazy_step = None, None, None

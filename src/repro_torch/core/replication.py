@@ -29,14 +29,28 @@ same ``push``/``pull_latest`` contract.
 The contract itself is the :class:`Replicator` protocol below: engine,
 lazy-restore, and migration code dispatch on **capability**
 (``supports_rounds``), never on ``isinstance`` of a concrete replicator.
+
+Across the ranks of a process mesh (the engine calls ``bind_ranks``)
+every rank pushes its own pack of each image (``host{rank:04d}.pack*``),
+the per-GPU transfer parallelism of the paper, and reports it with a
+``PREPARED`` marker in the peer's step directory; once every rank has,
+rank 0 lands the manifest, last (:func:`commit_rank_push`, the two-phase
+commit of ``core/multihost.py`` on the peer).  A rank lost between its
+push and its marker leaves the peer without a manifest for that step.
+A pull copies the image with every step it reads from (an incremental
+image's parents), so a replica restores after the primary is gone.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
-from typing import (Any, Dict, Optional, Protocol, runtime_checkable)
+from typing import (Any, Callable, Dict, List, Optional, Protocol,
+                    runtime_checkable)
 
+from repro_torch.chaos import hooks as chaos_hooks
 from repro_torch.core.snapshot_io import MANIFEST, SnapshotStore, snapshot_dir
+from repro_torch.serialization.integrity import read_json
 
 
 @runtime_checkable
@@ -79,6 +93,75 @@ class Replicator(Protocol):
         ...
 
 
+@dataclasses.dataclass(frozen=True)
+class RankScope:
+    """This process's rank of a process mesh, as a replicator pushes."""
+    rank: int
+    world: int
+    timeout_s: float
+
+
+def rank_files(manifest: Dict[str, Any], rank: int) -> List[str]:
+    """The files of `rank`'s pack in an image (its v2 stripes or its v1
+    file)."""
+    base = f"host{rank:04d}.pack"
+    return [n for n in manifest["files"]
+            if n == base or n.startswith(base + ".")]
+
+
+def commit_rank_push(peer_dir: str, step: int, manifest: Dict[str, Any],
+                     scope: RankScope, report: Dict[str, Any],
+                     land: Callable[[Dict[int, Dict[str, Any]]], None]
+                     ) -> Dict[str, Any]:
+    """The second half of a push across ranks: this rank's pack is at
+    the peer; it prepares with `report` (its push's numbers) under the
+    dump's attempt token, then rank 0 waits for every rank's marker and
+    calls ``land({rank: report})``, which writes the peer's manifest;
+    the other ranks wait for it.  Rank 0 returns the reports merged
+    (counts summed, seconds the slowest rank's; with ``per_rank``), the
+    others their own."""
+    from repro_torch.core.multihost import MultiHostCommit
+    b = MultiHostCommit(peer_dir, step, scope.rank, scope.world,
+                        deadline_s=scope.timeout_s,
+                        attempt=manifest.get("attempt"), poll_s=0.002)
+    if chaos_hooks.INJECTOR is not None:
+        # chaos: this rank's pack is at the peer, its marker not yet
+        chaos_hooks.fire("replica.prepare", step=step, host_id=scope.rank,
+                         path=b.dir)
+    b.prepare(report)
+    if not b.is_coordinator:
+        b.wait_committed()
+        return report
+    out: Dict[str, Any] = {}
+
+    def write() -> str:
+        parts = b.prepared_meta()
+        land(parts)
+        reports = [parts[h] for h in sorted(parts)]
+        for k, v in reports[0].items():
+            vals = [r.get(k, 0) for r in reports]
+            if k == "rank":
+                continue
+            if k.endswith("_s"):
+                out[k] = max(vals)       # the ranks push side by side
+            elif (isinstance(v, (int, float)) and not isinstance(v, bool)
+                  and k != "step"):
+                out[k] = sum(vals)
+            else:
+                out[k] = v
+        out["per_rank"] = reports
+        return b.dir
+    b.commit(write)
+    return out
+
+
+def copy_atomic(src: str, dst: str) -> None:
+    """Copy one file so that `dst` is never seen half written."""
+    tmp = dst + ".tmp"
+    shutil.copy2(src, tmp)
+    os.replace(tmp, dst)
+
+
 def _same_file(src: str, dst: str) -> bool:
     """Unchanged replica fingerprint: same size + same mtime (copy2
     preserves mtime, and committed pack files are never rewritten)."""
@@ -96,12 +179,19 @@ class DirReplicator:
         self.peer_dir = peer_dir
         os.makedirs(peer_dir, exist_ok=True)
         self.last_stats: Dict[str, Any] = {}
+        self.ranks: Optional[RankScope] = None
 
     @property
     def stats(self) -> Dict[str, Any]:
         return self.last_stats
 
+    def bind_ranks(self, rank: int, world: int, timeout_s: float) -> None:
+        """Push as `rank` of `world` (see the module docstring)."""
+        self.ranks = RankScope(rank, world, timeout_s)
+
     def push(self, run_dir: str, step: int) -> Dict[str, Any]:
+        if self.ranks is not None:
+            return self._push_rank(run_dir, step)
         src = snapshot_dir(run_dir, step)
         dst = snapshot_dir(self.peer_dir, step)
         os.makedirs(dst, exist_ok=True)
@@ -131,26 +221,63 @@ class DirReplicator:
                 stats["files_skipped"] += 1
                 stats["bytes_skipped"] += os.path.getsize(sp)
                 continue
-            tmp = dp + ".tmp"
-            shutil.copy2(sp, tmp)          # atomic per file: copy + rename
-            os.replace(tmp, dp)
+            copy_atomic(sp, dp)            # atomic per file: copy + rename
             stats["files_copied"] += 1
             stats["bytes_copied"] += os.path.getsize(sp)
         self.last_stats = stats
         return stats
 
+    def _push_rank(self, run_dir: str, step: int) -> Dict[str, Any]:
+        """This rank's pack of `step`, then the commit across ranks:
+        rank 0 lands the manifest once every rank has pushed."""
+        src = snapshot_dir(run_dir, step)
+        dst = snapshot_dir(self.peer_dir, step)
+        os.makedirs(dst, exist_ok=True)
+        manifest = read_json(os.path.join(src, MANIFEST))
+        stats = {"files_copied": 0, "files_skipped": 0,
+                 "bytes_copied": 0, "bytes_skipped": 0}
+        mine = rank_files(manifest, self.ranks.rank)
+        changed = [n for n in mine if not _same_file(
+            os.path.join(src, n), os.path.join(dst, n))]
+        if changed:
+            # no committed manifest over payload mid-replacement
+            try:
+                os.remove(os.path.join(dst, MANIFEST))
+            except OSError:
+                pass
+        for n in mine:
+            sp = os.path.join(src, n)
+            if n in changed:
+                copy_atomic(sp, os.path.join(dst, n))
+                stats["files_copied"] += 1
+                stats["bytes_copied"] += os.path.getsize(sp)
+            else:
+                stats["files_skipped"] += 1
+                stats["bytes_skipped"] += os.path.getsize(sp)
+
+        def land(parts) -> None:
+            copy_atomic(os.path.join(src, MANIFEST),
+                        os.path.join(dst, MANIFEST))
+        self.last_stats = commit_rank_push(self.peer_dir, step, manifest,
+                                           self.ranks, stats, land)
+        return self.last_stats
+
     def pull(self, run_dir: str, step: int) -> Optional[int]:
-        """Re-materialize one snapshot from the peer over the local copy
-        — the heal path a lazy background stream uses when it hits a torn
-        chunk (the replica pushed at commit time is known-good)."""
-        src = snapshot_dir(self.peer_dir, step)
-        if not os.path.exists(os.path.join(src, MANIFEST)):
+        """Re-materialize one snapshot from the peer over the local copy,
+        with every step it reads from — the heal path a lazy background
+        stream uses when it hits a torn chunk (the replica pushed at
+        commit time is known-good), and the restore after the primary is
+        lost (an incremental image's parents went with it)."""
+        from repro_torch.transfer.delta import transfer_closure
+        if not os.path.exists(os.path.join(snapshot_dir(self.peer_dir,
+                                                        step), MANIFEST)):
             return None
-        dst = snapshot_dir(run_dir, step)
-        if os.path.isdir(dst):
-            shutil.rmtree(dst)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
-        shutil.copytree(src, dst)
+        for s in transfer_closure(SnapshotStore(self.peer_dir), step):
+            dst = snapshot_dir(run_dir, s)
+            if os.path.isdir(dst):
+                shutil.rmtree(dst)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copytree(snapshot_dir(self.peer_dir, s), dst)
         return step
 
     def pull_latest(self, run_dir: str) -> Optional[int]:

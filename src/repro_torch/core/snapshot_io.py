@@ -31,7 +31,12 @@ Across the ranks of a process group (a writer given a ``barrier``, a
 prepared, the manifest, whose ``locations`` table covers every rank's
 entries.  A reader follows ``locations`` whatever pack an entry is in,
 and a rank restoring its own block reads only the blocks that overlap it
-(``load_entry(..., region=)``).
+(``load_entry(..., region=)``).  An incremental image across ranks has
+one parent, which every rank was given (the merged manifest checks that
+they agree); each rank dedups its blocks against the parent's entries
+of the same name and the same extent (``prev_meta``, the parent's block
+layout), so a block is never taken for another block of the same name
+after a restore onto another world size.
 
 """
 from __future__ import annotations
@@ -48,7 +53,7 @@ from repro_torch.chaos import hooks as chaos_hooks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serialization import msgpack_lite
 from repro_torch.serialization.integrity import (atomic_write_json, crc32,
-                                                 read_json)
+                                                 crc32_many, read_json)
 from repro_torch.serialization.pack import (DEFAULT_CHUNK_BYTES, PackWriter,
                                             PackWriterV2, open_pack)
 
@@ -97,6 +102,12 @@ def _overlaps(index, region) -> bool:
                for (a, b), (c, d) in zip(index, region))
 
 
+def _extent(index) -> list:
+    """A block's ``[[start, stop], ...]`` as plain ints (a capture's and
+    a stored ``__meta__``'s compare equal)."""
+    return [[int(a), int(b)] for a, b in index]
+
+
 def _loc_step(loc: str) -> int:
     """'step_00000042/host0000.pack' -> 42."""
     return int(loc.split("/")[0][5:])
@@ -110,6 +121,7 @@ class SnapshotWriter:
     def __init__(self, run_dir: str, step: int, host_id: int = 0,
                  compress: bool = False,
                  prev_manifest: Optional[Dict[str, Any]] = None,
+                 prev_meta: Optional[Dict[str, Any]] = None,
                  pack_format: int = 2,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
                  stripes: int = 2, io_threads: int = 0, barrier=None):
@@ -150,6 +162,16 @@ class SnapshotWriter:
             self._prev = {
                 name: {"crc": crc, "loc": prev_manifest["locations"][name]}
                 for name, crc in prev_manifest.get("entry_crcs", {}).items()}
+        # the parent's block extent of each device entry (None: unknown,
+        # names alone decide, as on one process)
+        self._prev_extent: Optional[Dict[str, list]] = None
+        if prev_meta is not None:
+            self._prev_extent = {
+                f"{state}::{path}::s{i}": _extent(idx)
+                for state, leaves in prev_meta.items()
+                for path, m in leaves.items()
+                if m.get("kind") == "device_array"
+                for i, idx in enumerate(m["shards"])}
         self._parent_packs: Dict[str, Any] = {}      # loc -> reader | None
         self.entry_crcs: Dict[str, int] = {}
         self.reused_bytes = 0
@@ -193,7 +215,7 @@ class SnapshotWriter:
         t0 = time.perf_counter()
         mv = memoryview(flat).cast("B")
         C = self.chunk_bytes
-        crcs = [crc32(mv[o:o + C]) for o in range(0, len(mv), C)]
+        crcs = crc32_many([mv[o:o + C] for o in range(0, len(mv), C)])
         self._hash_s += time.perf_counter() - t0
         return crcs
 
@@ -210,15 +232,23 @@ class SnapshotWriter:
         self.reused_bytes += nbytes
         self.spec_crcs[name] = spec
 
-    def _put(self, name: str, data: np.ndarray, dtype: str) -> None:
+    def _put(self, name: str, data: np.ndarray, dtype: str,
+             index: Optional[list] = None) -> None:
         """Write one pack entry, or reuse the parent's: hash once, at
         chunk grain, and make both reuse decisions from that single pass
         (whole-entry reuse = every chunk matches; partial = the pack
-        writer refs the matching chunks)."""
+        writer refs the matching chunks).  `index`: the block's extent;
+        a parent entry of the same name over another extent is not a
+        parent of this one."""
         raw, flat = PackWriterV2._flat(data)
         self.restore_order.append(name)
         self.entry_bytes[name] = int(raw.nbytes)
         prev = self._prev.get(name)
+        if (prev is not None and self._prev_extent is not None
+                and index is not None
+                and self._prev_extent.get(name) != _extent(index)):
+            self._prev.pop(name)
+            prev = None
         if self.format == 1:
             # v1: whole-entry reuse only; the entry CRC is of the raw
             # bytes (the pack index's CRC covers the stored ones)
@@ -262,16 +292,18 @@ class SnapshotWriter:
         self.written_bytes += raw.nbytes
 
     def _pieces(self, state: str, path: str, e: Dict[str, Any]
-                ) -> List[Tuple[str, np.ndarray, Optional[str]]]:
-        """(pack entry name, data, stored dtype) of one captured leaf:
-        the blocks this writer holds bytes of (all but another rank's),
-        and a host array on rank 0 only."""
+                ) -> List[Tuple[str, np.ndarray, Optional[str],
+                                Optional[list]]]:
+        """(pack entry name, data, stored dtype, block extent) of one
+        captured leaf: the blocks this writer holds bytes of (all but
+        another rank's), and a host array on rank 0 only."""
         if e["kind"] == "device_array":
-            return [(f"{state}::{path}::s{i}", s["data"], e["dtype"])
+            return [(f"{state}::{path}::s{i}", s["data"], e["dtype"],
+                     s["index"])
                     for i, s in enumerate(e["shards"])
                     if s["data"] is not None]
         if e["kind"] == "np" and self.primary:
-            return [(f"{state}::{path}::np", e["data"], None)]
+            return [(f"{state}::{path}::np", e["data"], None, None)]
         return []
 
     def _set_meta(self, state: str, path: str, e: Dict[str, Any]) -> None:
@@ -292,8 +324,8 @@ class SnapshotWriter:
         """Write one captured leaf (the concurrent speculation loop streams
         entries one at a time; write_states is the batch form)."""
         self._set_meta(state, path, e)
-        for name, data, dtype in self._pieces(state, path, e):
-            self._put(name, data, dtype)
+        for name, data, dtype, index in self._pieces(state, path, e):
+            self._put(name, data, dtype, index)
 
     def write_states(self, device_snapshot: Dict[str, Dict[str, Any]]) -> None:
         """device_snapshot: state_name -> {leafpath -> captured entry}."""
@@ -320,7 +352,7 @@ class SnapshotWriter:
             self._set_meta(state, path, e)
             return 0
         recaptured = 0
-        for name, data, dtype in self._pieces(state, path, e):
+        for name, data, dtype, index in self._pieces(state, path, e):
             raw, flat = PackWriterV2._flat(data)
             crcs = self._chunk_crcs(flat)
             spec = self.spec_crcs.get(name, _NEVER_SPECULATED)
@@ -333,7 +365,7 @@ class SnapshotWriter:
                 continue                     # v1-parent reuse still valid
             if spec is _NEVER_SPECULATED:
                 # structural drift: a leaf that did not exist at pin
-                self._put(name, raw, dtype)
+                self._put(name, raw, dtype, index)
             elif self.locations.get(name) != self._loc:
                 # was reused from the parent image: pull it into this
                 # pack now (the parent copy no longer matches)
@@ -443,7 +475,7 @@ class SnapshotWriter:
     #: a rank's part of the manifest, carried in its PREPARED marker
     _RANK_KEYS = ("locations", "entry_crcs", "files", "states",
                   "restore_order", "entry_bytes", "written_bytes",
-                  "reused_bytes", "ref_steps")
+                  "reused_bytes", "ref_steps", "parent")
 
     def _commit_across_ranks(self, manifest: Dict[str, Any]) -> str:
         """The two-phase commit (``core/multihost.py``): this rank's pack
@@ -466,6 +498,12 @@ class SnapshotWriter:
         def write() -> str:
             self.barrier_wait_s = time.perf_counter() - t0
             parts = b.prepared_meta()
+            parents = {parts[h].get("parent") for h in parts}
+            if len(parents) > 1:
+                # the engine broadcasts rank 0's parent: a rank that
+                # deduped against another image would point into it
+                raise RuntimeError(f"step {self.step}: the ranks wrote "
+                                   f"against different parents {parents}")
             merged = merge_host_manifests(self.run_dir, self.step,
                                           b.num_hosts, manifest["topology"],
                                           parts)
@@ -531,6 +569,10 @@ class SnapshotReader:
         self._packs_lock = threading.Lock()
         self._verify = verify
         self._io_threads = io_threads
+        # entries a keeping verify pass read (name -> raw bytes), each
+        # handed once to the read that asks for it
+        self._kept: Dict[str, np.ndarray] = {}
+        self._keeping = False
         self._executor = None
         if io_threads > 1:
             from concurrent.futures import ThreadPoolExecutor
@@ -563,12 +605,22 @@ class SnapshotReader:
             packs[loc] = r
         return packs[loc]
 
+    def _take_kept(self, name: str) -> Optional[np.ndarray]:
+        with self._packs_lock:
+            return self._kept.pop(name, None)
+
     def _read(self, name: str) -> bytes:
+        raw = self._take_kept(name)
+        if raw is not None:
+            return raw.tobytes()
         loc = self.manifest["locations"][name]
         return self._pack_for(loc).read_bytes(name)
 
     def _read_array(self, name: str) -> np.ndarray:
         loc = self.manifest["locations"][name]
+        raw = self._take_kept(name)
+        if raw is not None:
+            return self._pack_for(loc).array_of(name, raw)
         return self._pack_for(loc).read_array(name)
 
     def state_names(self) -> List[str]:
@@ -658,32 +710,45 @@ class SnapshotReader:
 
     def _verify_one(self, name: str) -> None:
         pack = self._pack_for(self.manifest["locations"][name])
-        if pack.format == 2:
+        if pack.format == 2 and self._keeping:
+            raw = pack.read_raw_verified(name)    # v2: CRC'd and decoded
+            with self._packs_lock:
+                self._kept[name] = raw
+        elif pack.format == 2:
             pack.verify_entry(name)       # v2: CRC stored chunks, no decode
         else:
             pack.read_bytes(name)         # v1: CRC implies full decode
 
-    def verify_all(self) -> None:
+    def verify_all(self, keep: bool = False) -> None:
         """CRC-check every entry the manifest references, so a torn image
-        is rejected before restore chooses it."""
-        self.verify_entries(list(self.manifest["locations"]))
+        is rejected before restore chooses it (`keep`: see
+        `verify_entries`)."""
+        self.verify_entries(list(self.manifest["locations"]), keep)
 
-    def verify_entries(self, names: List[str]) -> None:
+    def verify_entries(self, names: List[str], keep: bool = False) -> None:
         """CRC-check a subset of pack entries.  The lazy restore
         pre-verifies only the critical set (plus ``__host__`` and
         ``__meta__``) before resuming the job; background entries keep
-        the same guarantee because every chunk read re-checks its CRC."""
-        if self._io_threads > 1 and len(names) > 1:
-            from concurrent.futures import ThreadPoolExecutor
-            # a pool distinct from the chunk executor: entry tasks block on
-            # chunk futures, so sharing one pool could starve itself
-            with ThreadPoolExecutor(
-                    max_workers=min(4, self._io_threads)) as ex:
-                for _ in ex.map(self._verify_one, names):
-                    pass
-        else:
-            for name in names:
-                self._verify_one(name)
+        the same guarantee because every chunk read re-checks its CRC.
+        With `keep`, each v2 entry's verified bytes stay in this reader
+        for the read that follows (a restore reads each byte from disk
+        once); `close()` drops what no read took."""
+        self._keeping = keep
+        try:
+            if self._io_threads > 1 and len(names) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                # a pool distinct from the chunk executor: entry tasks
+                # block on chunk futures, so sharing one pool could
+                # starve itself
+                with ThreadPoolExecutor(
+                        max_workers=min(4, self._io_threads)) as ex:
+                    for _ in ex.map(self._verify_one, names):
+                        pass
+            else:
+                for name in names:
+                    self._verify_one(name)
+        finally:
+            self._keeping = False
 
     def io_stats(self) -> Dict[str, float]:
         out = {"read_s": 0.0, "decompress_s": 0.0, "read_bytes": 0.0}
@@ -700,6 +765,7 @@ class SnapshotReader:
                 p.close()
             self._all_packs.clear()
             self._shared_packs.clear()
+            self._kept.clear()
         if self._executor is not None:
             self._executor.shutdown(wait=False)
             self._executor = None

@@ -50,13 +50,16 @@ class KillBeforePrepare:
     """A fault on the chaos hook plane (``repro_torch.chaos.hooks``): the
     process is killed (SIGKILL) at the ``multihost.prepare`` site of
     `step`, after its pack is written and before its ``PREPARED`` marker
-    -- a rank lost in the middle of a commit."""
+    -- a rank lost in the middle of a commit.  `site`
+    ``"replica.prepare"``: after its pack is pushed to the replica and
+    before its marker there -- a rank lost in the middle of a push."""
 
-    def __init__(self, step: int):
+    def __init__(self, step: int, site: str = "multihost.prepare"):
         self.step = int(step)
+        self.site = site
 
     def on(self, site: str, **ctx: Any) -> None:
-        if site == "multihost.prepare" and ctx.get("step") == self.step:
+        if site == self.site and ctx.get("step") == self.step:
             sys.stdout.flush()
             sys.stderr.flush()
             os.kill(os.getpid(), signal.SIGKILL)

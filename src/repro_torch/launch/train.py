@@ -32,10 +32,17 @@ cuBLAS workspace, deterministic algorithms and TF32 off
 (:func:`repro_torch.devices.set_deterministic`).  ``--dist-timeout``
 bounds every collective and the commit barrier.
 
+``--incremental`` runs across ranks as on one: every rank's pack of an
+image dedups against the parent rank 0 chose.  The engine's other modes
+(lazy restore, concurrent capture, replication) have no flag here, as
+in the reference: they are ``CheckpointOptions``, which a caller hands
+to :func:`rank_main`.
+
 :func:`rank_main` is one rank's run; a caller of
 :func:`repro_torch.launch.dist.launch` may run it with another model
-config or a stalled step, or after installing a fault on the chaos hook
-plane (``launch.dist.KillBeforePrepare``).
+config, its own ``CheckpointOptions`` or a stalled step, or after
+installing a fault on the chaos hook plane
+(``launch.dist.KillBeforePrepare``).
 """
 from __future__ import annotations
 
@@ -86,12 +93,14 @@ def main(argv=None) -> int:
                        args.dist_timeout)
 
 
-def rank_main(argv, group, *, cfg=None,
+def rank_main(argv, group, *, cfg=None, ckpt=None,
               straggle_at: Optional[int] = None) -> int:
     """One rank's run of the launcher's `argv` in `group`
     (``launch.dist`` has set it up).  `cfg`: the model config (default:
-    ``--arch``'s, reduced with ``--smoke``); `straggle_at`: this rank's
-    step that stalls (a straggler)."""
+    ``--arch``'s, reduced with ``--smoke``); `ckpt`: the
+    ``CheckpointOptions`` (default: those of ``--ckpt-mode``,
+    ``--incremental`` and ``--keep``); `straggle_at`: this rank's step
+    that stalls (a straggler)."""
     args = _parser().parse_args(argv)
     import torch
 
@@ -113,9 +122,9 @@ def rank_main(argv, group, *, cfg=None,
     tcfg = TrainConfig(
         batch_size=args.batch_size, seq_len=args.seq_len, lr=args.lr,
         total_steps=args.steps, ckpt_every=args.ckpt_every,
-        ckpt=CheckpointOptions(mode=args.ckpt_mode,
-                               incremental=args.incremental,
-                               keep=args.keep),
+        ckpt=ckpt if ckpt is not None else CheckpointOptions(
+            mode=args.ckpt_mode, incremental=args.incremental,
+            keep=args.keep),
         seed=args.seed, compute_dtype=compute)
     model = build_model(cfg, compute_dtype=compute, remat=tcfg.remat,
                         use_kernels=device.type == "cuda", device=device)
@@ -146,6 +155,7 @@ def rank_main(argv, group, *, cfg=None,
               file=sys.stderr)
         return 1
     stats = trainer.session.engine.last_stats
+    restored = trainer.session.engine.last_restore_stats
     step_s = trainer.metrics_history["step_s"]
     rest = sorted(step_s[1:])
     blocks = flatten_with_paths({"params": trainer.params,
@@ -162,8 +172,17 @@ def rank_main(argv, group, *, cfg=None,
         # the first step builds and warms the kernels; then the median
         "first_step_ms": 1e3 * step_s[0] if step_s else None,
         "step_ms": 1e3 * rest[len(rest) // 2] if rest else None,
+        # the last image's dump (its pack, its pauses, its push)
         "pack_bytes": stats.get("pack_bytes"),
         "barrier_wait_s": stats.get("barrier_wait_s"),
+        "dump": {k: stats.get(k) for k in (
+            "parent_step", "written_bytes", "reused_bytes", "pin_pause_s",
+            "validate_pause_s", "frozen_s", "replicate_s")},
+        # the restore (a lazy one's stream time from its join)
+        "restore": restored and {k: restored.get(k) for k in (
+            "step", "restore_mode", "restore_critical_s",
+            "restore_background_s", "critical_bytes", "background_bytes",
+            "restored_from_replica")},
         "launches": {"flash_attention": flash_attention.launches,
                      "rmsnorm": rmsnorm.launches,
                      "ssd_scan": ssd_scan.launches}})
@@ -172,6 +191,8 @@ def rank_main(argv, group, *, cfg=None,
             "arch": cfg.name, "steps": out["steps"],
             "final_loss": out["loss"], "wall_s": out["wall_s"],
             "snapshots": trainer.session.store.list_steps(),
+            # the images the straggler monitor asked for, off the period
+            "jit_snapshots": trainer.jit_ckpt.triggered,
             "restore_s": restore_s, "device": str(device), "ranks": world,
             "per_rank": per_rank,
         }, indent=1))

@@ -24,7 +24,9 @@ critical set ``train_state/params``) while the optimizer state streams in
 behind; the first step or a preempt dump joins the stream first.  With
 ``capture="concurrent"`` a periodic checkpoint is a soft-freeze capture
 begun at the step and finalized between later steps once its speculation
-is done (and at the end of ``run_until``).
+is done (and at the end of ``run_until``); across ranks, once every
+rank's speculation is done (a collective: a rank that validated alone
+would wait in the commit barrier for a rank waiting for it in a step).
 
 With ``mesh=`` (a grid of slots on the trainer's device,
 ``repro_torch.launch.mesh``) and ``policy=`` (default ``"baseline"``),
@@ -257,7 +259,9 @@ class Trainer:
         once the critical set (by default the params) is placed; the
         optimizer state keeps streaming and is joined right before the
         first step (resume-before-read)."""
-        if self.params is None:
+        if self.params is None or self.opt_state is None:
+            # nothing loaded, or a lazy restore whose stream failed
+            # before the optimizer state landed (the retry)
             abstract = self.model.init_abstract()
             template = {"params": abstract,
                         "opt": self.opt.init_abstract(abstract)}
@@ -343,9 +347,10 @@ class Trainer:
                     f"async snapshot write failed at step {self.step}: "
                     f"{self.session.write_error}")
             handle = self.session.concurrent_capture
-            if handle is not None and handle.speculation_done:
-                # the soft-freeze capture finished speculating: take its
-                # short validate pause now, between steps
+            if handle is not None and self._all_ranks(
+                    handle.speculation_done):
+                # the soft-freeze capture finished speculating (on every
+                # rank): take its short validate pause now, between steps
                 self.session.checkpoint_finalize()
             if preempt is not None and self._agree(preempt()):
                 # a dump captures the live roots: the streamed optimizer
@@ -404,6 +409,12 @@ class Trainer:
         """A decision every rank takes together: true on all when true
         on any (a collective; this process alone without ranks)."""
         return (self.ranks.group.any_rank(flag) if self.ranks is not None
+                else flag)
+
+    def _all_ranks(self, flag: bool) -> bool:
+        """True on every rank when `flag` is true on all of them (a
+        collective; this process alone without ranks)."""
+        return (self.ranks.group.all_ranks(flag) if self.ranks is not None
                 else flag)
 
     def run(self, num_steps: int, fail_at: Optional[int] = None,

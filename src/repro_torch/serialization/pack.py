@@ -21,7 +21,10 @@ patch); the reader follows it.  Given the same-named entry of a parent
 pack, :class:`PackWriterV2` writes a chunk whose raw CRC matches the
 parent's as a ``ref`` record and no bytes.  It runs a bounded pipeline
 (caller thread chunks + hashes -> compress/CRC workers -> one appender
-thread per stripe), so compression overlaps file I/O.
+thread per stripe), so compression overlaps file I/O.  Each raw byte is
+hashed once: the caller hashes a batch of chunks across threads and
+combines the entry's CRC from theirs, and a chunk stored raw keeps its raw
+CRC as its stored one.
 
 The chunk is also the unit of cross-host transfer:
 :meth:`PackReaderV2.own_chunks` lists the chunks a pack stores itself,
@@ -52,7 +55,8 @@ from repro_torch.chaos import hooks as chaos_hooks
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serialization import msgpack_lite
-from repro_torch.serialization.integrity import crc32
+from repro_torch.serialization.integrity import (CRC_THREADS, crc32,
+                                                crc32_combine, crc32_many)
 
 MAGIC = b"RPRPACK1"
 MAGIC2 = b"RPRPACK2"
@@ -402,9 +406,11 @@ class PackWriterV2:
                         self._chunk_done()
                         continue                       # drain without work
                     data, codec = self._compress_one(part)
+                    # a raw chunk is stored as it is: its stored CRC is
+                    # its raw one
+                    scrc = rcrc if codec == "raw" else crc32(data)
                     self._put(self._stripe_qs[stripe],
-                              (rec, j, data, len(part), crc32(data), rcrc,
-                               codec))
+                              (rec, j, data, len(part), scrc, rcrc, codec))
         except BaseException as e:                     # pragma: no cover
             self._errors.append(e)
 
@@ -491,11 +497,21 @@ class PackWriterV2:
         running = 0
         raw_crcs: List[int] = []
         hash_s = 0.0
+        batch = 4 * CRC_THREADS
         for j in range(nchunks):
             part = mv[j * C:(j + 1) * C]
+            if j % batch == 0:
+                # one pass over the bytes: the next `batch` chunks hashed
+                # across threads, the entry's CRC combined from theirs
+                t0 = time.perf_counter()
+                crcs = (chunk_crcs[j:j + batch] if chunk_crcs else
+                        crc32_many([mv[k * C:(k + 1) * C] for k in
+                                    range(j, min(j + batch, nchunks))]))
+                hash_s += time.perf_counter() - t0
+            rcrc = crcs[j % batch]
             t0 = time.perf_counter()
-            rcrc = chunk_crcs[j] if chunk_crcs else crc32(part)
-            running = crc32(part, running)
+            running = (crc32_combine(running, rcrc, C) if len(part) == C
+                       else crc32(part, running))
             hash_s += time.perf_counter() - t0
             raw_crcs.append(rcrc)
             p = prev_chunks[j] if j < len(prev_chunks) else None
@@ -572,7 +588,7 @@ class PackWriterV2:
         C = self.chunk_bytes
         if chunk_crcs is None:
             mv = memoryview(flat).cast("B")
-            chunk_crcs = [crc32(mv[o:o + C]) for o in range(0, n, C)]
+            chunk_crcs = crc32_many([mv[o:o + C] for o in range(0, n, C)])
         # dead bytes = chunks written into this pack whose content no
         # longer matches (self-referenced unchanged chunks stay live)
         with self._stats_lock:
@@ -750,8 +766,9 @@ class PackReaderV2:
         return data
 
     def _read_chunk_into(self, name: str, c: Dict[str, Any],
-                         out: np.ndarray, raw_off: int) -> None:
-        data = self._read_stored(name, c)
+                         out: np.ndarray, raw_off: int,
+                         verify: Optional[bool] = None) -> None:
+        data = self._read_stored(name, c, verify)
         t1 = time.perf_counter()
         if c["codec"] != "raw":
             data = _decompress_blob(data, c["codec"])
@@ -772,7 +789,8 @@ class PackReaderV2:
             for c, *a in zip(chunks, *args):
                 fn(name, c, *a)
 
-    def _read_raw(self, name: str) -> np.ndarray:
+    def _read_raw(self, name: str, verify: Optional[bool] = None
+                  ) -> np.ndarray:
         rec = self.index[name]
         out = np.empty(rec["raw_nbytes"], np.uint8)
         offs = np.cumsum([0] + [c["raw_nbytes"] for c in rec["chunks"]])
@@ -781,16 +799,25 @@ class PackReaderV2:
                           f"{offs[-1]}, index says {rec['raw_nbytes']}")
         self._for_chunks(self._read_chunk_into, name, rec["chunks"],
                          [out] * len(rec["chunks"]),
-                         [int(o) for o in offs[:-1]])
+                         [int(o) for o in offs[:-1]],
+                         [verify] * len(rec["chunks"]))
         return out
 
     def read_bytes(self, name: str) -> bytes:
         return self._read_raw(name).tobytes()
 
     def read_array(self, name: str) -> np.ndarray:
+        return self.array_of(name, self._read_raw(name))
+
+    def read_raw_verified(self, name: str) -> np.ndarray:
+        """One entry's raw bytes with every stored chunk CRC-checked,
+        whatever the reader's own setting: a verify pass that keeps what
+        it read (`array_of` views it as the entry's array)."""
+        return self._read_raw(name, verify=True)
+
+    def array_of(self, name: str, raw: np.ndarray) -> np.ndarray:
         rec = self.index[name]
-        buf = self._read_raw(name)
-        return buf.view(dtype_from_str(rec["dtype"])).reshape(rec["shape"])
+        return raw.view(dtype_from_str(rec["dtype"])).reshape(rec["shape"])
 
     def read_stored_chunk(self, c: Dict[str, Any]) -> bytes:
         """The stored (possibly compressed) bytes of one chunk record, the

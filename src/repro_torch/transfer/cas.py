@@ -226,9 +226,16 @@ class ChunkStore:
     def log_transfer(self, record: Dict[str, Any]) -> None:
         """Append one push's stats to the store's transfer log (what
         the reference's ``repro transfer-stats`` reads)."""
+        self.log_transfers([record])
+
+    def log_transfers(self, records: List[Dict[str, Any]]) -> None:
+        """Append several pushes' stats in one rewrite of the log: the
+        ranks' pushes of one image, written by rank 0 alone (two writers
+        of the one file would lose each other's records)."""
         path = os.path.join(self.root, TRANSFER_LOG)
         log = self.transfer_log()
-        log.append(dict(record, t=time.time()))
+        now = time.time()
+        log.extend(dict(r, t=now) for r in records)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(log, f, indent=2, default=str)

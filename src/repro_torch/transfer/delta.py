@@ -23,6 +23,14 @@ target host's :class:`~repro_torch.transfer.cas.ChunkStore`:
 
 v1 single-file packs have no chunk index — they fall back to whole-file
 copy (counted in ``bytes_copied``), so mixed v1/v2 chains still transfer.
+
+Across the ranks of a process mesh (``bind_ranks``) each rank negotiates,
+ships and materializes its own pack of each step of the closure, and
+rank 0 lands each step's manifest once every rank has
+(``core.replication.commit_rank_push``).  Rank 0 alone writes the CAS's
+records, from the per-rank numbers the markers carry: one
+``transfers.json`` record per rank's push, and one round record (the
+ranks' numbers summed) per pre-copy round.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
+from repro_torch.core.replication import (RankScope, commit_rank_push,
+                                          rank_files)
 from repro_torch.core.snapshot_io import (MANIFEST, SnapshotStore,
                                           auto_io_threads, snapshot_dir)
 from repro_torch.obs import journal as obs_journal
@@ -90,10 +100,15 @@ class DeltaReplicator:
             workers = auto_io_threads()
         self.workers = workers
         self.last_stats: Dict[str, Any] = _fresh_stats()
+        self.ranks: Optional[RankScope] = None
 
     @property
     def stats(self) -> Dict[str, Any]:
         return self.last_stats
+
+    def bind_ranks(self, rank: int, world: int, timeout_s: float) -> None:
+        """Push as `rank` of `world` (see the module docstring)."""
+        self.ranks = RankScope(rank, world, timeout_s)
 
     # -------------------------------------------------------------- push
     def push(self, run_dir: str, step: int) -> Dict[str, Any]:
@@ -102,9 +117,13 @@ class DeltaReplicator:
         t0 = time.perf_counter()
         stats = _fresh_stats()
         src = SnapshotStore(run_dir)
+        closure = transfer_closure(src, step)
         with obs_trace.span("transfer.push", step=step) as sp:
-            for s in transfer_closure(src, step):
-                self._push_step(run_dir, s, stats)
+            for s in closure:
+                # across ranks the commit of the push's own step carries
+                # this rank's numbers for the whole push
+                stats = self._push_step(run_dir, s, stats,
+                                        s == closure[-1], t0)
             sp.set(bytes_sent=stats["bytes_sent"],
                    chunks_sent=stats["chunks_sent"],
                    chunks_reused=stats["chunks_reused"])
@@ -112,7 +131,8 @@ class DeltaReplicator:
         stats["step"] = step
         stats["source"] = os.path.abspath(run_dir)
         self.last_stats = stats
-        self.store.log_transfer(stats)
+        if self.ranks is None:
+            self.store.log_transfer(stats)
         for k in ("bytes_sent", "bytes_reused", "chunks_sent",
                   "chunks_reused", "corrupt_objects_healed"):
             obs_metrics.counter_add(f"transfer.{k}", stats[k])
@@ -151,7 +171,9 @@ class DeltaReplicator:
                   "chunks_sent": stats["chunks_sent"],
                   "chunks_reused": stats["chunks_reused"],
                   "wall_s": stats["push_s"]}
-        self.store.append_round(tag, record)
+        if self.ranks is None or self.ranks.rank == 0:
+            # across ranks rank 0's push returned the ranks' sum
+            self.store.append_round(tag, record)
         obs_metrics.counter_add("transfer.round_bytes",
                                 stats["bytes_sent"])
         if residual:
@@ -171,24 +193,34 @@ class DeltaReplicator:
         self.store.clear_rounds(tag)
 
     def _push_step(self, run_dir: str, step: int,
-                   stats: Dict[str, Any]) -> None:
+                   stats: Dict[str, Any], last: bool = False,
+                   t0: float = 0.0) -> Dict[str, Any]:
+        """One step of the closure; across ranks, this rank's pack and
+        the step's commit (`last`: the push's own step, whose commit
+        gathers the ranks' numbers and logs them).  Returns the stats
+        (rank 0's, at the last step across ranks: summed over ranks)."""
         src_dir = snapshot_dir(run_dir, step)
         dst_dir = snapshot_dir(self.peer_dir, step)
         manifest = read_json(os.path.join(src_dir, MANIFEST))
         dst_manifest = os.path.join(dst_dir, MANIFEST)
+        done = False
         if os.path.exists(dst_manifest):
             try:
-                if read_json(dst_manifest) == manifest:
-                    stats["steps_skipped"] += 1
-                    return                 # already transferred + committed
+                done = read_json(dst_manifest) == manifest
             except Exception:
                 pass                       # torn target manifest: redo
+        if done:
+            stats["steps_skipped"] += 1
+            if self.ranks is None or not last:
+                return stats               # already transferred + committed
         os.makedirs(dst_dir, exist_ok=True)
         # group physical files into pack bases: "host0000.pack.0" and
         # siblings are one v2 pack; a bare "host0000.pack" is v1
         names = manifest.get("files")
         if not names:                      # pre-"files" manifest: scan disk
             names = sorted(n for n in os.listdir(src_dir) if n != MANIFEST)
+        if self.ranks is not None:
+            names = [] if done else rank_files(manifest, self.ranks.rank)
         bases: Dict[str, bool] = {}
         for name in names:
             if name.rsplit(".", 1)[-1].isdigit():
@@ -202,9 +234,25 @@ class DeltaReplicator:
             else:
                 self._copy_file(os.path.join(src_dir, base),
                                 os.path.join(dst_dir, base), stats)
-        # manifest last: commit ordering preserved across the wire
-        atomic_write_json(dst_manifest, manifest)
-        stats["steps_transferred"] += 1
+        if not done:
+            stats["steps_transferred"] += 1
+        if self.ranks is None:
+            # manifest last: commit ordering preserved across the wire
+            atomic_write_json(dst_manifest, manifest)
+            return stats
+
+        def land(parts) -> None:
+            atomic_write_json(dst_manifest, manifest)
+            if last:
+                self.store.log_transfers([parts[h] for h in sorted(parts)])
+        if not last:
+            commit_rank_push(self.peer_dir, step, manifest, self.ranks, {},
+                             land)
+            return stats
+        stats.update(push_s=time.perf_counter() - t0, step=step,
+                     source=os.path.abspath(run_dir), rank=self.ranks.rank)
+        return commit_rank_push(self.peer_dir, step, manifest, self.ranks,
+                                dict(stats), land)
 
     def _copy_file(self, src: str, dst: str, stats: Dict[str, Any]) -> None:
         """v1 fallback: no chunk index to negotiate over — full copy."""

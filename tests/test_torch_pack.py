@@ -369,3 +369,115 @@ def test_chunk_surface_and_rebuild_match_reference(tmp_path):
     with tpack.open_pack(base, verify=False) as r:
         with pytest.raises(IOError, match="CRC"):
             r.read_stored_chunk(c)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_v2_writer_hashes_once_to_the_same_crcs(tmp_path, compress):
+    """The v2 writer hashes each raw byte once (a batch of chunks across
+    threads, the entry's CRC combined from theirs, a raw chunk's stored
+    CRC its raw one): every entry's CRC and every chunk's raw and stored
+    CRC is zlib's over those bytes, for an empty entry, one short chunk,
+    an exact multiple of the chunk, a partial tail and more chunks than
+    one hashing batch; uncompressed, the stripes are the reference
+    writer's byte for byte."""
+    import zlib
+
+    from repro.serialization import pack as jpack
+    from repro_torch.serialization import pack as tpack
+    from repro_torch.serialization.integrity import (CRC_THREADS,
+                                                     crc32_combine)
+    rng = np.random.default_rng(0)
+    C = 64
+    arrays = {
+        "empty": np.zeros(0, np.uint8),
+        "short": rng.integers(0, 256, 5, dtype=np.uint8),
+        "exact": rng.integers(0, 256, 3 * C, dtype=np.uint8),
+        "tail": rng.integers(0, 256, 3 * C + 7, dtype=np.uint8),
+        "batches": rng.integers(0, 256, (8 * CRC_THREADS + 3) * C + 1,
+                                dtype=np.uint8),
+        "f32": rng.standard_normal((7, 33)).astype(np.float32),
+        "zeros": np.zeros(10 * C, np.uint8),          # compresses
+    }
+    bases = {}
+    for pkg, mod in (("torch", tpack), ("jax", jpack)):
+        if pkg == "jax" and compress:
+            continue                  # the reference may pick another codec
+        bases[pkg] = str(tmp_path / pkg / "host0000.pack")
+        os.makedirs(os.path.dirname(bases[pkg]))
+        w = mod.PackWriterV2(bases[pkg], compress=compress, chunk_bytes=C,
+                             stripes=2, workers=1)
+        for name, a in arrays.items():
+            w.add(name, a)
+        w.close()
+    codecs = set()
+    with tpack.open_pack(bases["torch"]) as r:
+        for name, a in arrays.items():
+            raw = a.tobytes()
+            e = r.entry(name)
+            assert e["crc32"] == zlib.crc32(raw), name
+            assert [c["raw_crc32"] for c in e["chunks"]] == [
+                zlib.crc32(raw[o:o + C]) for o in range(0, len(raw), C)]
+            for c in e["chunks"]:
+                codecs.add(c["codec"])
+                assert c["crc32"] == zlib.crc32(r.read_stored_chunk(c))
+            assert np.array_equal(r.read_array(name).reshape(a.shape), a)
+    assert ("zlib" in codecs) == compress
+    if not compress:
+        for src, dst in zip(tpack.pack_files(bases["torch"]),
+                            tpack.pack_files(bases["jax"])):
+            assert open(src, "rb").read() == open(dst, "rb").read()
+    for n1, n2 in [(0, 5), (5, 0), (1, 1), (1000, C), (3, 4 << 20)]:
+        a = rng.integers(0, 256, n1, dtype=np.uint8).tobytes()
+        b = rng.integers(0, 256, n2, dtype=np.uint8).tobytes()
+        assert crc32_combine(zlib.crc32(a), zlib.crc32(b), n2) \
+            == zlib.crc32(a + b)
+
+
+@pytest.mark.parametrize("io_threads", [0, 4])
+def test_keeping_verify_reads_each_byte_once(tmp_path, io_threads):
+    """A restore's verify pass keeps what it read (`keep=True`): the
+    entries it then loads equal a plain reader's, the image's stored
+    bytes are read once in all, and a torn chunk still fails the pass."""
+    from repro_torch.core.snapshot_io import SnapshotStore
+    run = str(tmp_path / "run")
+    g = torch.Generator().manual_seed(0)
+    state = {"a": torch.randn(3, 200000, generator=g),
+             "b": torch.randn(5, generator=g).to(torch.bfloat16),
+             "c": torch.arange(10)}
+    s = CheckpointSession(run, CheckpointOptions(chunk_mb=1, stripes=2),
+                          device="cpu")
+    s.attach(lambda: {"st": state})
+    s.checkpoint(1)
+    store = SnapshotStore(run)
+    plain = store.reader(1)
+    want = {k: plain.load_entry("st", k) for k in plain.entry_names("st")}
+    stored = sum(c["nbytes"] for loc in set(plain.manifest["locations"]
+                                            .values())
+                 for e in plain._pack_for(loc).index.values()
+                 for c in e["chunks"])
+    plain.close()
+    r = store.reader(1, io_threads=io_threads)
+    before = r.io_stats()["read_bytes"]           # __meta__, read at open
+    r.verify_all(keep=True)
+    got = {k: r.load_entry("st", k) for k in r.entry_names("st")}
+    host = r.host_state()
+    # each stored byte once, and __meta__ once more (read at the open)
+    assert r.io_stats()["read_bytes"] == stored + before
+    assert before > 0
+    r.close()
+    for k, e in want.items():
+        if e["kind"] == "device_array":
+            for x, y in zip(e["shards"], got[k]["shards"]):
+                assert np.array_equal(x["data"], y["data"]), k
+        else:
+            assert repr(e) == repr(got[k]), k
+    assert host == store.reader(1).host_state()
+    c = sorted(store.reader(1)._pack_for("step_00000001/host0000.pack")
+               .index["st::a::s0"]["chunks"], key=lambda c: c["offset"])[1]
+    from repro_torch.serialization.pack import stripe_path
+    base = os.path.join(run, "snapshots", "step_00000001", "host0000.pack")
+    with open(stripe_path(base, c["stripe"]), "r+b") as f:
+        f.seek(c["offset"] + 8)
+        f.write(b"\xde\xad\xbe\xef")
+    with pytest.raises(IOError, match="CRC"):
+        store.reader(1, io_threads=io_threads).verify_all(keep=True)
