@@ -18,10 +18,13 @@ As the reference serves over every device of the host, the launcher
 runs one process per card (:mod:`repro_torch.launch.dist`; ``--nproc``,
 by default every card on ``cuda`` and 1 on the CPU): the state is laid
 over ``make_host_mesh(data=ranks, model=1)``, each rank serves its rows
-of the batch against its block of the KV cache with the params'
-``d_model`` blocks gathered, and each writes its own pack of a snapshot.
-The batch must divide over the ranks.  Rank 0 prints the JSON (with
-``ranks``).
+of the batch against its block of the KV cache, holding only its
+``d_model`` blocks of the params and gathering one layer at a time, and
+each writes its own pack of a snapshot.  The batch must divide over the
+ranks.  Rank 0 prints the JSON (with ``ranks``; ``per_rank`` reports
+what the last prefill or decode step gathered: ``gathered_peak_bytes``,
+the peak of its live gathered bytes, and ``gathered_bytes``, 0 at one
+rank).
 """
 from __future__ import annotations
 
@@ -140,7 +143,7 @@ def rank_main(argv, group, *, cfg=None) -> int:
     stats = srv.session.engine.last_stats
     per_rank = group.gather_objects({
         "rank": rank, "pack_bytes": stats.get("pack_bytes"),
-        "barrier_wait_s": stats.get("barrier_wait_s"),
+        "barrier_wait_s": stats.get("barrier_wait_s"), **srv.gathered,
         "launches": {"flash_attention": flash_attention.launches,
                      "rmsnorm": rmsnorm.launches,
                      "ssd_scan": ssd_scan.launches}})

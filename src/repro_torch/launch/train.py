@@ -19,8 +19,10 @@ ranks, by default ``torch.cuda.device_count()`` on ``cuda`` and 1 on the
 CPU (``--nproc 2 --device cpu`` runs two gloo ranks here).  The state is
 laid over ``make_host_mesh(data=ranks, model=1)`` under ``--policy``:
 each rank holds its blocks of the params and the optimizer state, trains
-on its rows of the global batch, and writes its own pack of each image,
-which the two-phase commit makes whole.  Rank 0 prints the JSON.
+on its rows of the global batch (gathering one super-block's params at a
+time: ``per_rank`` reports ``gathered_peak_bytes`` and
+``gathered_bytes``), and writes its own pack of each image, which the
+two-phase commit makes whole.  Rank 0 prints the JSON.
 
 ``--restore`` resumes from the newest image in ``--run-dir`` that every
 rank verifies, whatever world size wrote it (the CRIUgpu restart path,
@@ -164,11 +166,15 @@ def rank_main(argv, group, *, cfg=None, ckpt=None,
     per_rank = group.gather_objects({
         "rank": rank,
         # this rank's blocks of params and moments, and the device's
-        # peak (a step gathers every param leaf whole beside them)
+        # peak (a step gathers the top-level leaves and one super-block
+        # at a time beside them; what the last step gathered: the peak
+        # of its live gathered bytes and its bytes gathered, 0 at one
+        # rank)
         "block_bytes": sum(t.numel() * t.element_size()
                            for t in blocks.values()),
         "peak_bytes": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else None),
+        **trainer.gathered,
         # the first step builds and warms the kernels; then the median
         "first_step_ms": 1e3 * step_s[0] if step_s else None,
         "step_ms": 1e3 * rest[len(rest) // 2] if rest else None,

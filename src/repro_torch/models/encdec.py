@@ -23,7 +23,10 @@ self-attention and its cross-attention at training and prefill through
 the flash-attention kernel, and every norm through the RMSNorm kernel
 (``repro_torch.kernels.ops``).  Decode attention, the cross-attention
 included, stays plain torch, as in the reference.  Like ``LM``,
-``decode_step`` writes the new K/V into the cache in place.
+``decode_step`` writes the new K/V into the cache in place, and inside a
+``layers.gathering`` block each call gathers the top-level leaves once
+and each encoder or decoder layer where it reads it (in training inside
+its remat unit).
 
 ``build_model`` picks this class or ``LM`` from the config, as the
 reference's does.
@@ -126,7 +129,14 @@ class EncDecLM:
         return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
     # ---------------- encoder ----------------
-    def _enc_block(self, lp, x, pos):
+    def _top(self, params, g):
+        """The top-level leaves (embedding, both final norms, an untied
+        head), gathered by `g` once a call."""
+        return {k: g(v, k) for k, v in params.items()
+                if k not in ("enc_blocks", "dec_blocks")}
+
+    def _enc_block(self, lp, x, pos, g=L.no_gather):
+        lp = g(lp, "enc_blocks")
         cfg = self.cfg
         B, F = x.shape[:2]
         h = self._norm(lp["pre_attn_norm"], x)
@@ -139,11 +149,15 @@ class EncDecLM:
 
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, F, d) -> the encoder's output (B, F, d), normed."""
+        g = L.current_gather() or L.no_gather
+        return self._encode(params, self._top(params, g), frames, g)
+
+    def _encode(self, params, top, frames, g):
         x = frames.to(self.compute_dtype)
         pos = self._arange(x.shape[0], x.shape[1], x.device)
         for lp in _unstack(params["enc_blocks"], self.cfg.encoder_layers):
-            x = self._remat(self._enc_block, lp, x, pos)
-        return self._norm(params["enc_final_norm"], x)
+            x = self._remat(self._enc_block, lp, x, pos, g)
+        return self._norm(top["enc_final_norm"], x)
 
     # ---------------- decoder ----------------
     def _dec_block(self, lp, x, enc_kv, pos):
@@ -176,23 +190,28 @@ class EncDecLM:
         ev = (enc_out @ lp["cross_attn"]["wv"].to(dt)).reshape(shape)
         return ek, ev
 
-    def _dec_layer(self, lp, x, enc_out, pos):
+    def _dec_layer(self, lp, x, enc_out, pos, g=L.no_gather):
+        lp = g(lp, "dec_blocks")
         return self._dec_block(lp, x, self._cross_kv(lp, enc_out), pos)[0]
 
-    def _decoder_input(self, params, batch):
+    def _decoder_input(self, params, top, batch, g):
         """(the encoder's output, the token embeddings, their positions)."""
-        enc_out = self.encode(params, batch["frames"])
+        enc_out = self._encode(params, top, batch["frames"], g)
         tokens = batch["tokens"]
         pos = self._arange(*tokens.shape, tokens.device)
-        return enc_out, self._embed(params, tokens), pos
+        return enc_out, self._embed(top, tokens), pos
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Logits (B, S, padded_vocab) in the compute dtype."""
-        enc_out, x, pos = self._decoder_input(params, batch)
+        """Logits (B, S, padded_vocab) in the compute dtype.  Without
+        remat the backward saves every gathered layer: correct, but no
+        memory saved."""
+        g = L.current_gather() or L.no_gather
+        top = self._top(params, g)
+        enc_out, x, pos = self._decoder_input(params, top, batch, g)
         for lp in _unstack(params["dec_blocks"], self.cfg.num_layers):
-            x = self._remat(self._dec_layer, lp, x, enc_out, pos)
-        x = self._norm(params["final_norm"], x)
-        return L.head(params, x, self.cfg)
+            x = self._remat(self._dec_layer, lp, x, enc_out, pos, g)
+        x = self._norm(top["final_norm"], x)
+        return L.head(top, x, self.cfg)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The next-token loss (``layers.next_token_loss``); no aux loss."""
@@ -228,18 +247,28 @@ class EncDecLM:
         """Encode the frames and run the decoder over the prompt: the
         last position's logits (B, V) and the cache (self K/V of the
         prompt's length, cross K/V of every frame)."""
-        enc_out, x, pos = self._decoder_input(params, batch)
+        g = L.current_gather() or L.no_gather
+        top = self._top(params, g)
+        enc_out, x, pos = self._decoder_input(params, top, batch, g)
         caches: Dict[str, list] = {k: [] for k in (
             "self_k", "self_v", "cross_k", "cross_v")}
         for lp in _unstack(params["dec_blocks"], self.cfg.num_layers):
-            ck, cv = self._cross_kv(lp, enc_out)
-            x, (sk, sv) = self._dec_block(lp, x, (ck, cv), pos)
-            for name, t in (("self_k", sk), ("self_v", sv),
-                            ("cross_k", ck), ("cross_v", cv)):
+            # the gathered layer lives for this call only
+            x, kv = self._prefill_layer(g(lp, "dec_blocks"), x, enc_out,
+                                        pos)
+            for name, t in zip(("self_k", "self_v", "cross_k", "cross_v"),
+                               kv):
                 caches[name].append(t)
-        x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
-        logits = L.head(params, x, self.cfg)[:, 0, :]
+        x = self._norm(top["final_norm"], x[:, -1:, :].contiguous())
+        logits = L.head(top, x, self.cfg)[:, 0, :]
         return logits, {k: torch.stack(ts) for k, ts in caches.items()}
+
+    def _prefill_layer(self, lp, x, enc_out, pos):
+        """One decoder layer over the prompt: (x, (self k, self v, cross
+        k, cross v))."""
+        ck, cv = self._cross_kv(lp, enc_out)
+        x, (sk, sv) = self._dec_block(lp, x, (ck, cv), pos)
+        return x, (sk, sv, ck, cv)
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
@@ -247,34 +276,42 @@ class EncDecLM:
         """One serving step: tokens (B,) int, pos the write position of
         the self cache (which bounds it)."""
         cfg = self.cfg
-        H, hd = cfg.num_heads, cfg.head_dim
         S_c = cache["self_k"].shape[2]
         if not 0 <= pos < S_c:
             raise ValueError(f"decode position {pos} outside the cache "
                              f"(length {S_c})")
-        x = self._embed(params, tokens)                      # (B, d)
-        B = x.shape[0]
-        posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        g = L.current_gather() or L.no_gather
+        top = self._top(params, g)
+        x = self._embed(top, tokens)                         # (B, d)
+        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                          device=x.device)
         valid = torch.arange(S_c, device=x.device) <= pos
         layers = _unstack(params["dec_blocks"], cfg.num_layers)
         for lp, lc in zip(layers, _unstack(cache, cfg.num_layers)):
-            h = self._norm(lp["pre_self_norm"], x)
-            q, k_new, v_new = L._qkv(lp["self_attn"], cfg, h[:, None, :],
-                                     posv)
-            lc["self_k"][:, pos] = k_new[:, 0]
-            lc["self_v"][:, pos] = v_new[:, 0]
-            o = L.decode_attention(q, lc["self_k"], lc["self_v"], valid)
-            x = x + o @ lp["self_attn"]["wo"].to(x.dtype)
+            x = self._decode_layer(g(lp, "dec_blocks"), lc, x, posv, valid,
+                                   pos)
+        x = self._norm(top["final_norm"], x)
+        return L.head(top, x, self.cfg), cache
 
-            h = self._norm(lp["pre_cross_norm"], x)
-            q = (h @ lp["cross_attn"]["wq"].to(x.dtype)).reshape(B, 1, H, hd)
-            o = L.self_attention(q, lc["cross_k"], lc["cross_v"], causal=False)
-            x = x + o.reshape(B, H * hd) @ lp["cross_attn"]["wo"].to(x.dtype)
+    def _decode_layer(self, lp, lc, x, posv, valid, pos: int):
+        """One decoder layer against its cache `lc`, written in place."""
+        cfg = self.cfg
+        H, hd = cfg.num_heads, cfg.head_dim
+        B = x.shape[0]
+        h = self._norm(lp["pre_self_norm"], x)
+        q, k_new, v_new = L._qkv(lp["self_attn"], cfg, h[:, None, :], posv)
+        lc["self_k"][:, pos] = k_new[:, 0]
+        lc["self_v"][:, pos] = v_new[:, 0]
+        o = L.decode_attention(q, lc["self_k"], lc["self_v"], valid)
+        x = x + o @ lp["self_attn"]["wo"].to(x.dtype)
 
-            h = self._norm(lp["pre_mlp_norm"], x)
-            x = x + L.mlp(lp["mlp"], h)
-        x = self._norm(params["final_norm"], x)
-        return L.head(params, x, self.cfg), cache
+        h = self._norm(lp["pre_cross_norm"], x)
+        q = (h @ lp["cross_attn"]["wq"].to(x.dtype)).reshape(B, 1, H, hd)
+        o = L.self_attention(q, lc["cross_k"], lc["cross_v"], causal=False)
+        x = x + o.reshape(B, H * hd) @ lp["cross_attn"]["wo"].to(x.dtype)
+
+        h = self._norm(lp["pre_mlp_norm"], x)
+        return x + L.mlp(lp["mlp"], h)
 
 
 def build_model(cfg: ModelConfig, **kw):

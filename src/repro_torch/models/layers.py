@@ -13,6 +13,8 @@ Sharding constraints of the reference have no counterpart on one device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import zlib
@@ -49,6 +51,41 @@ def maybe_cast_params(params: PyTree, dtype) -> PyTree:
     if isinstance(params, dict):
         return {k: maybe_cast_params(v, dtype) for k, v in params.items()}
     return params.to(dtype) if params.dtype == torch.float32 else params
+
+
+# ======================================================================
+# Params held in blocks across ranks
+# ======================================================================
+_GATHER: contextvars.ContextVar = contextvars.ContextVar("gather",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def gathering(gather):
+    """The models' calls in this block read their params through
+    ``gather(tree, *path)``: the whole tensors of `tree`, a rank's blocks
+    of the params' subtree at `path` (keys from the root) or of one layer
+    of a stacked subtree (``sharding.policy.param_gather``).  A model
+    gathers each layer where it reads it, inside its remat unit, and the
+    top-level leaves once a call; it holds no mesh or policy.  Outside
+    any block (or with None) the params are whole."""
+    token = _GATHER.set(gather)
+    try:
+        yield
+    finally:
+        _GATHER.reset(token)
+
+
+def no_gather(tree, *path):
+    """The gather of whole params: `tree` itself."""
+    return tree
+
+
+def current_gather():
+    """The gather of the innermost :func:`gathering` block, or None.  A
+    model reads it once at a call's entry and hands it on: a backward's
+    recompute may run on another thread, outside the block."""
+    return _GATHER.get()
 
 
 # ======================================================================

@@ -24,6 +24,13 @@ layer pattern: one layer for a pattern of length 1, jamba's 8) is
 recomputed in the backward (``torch.utils.checkpoint``), carrying the
 MoE aux beside x so the aux's gradient flows, as the reference
 rematerialises each super-block.
+Inside a ``layers.gathering(gather)`` block (the trainer's and server's
+across ranks) the params are a rank's blocks: each call gathers the
+top-level leaves (embedding, final norm, an untied head) once and each
+layer's params where it reads them -- a training super-block inside its
+remat unit, so the backward's recompute gathers again and a layer's
+whole copy dies with its super-block; a prefill or decode layer in its
+loop.  With ``CAST_PARAMS_ONCE`` the cast comes after the gather.
 Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
 ``models.encdec.build_model`` picks the class from the config.
 
@@ -200,21 +207,40 @@ class LM:
             o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
         return self._ffn(lp, x + o)
 
-    def _superblock(self, lps, x, aux, positions):
-        """One pass over the pattern (layers ``lps``, one per position):
-        (x, aux plus each MoE layer's aux, in layer order)."""
+    def _superblock(self, lps, x, aux, positions, g=L.no_gather):
+        """One pass over the pattern (layers ``lps``, one per position,
+        each gathered by `g` first): (x, aux plus each MoE layer's aux,
+        in layer order)."""
+        lps = [g(lp, "blocks", f"pos{j}") for j, lp in enumerate(lps)]
         for j, lp in enumerate(lps):
             x, a = self._block(lp, j, x, positions)
             if a is not None:
                 aux = aux + a
         return x, aux
 
+    def _top(self, params, g):
+        """The top-level leaves (embedding, final norm, an untied head),
+        gathered by `g` once a call: the tied embedding's two reads then
+        sum their grads on the whole tensor."""
+        return {k: g(v, k) for k, v in params.items() if k != "blocks"}
+
     def _forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, the MoE aux summed over layers, f32).  With remat
         each super-block (one pass over the layer pattern) is recomputed
-        in the backward, the reference's ``jax.checkpoint`` unit."""
-        params = L.maybe_cast_params(params, self.compute_dtype)
-        x = self._embed_batch(params, batch)
+        in the backward, the reference's ``jax.checkpoint`` unit, and
+        gathers its layers again there.  Without remat the backward
+        saves every gathered layer: correct, but no memory saved."""
+        gather = L.current_gather()
+        if gather is None:
+            params, g = (L.maybe_cast_params(params, self.compute_dtype),
+                         L.no_gather)
+        else:
+            def g(tree, *path):
+                # gather f32, then cast
+                return L.maybe_cast_params(gather(tree, *path),
+                                           self.compute_dtype)
+        top = self._top(params, g)
+        x = self._embed_batch(top, batch)
         positions = self._positions(batch)
         layers = self._layers(params)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -222,11 +248,11 @@ class LM:
             lps = [layers[f"pos{j}"][i] for j in range(self._P)]
             if self.remat:
                 x, aux = checkpoint(self._superblock, lps, x, aux,
-                                    positions, use_reentrant=False)
+                                    positions, g, use_reentrant=False)
             else:
-                x, aux = self._superblock(lps, x, aux, positions)
-        x = self._norm(params["final_norm"], x)
-        return L.head(params, x, self.cfg), aux
+                x, aux = self._superblock(lps, x, aux, positions, g)
+        x = self._norm(top["final_norm"], x)
+        return L.head(top, x, self.cfg), aux
 
     def forward(self, params, batch) -> torch.Tensor:
         """Logits (B, S, padded_vocab) in the compute dtype."""
@@ -289,36 +315,43 @@ class LM:
         and the populated KV/SSM cache (KV length == prompt length; an
         SWA layer keeps its last `window` positions, position p at slot
         ``p % window``)."""
-        cfg = self.cfg
-        x = self._embed_batch(params, batch)
+        g = L.current_gather() or L.no_gather
+        top = self._top(params, g)
+        x = self._embed_batch(top, batch)
         positions = self._positions(batch)
         layers = self._layers(params)
         caches: Dict[str, Dict[str, list]] = {
             f"pos{j}": {} for j in range(self._P)}
         for i in range(self._n_sb):
             for j in range(self._P):
-                lp = layers[f"pos{j}"][i]
-                h = self._norm(lp["pre_mixer_norm"], x)
-                if cfg.layer_kind(j) in ATTN_KINDS:
-                    o, nc = self._attn(lp, j, h, positions)
-                    window = self._window(j)
-                    S = nc["k"].shape[1]
-                    if window and window < S:
-                        # ring-buffer alignment: position p at slot p % window
-                        nc = {n: torch.roll(t[:, -window:], S % window, 1)
-                              for n, t in nc.items()}
-                else:
-                    o, hfin, nc = M.mamba_prefill(lp["mamba"], cfg, h,
-                                                  self.use_kernels)
-                    nc = {"h": hfin, **nc}
-                x = self._ffn(lp, x + o)[0]
+                # the gathered layer lives for this call only
+                x, nc = self._prefill_layer(
+                    g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
+                    positions)
                 for k, t in nc.items():
                     caches[f"pos{j}"].setdefault(k, []).append(t)
-        x = self._norm(params["final_norm"], x[:, -1:, :].contiguous())
-        logits = L.head(params, x, self.cfg)[:, 0, :]
+        x = self._norm(top["final_norm"], x[:, -1:, :].contiguous())
+        logits = L.head(top, x, self.cfg)[:, 0, :]
         cache = {p: {k: torch.stack(ts) for k, ts in leaves.items()}
                  for p, leaves in caches.items()}
         return logits, cache
+
+    def _prefill_layer(self, lp, j: int, x, positions):
+        """One prefill layer: (x, its cache leaves)."""
+        h = self._norm(lp["pre_mixer_norm"], x)
+        if self.cfg.layer_kind(j) in ATTN_KINDS:
+            o, nc = self._attn(lp, j, h, positions)
+            window = self._window(j)
+            S = nc["k"].shape[1]
+            if window and window < S:
+                # ring-buffer alignment: position p at slot p % window
+                nc = {n: torch.roll(t[:, -window:], S % window, 1)
+                      for n, t in nc.items()}
+        else:
+            o, hfin, nc = M.mamba_prefill(lp["mamba"], self.cfg, h,
+                                          self.use_kernels)
+            nc = {"h": hfin, **nc}
+        return self._ffn(lp, x + o)[0], nc
 
     def _window(self, j: int) -> int:
         """The attention window of pattern position j (0: none)."""
@@ -374,19 +407,25 @@ class LM:
                 if not 0 <= pos < S_c:
                     raise ValueError(f"decode position {pos} outside the "
                                      f"cache (length {S_c})")
-        x = self._embed(params, tokens)                      # (B, d)
+        g = L.current_gather() or L.no_gather
+        top = self._top(params, g)
+        x = self._embed(top, tokens)                         # (B, d)
         layers = self._layers(params)
         caches = {p: _unstack(c, self._n_sb) for p, c in cache.items()}
         for i in range(self._n_sb):
             for j in range(self._P):
-                lp = layers[f"pos{j}"][i]
-                lc = caches[f"pos{j}"][i]
-                h = self._norm(lp["pre_mixer_norm"], x)
-                if self.cfg.layer_kind(j) in ATTN_KINDS:
-                    o = self._decode_attn(lp, j, h, lc["k"], lc["v"], pos)
-                else:
-                    o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
-                                       self.use_kernels)
-                x = self._ffn(lp, x + o, dropless=True)[0]   # MoE: no drops
-        x = self._norm(params["final_norm"], x)
-        return L.head(params, x, self.cfg), cache
+                x = self._decode_layer(
+                    g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
+                    caches[f"pos{j}"][i], pos)
+        x = self._norm(top["final_norm"], x)
+        return L.head(top, x, self.cfg), cache
+
+    def _decode_layer(self, lp, j: int, x, lc, pos: int):
+        """One decode layer against its cache `lc`, written in place."""
+        h = self._norm(lp["pre_mixer_norm"], x)
+        if self.cfg.layer_kind(j) in ATTN_KINDS:
+            o = self._decode_attn(lp, j, h, lc["k"], lc["v"], pos)
+        else:
+            o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
+                               self.use_kernels)
+        return self._ffn(lp, x + o, dropless=True)[0]         # MoE: no drops

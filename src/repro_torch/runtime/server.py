@@ -23,10 +23,14 @@ mesh; ``mesh=None`` writes every tensor whole.
 With a process mesh (one rank per card, ``data`` = the world size) the
 batch and the cache go over ``data``: each rank prefills and decodes its
 rows of the batch against its block of the cache (batch-sharded, the
-cache's ``cache_seq`` losing the contested axis by the policy's rule),
-with the params' ``d_model`` blocks gathered whole once per load or
-restore.  The tokens are gathered every step, so every rank holds the
-whole generation and rank 0's pack carries it in the decode cursor.  The
+cache's ``cache_seq`` losing the contested axis by the policy's rule).
+A rank keeps only its ``d_model`` blocks of the params: each prefill and
+decode step runs the model under ``layers.gathering(param_gather(...))``,
+which gathers the top-level leaves once a call and each layer in the
+model's loop, so a rank holds one layer's whole weights at a time and no
+whole tree between steps (``gathered``: what the last call gathered).
+The tokens are gathered every step, so every rank holds the whole
+generation and rank 0's pack carries it in the decode cursor.  The
 global batch must divide over the ranks.
 """
 from __future__ import annotations
@@ -45,9 +49,11 @@ from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
+from repro_torch.models.layers import gathering
 from repro_torch.runtime.fault import SimulatedFailure
 from repro_torch.sharding import state_shardings
-from repro_torch.sharding.policy import gather_leaf, local_block, map_tree
+from repro_torch.sharding.policy import (GATHERED, local_block, map_tree,
+                                         param_gather)
 
 
 class DecodeServer:
@@ -80,10 +86,14 @@ class DecodeServer:
         self._param_shardings = (
             state_shardings(self.model, mesh, policy)["params"]
             if mesh is not None else None)
-        # across processes: this rank's slot; the params gathered whole
+        # across processes: this rank's slot, and the model's gather of
+        # the params' blocks (None at one rank: each block is whole)
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
-        self._whole = None
+        self._gather = (param_gather(self._param_shardings)
+                        if self.ranks is not None else None)
+        # what the last prefill or decode step gathered
+        self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.session = CheckpointSession(run_dir, options,
                                          device=self.device, mesh=mesh)
         self._pending_cache_template = None   # lazy: cache still streaming
@@ -120,23 +130,24 @@ class DecodeServer:
         self.tokens = st["tokens"]
 
     def load(self, params) -> None:
-        """Serve `params` (whole tensors; across ranks each keeps its
-        blocks for the image and the whole tree for compute)."""
+        """Serve `params` (whole tensors).  Across ranks a rank keeps its
+        blocks alone, for the image and for compute: each step gathers a
+        layer at a time (:meth:`_run`), and the whole tree given here
+        is not kept."""
         if self.ranks is not None:
-            self._whole = params
             params = map_tree(local_block, params, self._param_shardings)
         self.params = params
 
-    @property
-    def compute_params(self):
-        """The params the model runs on: the whole tree (gathered from
-        the ranks' blocks once after a restore)."""
-        if self.ranks is None:
-            return self.params
-        if self._whole is None:
-            self._whole = map_tree(gather_leaf, self.params,
-                                   self._param_shardings)
-        return self._whole
+    def _run(self, fn, *args):
+        """``fn(self.params, *args)``, a model call, with the params'
+        blocks gathered where it reads them; notes what it gathered."""
+        if self._gather is None:           # whole params, or one rank
+            return fn(self.params, *args)
+        GATHERED.begin()
+        with gathering(self._gather):
+            out = fn(self.params, *args)
+        self.gathered = GATHERED.read()
+        return out
 
     def _rows(self, a: np.ndarray) -> np.ndarray:
         """This rank's rows of a batch-major array (all of it alone)."""
@@ -170,7 +181,7 @@ class DecodeServer:
             if batch.get(key) is not None:
                 inputs[key] = torch.as_tensor(
                     self._rows(np.asarray(batch[key])), device=self.device)
-        logits, cache = self.model.prefill(self.compute_params, inputs)
+        logits, cache = self._run(self.model.prefill, inputs)
         self.cache = self._pad_cache(
             cache, self.model.cache_abstract(B, self.max_seq))
         nxt = self._next_tokens(logits)
@@ -236,8 +247,8 @@ class DecodeServer:
             self._finish_lazy_restore()   # first touch of the cache
             last = torch.as_tensor(self._rows(self.tokens[:, -1]),
                                    dtype=torch.long, device=self.device)
-            logits, self.cache = self.model.decode_step(
-                self.compute_params, self.cache, last, self.pos)
+            logits, self.cache = self._run(self.model.decode_step,
+                                           self.cache, last, self.pos)
             nxt = self._next_tokens(logits)
             self.tokens = np.concatenate([self.tokens, nxt[:, None]], axis=1)
             self.pos += 1
@@ -277,7 +288,6 @@ class DecodeServer:
         decode cursor: no prefill re-execution."""
         template = {"params": self.params, "cache": self.cache}
         engine = self.session.engine
-        self._whole = None           # gathered again from the new blocks
         if self.session.options.restore_mode == "lazy":
             # resume-before-read: params place now, the cache streams
             # behind the server and is joined before the first decode step
@@ -315,7 +325,6 @@ class DecodeServer:
         device state (params, cache, a lazy template), so it is freed at
         once."""
         self.params = self.cache = self._pending_cache_template = None
-        self._whole = None
         self.session.engine.release()
 
     def _finish_lazy_restore(self) -> None:

@@ -40,17 +40,26 @@ With a process mesh (``launch.mesh.ProcessMesh``, one rank per card,
 ``data`` = the world size) the state is laid out as the reference's
 GSPMD lays it: each rank holds its block of every param and moment (the
 policy's ``d_model`` blocks over ``data``) and takes its rows of the
-global batch.  A step gathers every param leaf whole, computes the loss
-and grads on its rows with the local loss weighted by its share of the
-global token count (so the grads summed over the ranks are those of the
-global mean), reduce-scatters the grads back to the blocks and updates
-the blocks, the clip's norm all-reduced.  The logged loss is the global
-mean.  Decisions the ranks must take together -- the just-in-time
-checkpoint of a straggler, a preemption -- are agreed first (any rank's
-flag acts on all); ``fail_at`` and ``ckpt_every`` are the same on every
-rank by construction.  Gathering whole leaves once per step holds one
-whole copy of the params per rank beside the blocks (a per-layer gather
-is later work).
+global batch.  A step runs the model on the blocks under
+``layers.gathering(param_gather(...))``: the model gathers the top-level
+leaves once and each super-block's layers inside its remat unit
+(``sharding.policy.GatherLeaves``: one all-gather forward and one
+reduce-scatter backward for a layer's leaves), so the backward's
+recompute gathers each super-block again and a rank holds its blocks
+plus one super-block's whole weights, never a whole copy of the params.
+The loss on the rank's rows is weighted by its share of the global
+token count (so the grads summed over the ranks are those of the global
+mean); the grads that come back are the blocks' grads, already summed
+over the ranks, and update the blocks, the clip's norm all-reduced.  At
+one rank every block is its whole leaf and the model reads the blocks
+as they are.  With remat off the backward saves every gathered layer:
+correct, but the rank then holds the whole params again.  The logged
+loss is the global mean; ``gathered`` holds what the last step gathered
+(``sharding.policy.GATHERED``: the peak of the live gathered bytes and
+the bytes gathered).  Decisions the ranks must take together -- the
+just-in-time checkpoint of a straggler, a preemption -- are agreed first
+(any rank's flag acts on all); ``fail_at`` and
+``ckpt_every`` are the same on every rank by construction.
 """
 from __future__ import annotations
 
@@ -70,13 +79,14 @@ from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
+from repro_torch.models.layers import gathering
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
                                        SimulatedFailure, StragglerMonitor)
 from repro_torch.sharding import state_shardings
-from repro_torch.sharding.policy import (gather_leaf, local_block,
-                                         map_tree, scatter_grad)
+from repro_torch.sharding.policy import (GATHERED, local_block, map_tree,
+                                         param_gather)
 
 PyTree = Any
 
@@ -165,6 +175,10 @@ class Trainer:
                 for (k, a), sh in zip(
                     flatten_with_paths(self.model.init_abstract()).items(),
                     flatten_with_paths(self.shardings["params"]).values())}
+            # the model's gather (None at one rank: each block is whole)
+            self._gather = param_gather(self.shardings["params"])
+        # what the last step gathered (0 without ranks, or at one)
+        self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.params = None
         self.opt_state = None
         self.step = 0
@@ -211,9 +225,10 @@ class Trainer:
         return {**metrics, **om}
 
     def _train_step_ranks(self, batch) -> Dict[str, torch.Tensor]:
-        """One step over the ranks: gather, local loss and grads weighted
-        by the rank's token share, reduce-scatter, blockwise update."""
-        shardings = self.shardings["params"]
+        """One step over the ranks: local loss and grads on the blocks,
+        weighted by the rank's token share, the model gathering each
+        layer where it reads it and reduce-scattering its grads; a
+        blockwise update."""
         group = self.ranks.group
         ntok = {}
 
@@ -223,11 +238,11 @@ class Trainer:
             ntok["global"] = group.all_reduce(n.detach().clone())
             return n.detach() / ntok["global"]
 
-        whole = map_tree(gather_leaf, self.params, shardings)
-        metrics, grads = loss_and_grads(self.model, whole, batch,
-                                        scale=share)
-        del whole
-        grads = map_tree(scatter_grad, grads, shardings)
+        GATHERED.begin()
+        with gathering(self._gather):
+            metrics, grads = loss_and_grads(self.model, self.params, batch,
+                                            scale=share)
+        self.gathered = GATHERED.read()
 
         def grad_sq(g_flat):
             total = sum(torch.sum(torch.square(g.float()))
@@ -450,6 +465,14 @@ def run_with_restarts(make_trainer, total_steps: int,
         except SimulatedFailure:
             pending.pop(fail_at, None)
             restarts += 1
+            # a dead process's writer dies with it; this one lives on in
+            # the process: let the images it captured land (or fail, and
+            # leave no image) before the replacement writes the same
+            # steps into the same files
+            try:
+                trainer.session.wait_pending()
+            except Exception:                          # noqa: BLE001
+                pass
             trainer = make_trainer()                   # replacement node
             trainer.restore()                          # newest valid image
     return {"steps": trainer.step, "restarts": restarts,

@@ -15,12 +15,20 @@ its rank's block: :func:`local_block` cuts it from the whole,
 :func:`gather_leaf` rebuilds the whole from every rank's block and
 :func:`scatter_grad` sums a whole gradient over the ranks into each
 rank's block, by the same block arithmetic and the collectives of the
-mesh's group.  The block arithmetic is JAX's: a dim sharded over the axes
-``(a, b)`` is cut into ``|a|·|b|`` equal blocks with ``a`` the major
-axis; a slot's replica id counts, in mesh order, the slots before it
-that hold the same block.  The reference's ``constrain``
-(``with_sharding_constraint``) has nothing to do on whole tensors and is
-left out.
+mesh's group.  :class:`GatherLeaves` is the two as one differentiable
+op over a layer's leaves (one all-gather forward, one reduce-scatter
+backward), and :func:`param_gather` the models' ``gather``: a model
+calls it on each layer's params where it reads them (inside its remat
+unit, so the backward's recompute gathers again) and on the top-level
+leaves once a call, so a rank holds its blocks plus one super-block's
+whole weights, never a whole copy of the params (with remat off the
+backward saves every gathered layer: correct, but no saving).  :data:`GATHERED` counts
+the gathered bytes of a step or serving call.  The block arithmetic is
+JAX's: a dim sharded over the axes ``(a, b)`` is cut into ``|a|·|b|``
+equal blocks with ``a`` the major axis; a slot's replica id counts, in
+mesh order, the slots before it that hold the same block.  The
+reference's ``constrain`` (``with_sharding_constraint``) has nothing to
+do on whole tensors and is left out.
 
 Baseline policy (production posture):
   - DP over ("pod", "data")        — batch dim of activations
@@ -33,10 +41,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
+import threading
+import weakref
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 Axes = Optional[Tuple[str, ...]]
 PyTree = Any
@@ -229,6 +241,7 @@ def gather_leaf(t, sharding: NamedSharding):
     out = t.new_empty(shape)
     for r, part in enumerate(parts):
         out[rank_index(sharding, shape, r)] = part
+    GATHERED.add(out)
     return out
 
 
@@ -236,7 +249,6 @@ def scatter_grad(g, sharding: NamedSharding):
     """This rank's block of the sum over the ranks of the whole tensors
     `g`: a reduce-scatter of the blocks laid out in rank order, or an
     all-reduce for a replicated leaf."""
-    import torch
     group = sharding.mesh.group
     shape = tuple(g.shape)
     idx = [rank_index(sharding, shape, r) for r in range(sharding.mesh.size)]
@@ -244,6 +256,188 @@ def scatter_grad(g, sharding: NamedSharding):
         return group.all_reduce(g.contiguous())
     flat = torch.cat([g[i].reshape(-1) for i in idx])
     return group.reduce_scatter(flat).view(sharding.shard_shape(shape))
+
+
+class GatherCounter:
+    """The whole tensors :func:`gather_leaf` and :func:`gather_leaves`
+    made in one step or serving call: the bytes alive now (each counted
+    from its gather until it is freed), their peak and the bytes
+    gathered since :meth:`begin`.  A leaf every rank holds whole is not
+    gathered and not counted, nor is a gather's receive buffer."""
+
+    def __init__(self):
+        # a backward on a card frees tensors on autograd's device thread
+        self._lock = threading.Lock()
+        self.live = 0
+        self.peak = 0
+        self.total = 0
+
+    def begin(self) -> None:
+        """Start a step or serving call: the peak from the bytes alive
+        now, the total from 0."""
+        with self._lock:
+            self.peak, self.total = self.live, 0
+
+    def add(self, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
+        with self._lock:
+            self.live += n
+            self.total += n
+            self.peak = max(self.peak, self.live)
+        weakref.finalize(t, self._free, n).atexit = False
+
+    def _free(self, n: int) -> None:
+        with self._lock:
+            self.live -= n
+
+    def read(self) -> Dict[str, int]:
+        """``gathered_peak_bytes`` and ``gathered_bytes`` since
+        :meth:`begin`."""
+        with self._lock:
+            return {"gathered_peak_bytes": self.peak,
+                    "gathered_bytes": self.total}
+
+
+#: this process's count (one rank is one process)
+GATHERED = GatherCounter()
+
+
+@functools.lru_cache(maxsize=4096)
+def _rank_indices(sharding: NamedSharding, shape: Tuple[int, ...]
+                  ) -> Tuple[Tuple[slice, ...], ...]:
+    """Every rank's block of a `shape` tensor, in rank order (cached: a
+    model asks again for each layer at every call)."""
+    return tuple(rank_index(sharding, shape, r)
+                 for r in range(sharding.mesh.size))
+
+
+def gather_leaves(ts, shardings) -> List[torch.Tensor]:
+    """:func:`gather_leaf` of every block of `ts` (one sharding each) by
+    one all-gather per dtype: the blocks laid end to end, each rank's
+    part placed at its indices.  A leaf every rank holds whole is `t`
+    itself.  The receive buffers live for the call only."""
+    out = list(ts)
+    todo: Dict[Any, list] = collections.defaultdict(list)
+    for i, (t, sh) in enumerate(zip(ts, shardings)):
+        shape = global_shape(sh, tuple(t.shape))
+        idx = _rank_indices(sh, shape)
+        if not _whole(idx[sh.mesh.rank], shape):
+            todo[t.dtype].append((i, shape, idx))
+    for members in todo.values():
+        group = shardings[members[0][0]].mesh.group
+        parts = group.all_gather(torch.cat([ts[i].reshape(-1)
+                                            for i, _, _ in members]))
+        off = 0
+        for i, shape, idx in members:
+            t, n = ts[i], ts[i].numel()
+            whole = t.new_empty(shape)
+            for r, part in enumerate(parts):
+                whole[idx[r]] = part[off:off + n].view(t.shape)
+            off += n
+            GATHERED.add(whole)
+            out[i] = whole
+    return out
+
+
+def scatter_grads(gs, shardings) -> List[torch.Tensor]:
+    """:func:`scatter_grad` of every whole grad of `gs` by one
+    reduce-scatter per dtype: the ranks' blocks of every grad laid end to
+    end in rank order.  A leaf every rank holds whole puts its whole grad
+    in each rank's part, so its block is the all-reduce."""
+    out: List[Any] = [None] * len(gs)
+    todo: Dict[Any, list] = collections.defaultdict(list)
+    for i, g in enumerate(gs):
+        todo[g.dtype].append(i)
+    for members in todo.values():
+        mesh = shardings[members[0]].mesh
+        idx = {i: _rank_indices(shardings[i], tuple(gs[i].shape))
+               for i in members}
+        mine = mesh.group.reduce_scatter(torch.cat([
+            gs[i][idx[i][r]].reshape(-1)
+            for r in range(mesh.size) for i in members]))
+        off = 0
+        for i in members:
+            shape = shardings[i].shard_shape(tuple(gs[i].shape))
+            n = math.prod(shape)
+            out[i] = mine[off:off + n].view(shape)
+            off += n
+    return out
+
+
+class GatherLeaves(torch.autograd.Function):
+    """:func:`gather_leaves` with a gradient: ``apply(shardings,
+    *blocks)`` all-gathers the blocks into their whole tensors, and the
+    backward sums the whole tensors' grads over the ranks into the
+    blocks (:func:`scatter_grads`): one collective each way for a layer.
+    Gather f32 blocks and cast after: a leaf read twice (the tied
+    embedding) must be gathered once, so that autograd sums its grads on
+    the whole tensor before the one reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, shardings, *blocks):
+        ctx.shardings = shardings
+        return tuple(w.view_as(w) if w is t else w for w, t in
+                     zip(gather_leaves(blocks, shardings), blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *scatter_grads(grads, ctx.shardings))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """`tree`'s structure over the iterator `leaves`, in `_leaves`'s
+    order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def layer_sharding(sharding: NamedSharding, ndim: int) -> NamedSharding:
+    """The sharding of an `ndim`-dim tensor of a leaf sharded by
+    `sharding`: the leaf's own, or, for one layer of a stacked leaf (one
+    dim fewer than the spec, which a params sharding gives for every
+    dim), the spec without its leading ``"layers"`` dim, which is never
+    sharded."""
+    spec = tuple(sharding.spec)
+    if ndim == len(spec):
+        return sharding
+    if ndim != len(spec) - 1 or _axes_of(spec[0]):
+        raise ValueError(f"a {ndim}-dim tensor is neither a leaf nor one "
+                         f"layer of a stacked leaf sharded by {spec}")
+    return NamedSharding(sharding.mesh, PartitionSpec(*spec[1:]))
+
+
+def param_gather(shardings):
+    """The models' ``gather`` over a process mesh, `shardings` the
+    params' named shardings: ``gather(tree, *path)`` is the whole of
+    `tree`, the rank's blocks of the params' subtree at `path` (the keys
+    from the root) or of one layer of it, by one :class:`GatherLeaves`
+    with each leaf's sharding (:func:`layer_sharding`).  None on a mesh
+    of one slot, where every block is its whole leaf."""
+    first = shardings
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    if first.mesh.size == 1:
+        return None
+    plans: Dict[Tuple[str, ...], list] = {}    # path -> leaf shardings
+
+    def gather(tree, *path):
+        plan = plans.get(path)
+        if plan is None:
+            sh = shardings
+            for k in path:
+                sh = sh[k]
+            plan = plans[path] = _leaves(map_tree(
+                lambda t, s: layer_sharding(s, t.ndim), tree, sh))
+        return _rebuild(tree, iter(GatherLeaves.apply(plan,
+                                                      *_leaves(tree))))
+    return gather
 
 
 def _mesh_coords(mesh) -> List[Tuple[int, ...]]:
