@@ -20,9 +20,12 @@ scan at long prompts, both RMSNorm designs at 2048 x 2560 and 2048 x 5120
 in turns, and both SSD kernels at mamba2's prefill shape in turns.  Each
 kernel is also checked and timed at the shapes of phase 2b (bf16): flash
 attention at h2o-danube's prefill (hd 80, the window of 4096 binding at
-S = 4608; SDPA under the same mask as the library time), at qwen3-moe's
-(hd 128, 32 query heads over 4) and at jamba's; the SSD scan at jamba's
-(nh 128, P 64, N 16); RMSNorm at each path's rows and widths; and at the
+S = 4608; SDPA under the same mask as the library time), at
+qwen3-moe-30b's (hd 128, 32 query heads over 4), at jamba's and at
+qwen3-moe-235b's (64 query heads over 4: a GQA group of 16); the SSD
+scan at jamba's (nh 128, P 64, N 16); RMSNorm at each path's rows and
+widths and at qwen3-moe-235b's q-norm rows (131072 x 128), each
+repeated bit for bit; and at the
 shapes of phase 2c: flash attention at whisper-tiny's encoder (non-causal
 over 1500 frames, a partial last key tile), its prefill cross-attention (4
 queries against 1500 keys), its decoder's causal self-attention over the
@@ -61,9 +64,13 @@ cold-restores and must continue token-exact: h2o-danube-1.8b at 4 of
 its 24 layers (cut for the run's time budget) over f32 masters (B 2 x 4608 tokens, max_seq 4672, 48 tokens: the
 window binds in prefill, the SWA ring of 4096 wraps in decode),
 qwen3-moe-30b-a3b at 2 of 48 layers in bf16 (B 4 x 512, 32 tokens: 128
-experts top-8, capacity drops in prefill, dropless decode, q/k-norm) and
+experts top-8, capacity drops in prefill, dropless decode, q/k-norm),
 jamba-v0.1-52b at 8 of 32 layers (one period: 7 Mamba, 1 attention, 4 MoE)
-in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image); each
+in bf16 (B 2 x 1024, 32 tokens: KV and SSM caches in one image) and
+qwen3-moe-235b-a22b at 1 of its 94 layers in bf16 (d 4096, 64/4 heads x
+128, 128 experts top-8 x 1536, vocab 151936: 3.73 B params, a 7.5 GB
+image; B 4 x 512, 32 tokens; the MoE's expert-parallel body at one
+model rank, all 128 experts local, C = 160 in prefill); each
 path runs in a child process, waited for, that hands its launches back
 (forked from a server process that imported torch once, so no child pays
 the import again), so its pinned host buffers are gone before the next
@@ -79,7 +86,7 @@ phase 2b: whisper-tiny uncut over f32 masters (B 16 x 1500 frames, the
 4-token start-of-transcript prompt, max_seq 448, 96 tokens: a sync image
 at token 48, an incremental image 24 tokens later that must write the
 self cache alone, every param and cross_k / cross_v entry staying in the
-first image) and qwen2-vl-7b at 7 of its 28 layers (cut for the
+first image) and qwen2-vl-7b at 4 of its 28 layers (cut for the
 run's time budget) in bf16 (B 2 x
 1280: one 32 x 32 image of 1024 vision embeddings with its M-RoPE
 positions, then 256 text tokens; max_seq 1344, 32 tokens, one sync
@@ -99,7 +106,7 @@ qwen2-vl's 28/4; RMSNorm on qwen3-moe's q/k-norm rows) in bf16 and f32
 same times each input's largest |grad|); each forward must launch its
 kernel once.
 
-Phase 3 trains qwen1.5-0.5b at full width, cut to 4 of its 24 layers for
+Phase 3 trains qwen1.5-0.5b at full width, cut to 2 of its 24 layers for
 the run's time budget (bf16 over f32 masters, kernels,
 remat, batch 4 x 512, AdamW, deterministic settings): (a) 12 steps with an
 async image every 4; (b) a run that crashes at step 7 and restores from
@@ -131,7 +138,7 @@ into a view), one is replaced, one key added and one dropped; the dirty
 set must be exactly the touched keys, the re-captured bytes at most
 theirs, and the image must restore bitwise to the live tree.
 Phase 5 replicates and migrates, qwen1.5-0.5b at full width through the
-kernels, (a)-(c) at 4 of its 24 layers (cut for the run's time budget):
+kernels, (a)-(c) at 2 of its 24 layers (cut for the run's time budget):
 (a) sync incremental images 16 tokens apart, each pushed inside
 the dump to a peer by the CAS delta replicator (image 2 must ship the KV
 cache, at most one chunk more, and skip image 1 whole); the primary's
@@ -157,7 +164,7 @@ push) and every replicate_s are printed as ``[replicate]`` and
 Phase 6 drives the orchestrator, the interception baseline and the serving
 fleet (``repro_torch.orchestrator``, ``repro_torch.baselines``) on
 qwen1.5-0.5b at full width (bf16 over f32 masters, kernels, remat; phase
-3's training shape, phase 2's serving shape), cut to 4 of its 24 layers
+3's training shape, phase 2's serving shape), cut to 2 of its 24 layers
 for the run's time budget but in (d), which keeps all 24, in a child
 process (alone: ``--orch``): (a) preemption on one device slot: ``lo`` is
 mid-run when ``hi`` arrives, checkpoints on the signal and is evicted;
@@ -305,8 +312,10 @@ images whose validate pause came at step 12), a lazy ``--restore`` pulls
 the replica's newest and runs to step 12: (a)'s losses bitwise and (a)'s
 step-12 entries CRC for CRC.  ``[dist]`` lines give each rank's step
 time, pack bytes and commit barrier wait, and (e)'s pauses, bytes, push
-and restore times; on one card a line says that more than one rank was
-held only by the CPU tests.
+and restore times; (a)'s names the process mesh (``data`` = N, ``model``
+= 1, as the reference's launchers lay their devices); on one card a line
+says that more than one rank, and a model axis above 1 (the
+expert-parallel MoE on a (2, 2) mesh), were held only by the CPU tests.
 
 ``--launch --out F`` runs phase 8 alone, ``--dryrun --out F`` phase 9,
 ``--train-zoo --out F`` phase 10, ``--dist --out F`` phase 11 (``--path
@@ -390,17 +399,21 @@ SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
 SSD_H_TOL = 1e-4
 # the decoder zoo's serving shapes (bf16, phase 2b): flash attention at
 # h2o-danube's prefill (hd 80, the window of 4096 binding at S = 4608),
-# qwen3-moe's (hd 128, 32 query heads over 4) and jamba's; the SSD scan at
-# jamba's (nh 128, P 64, N 16); RMSNorm at each path's prefill rows x
-# d_model, qwen3-moe's and jamba's decode rows (the one-row design;
-# danube's (2, 2560) is that of (4, 2560) above) and jamba's gated norm
-# (d_inner 8192) at prefill and decode
+# qwen3-moe-30b's (hd 128, 32 query heads over 4), jamba's and
+# qwen3-moe-235b's (64 query heads over 4: a GQA group of 16); the SSD
+# scan at jamba's (nh 128, P 64, N 16); RMSNorm at each path's prefill
+# rows x d_model, qwen3-moe's and jamba's decode rows (the one-row
+# design; danube's (2, 2560) is that of (4, 2560) above), jamba's gated
+# norm (d_inner 8192) at prefill and decode, and qwen3-moe-235b's q-norm
+# rows (4 x 512 tokens x 64 heads, hd 128; its k-norm rows, 8192 x 128,
+# are TRAIN_NORM's)
 ZOO_ATTN = [(2, 4608, 4608, 32, 8, 80, True, 4096),
             (4, 512, 512, 32, 4, 128, True, 0),
-            (2, 1024, 1024, 32, 8, 128, True, 0)]
+            (2, 1024, 1024, 32, 8, 128, True, 0),
+            (4, 512, 512, 64, 4, 128, True, 0)]
 ZOO_SSD = [(2, 1024, 128, 64, 16, 128)]
 ZOO_NORM = [(9216, 2560), (2048, 2048), (2048, 4096), (2048, 8192),
-            (4, 2048), (2, 4096), (2, 8192)]
+            (4, 2048), (2, 4096), (2, 8192), (131072, 128)]
 # the shapes of phase 2c (bf16): flash attention at whisper-tiny's encoder
 # (non-causal over 1500 frames, not a multiple of the key tile), at its
 # prefill cross-attention (4 prompt tokens against 1500 frames: one query
@@ -564,6 +577,8 @@ def rmsnorm_case(shape, dtype, gen):
     # the criterion of tests/test_kernels.py:14-16 (rtol = atol): at
     # d = 5120, |y| reaches ~20, where one bf16 step is 0.125
     ok = out.dtype == x.dtype and _close(out, want, TOL[str(dtype)])
+    # one program per row block, no atomics: bitwise the same again
+    ok = ok and torch.equal(out, rn.rmsnorm(x, s))
     nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
     b_ms, b_by = bound(nbytes, 4.0 * x.numel(), torch.float32)
     sx = s.to(dtype)
@@ -1340,10 +1355,13 @@ def profile_serving(model, params, batch, dev,
 # a multiple of 8).  h2o-danube at 4 of its 24 layers, cut for the run's
 # time (tools/cut_ab.py: 24 -> 12 -15.7 s, 12 -> 4 -10.9 s); its
 # prompt of 4608 puts the window (4096) inside the prefill and wraps the
-# ring in decode.  As for mamba2, the logit check keeps 4 layers (qwen3-moe
-# its 2) where many random layers carry both bf16 paths O(1) logits away
-# from f32, so that a wrong kernel would not show; jamba keeps its one
-# period of 8.
+# ring in decode.  qwen3-moe-235b-a22b at 1 of its 94 layers: one layer's
+# experts are 2.42 B params, the embedding and head 1.24 B, 7.5 GB of
+# bf16 in all (serving, not training, fits one card: ROADMAP A.13.5).  As
+# for mamba2, the logit check keeps 4 layers (qwen3-moe-30b its 2,
+# 235b its 1) where many random layers carry both bf16 paths O(1) logits
+# away from f32, so that a wrong kernel would not show; jamba keeps its
+# one period of 8.
 ZOO_PATHS = (
     ("h2o-danube-1.8b", 4, "float32", 2, 4608, 4672, 48,
      ("flash_attention", "rmsnorm"), 4),
@@ -1351,6 +1369,8 @@ ZOO_PATHS = (
      ("flash_attention", "rmsnorm"), 2),
     ("jamba-v0.1-52b", 8, "bfloat16", 2, 1024, 1088, 32,
      ("flash_attention", "rmsnorm", "ssd_scan"), None),
+    ("qwen3-moe-235b-a22b", 1, "bfloat16", 4, 512, 576, 32,
+     ("flash_attention", "rmsnorm"), 1),
 )
 
 
@@ -1505,12 +1525,13 @@ def phase_zoo(path, seed: int, workdir: str, card: str,
 # image too slow to write in the run, as for qwen3-moe): 2 prompts of one
 # 32 x 32 image (the config's 1024 vision embeddings) and 256 text tokens;
 # its logit check at 4 layers, as for the zoo.  whisper uncut; qwen2-vl
-# at 7 of its 28 layers, cut for the run's time budget when phase 7 came
-# in (tools/cut_ab.py: 28 -> 14 saves 30.9 s, 14 -> 7 10.6 s).
+# at 4 of its 28 layers, cut for the run's time budget when phase 7 came
+# in (tools/cut_ab.py: 28 -> 14 saves 30.9 s, 14 -> 7 10.6 s) and to its
+# logit check's 4 when qwen3-moe-235b-a22b came in (7 -> 4 8.0 s).
 MM_PATHS = (
     ("whisper-tiny", None, "float32", 16, 4, 448, 96,
      ("flash_attention", "rmsnorm"), None),
-    ("qwen2-vl-7b", 7, "bfloat16", 2, 1280, 1344, 32,
+    ("qwen2-vl-7b", 4, "bfloat16", 2, 1280, 1344, 32,
      ("flash_attention", "rmsnorm"), 4),
 )
 
@@ -1559,8 +1580,9 @@ TRAIN_PATH = "train"      # --path: phase 3's qwen1.5 training alone
 # full width, cut to 12 of 24 layers to pay for phase 11 (e) (in turns,
 # tools/cut_ab.py --path train --layers 12; NVIDIA H100 80GB HBM3, 700.00
 # W: 24 -> 12 saved 41.7 s), then to 4 when a whole run overran its
-# 1200 s limit (tools/cut_ab.py --path train --layers 4)
-TRAIN_LAYERS = 4
+# 1200 s limit (tools/cut_ab.py --path train --layers 4), then to 2 to
+# pay for qwen3-moe-235b-a22b's serving path (4 -> 2 saved 13.7 s)
+TRAIN_LAYERS = 2
 TRAIN_B, TRAIN_S = 4, 512
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 7
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 4
@@ -2136,8 +2158,9 @@ def phase_training_mamba(seed: int, workdir: str, card: str) -> dict:
 REPL_ARCH = "qwen1.5-0.5b"
 REPL_PATH = "repl"        # --path: phase 5 (a)-(c) alone (tools/cut_ab.py)
 # full width, cut to 4 of its 24 layers for the run's time budget (-59.5 s
-# in turns, tools/cut_ab.py --path repl, H100)
-REPL_LAYERS = 4
+# in turns, tools/cut_ab.py --path repl, H100), then to 2 to pay for
+# qwen3-moe-235b-a22b's serving path (4 -> 2 saved 8.6 s)
+REPL_LAYERS = 2
 REPL_TOKENS = 16          # decoded between the two replicated images
 MIGRATE_TOKENS = 4        # decoded between two pre-copy rounds
 MIGRATE_ROUNDS = 4        # TransferPolicy.precopy_rounds; no blackout budget
@@ -2531,10 +2554,11 @@ ORCH_ARCH = "qwen1.5-0.5b"
 ORCH_PATH = "orch"            # --path: phase 6 alone (tools/cut_ab.py)
 # full width, parts (a)-(c) and (e) cut to 4 of the 24 layers for the
 # run's time budget (-95.4 s in turns, tools/cut_ab.py --path orch,
-# H100); (d) keeps all 24: its check reads replay's restore growing by 12
-# re-executed steps against the engine's, and at 4 layers (a 61 ms step)
-# that growth fell inside the restores' noise
-ORCH_LAYERS = 4
+# H100), then to 2 to pay for qwen3-moe-235b-a22b's serving path (4 -> 2
+# saved 6.7 s); (d) keeps all 24: its check reads replay's restore
+# growing by 12 re-executed steps against the engine's, and at 4 layers
+# (a 61 ms step) that growth fell inside the restores' noise
+ORCH_LAYERS = 2
 REPLAY_LAYERS = 24
 ORCH_TRAIN_STEPS = 6          # preemption: lo 6 steps, hi 3
 ORCH_SERVE_STEPS = 6          # failure: a crash at step 4 (total//2 + 1)
@@ -4650,6 +4674,15 @@ def phase_dist(seed: int, card: str, layers: int = DIST_LAYERS) -> dict:
         if ja["ranks"] != n or ja["snapshots"] != want:
             raise SystemExit(f"phase 11 (a): ranks {ja['ranks']}, images "
                              f"{ja['snapshots']}, want {want}")
+        # the launchers lay the ranks over data, as the reference's lay
+        # its devices; the model axis (expert parallelism) is the API's,
+        # held at 4 gloo ranks on (2, 2) by tests/test_torch_dist_ep.py
+        log(f"[dist] (a) process mesh {ja['mesh']} (data x model) over "
+            f"{n} rank(s); a model axis above 1 needs several cards: CPU "
+            f"tests only; {card}")
+        if ja["mesh"] != {"data": n, "model": 1}:
+            raise SystemExit(f"phase 11 (a): mesh {ja['mesh']}, want "
+                             f"data {n} x model 1")
         if ja["jit_snapshots"]:
             log(f"[dist] (a) just-in-time images at steps "
                 f"{ja['jit_snapshots']} (the straggler monitor); {card}")
@@ -4774,9 +4807,10 @@ def phase_dist(seed: int, card: str, layers: int = DIST_LAYERS) -> dict:
     if n == 1:
         log("[dist] one card: phase 11 ran 1 rank through the whole "
             "multi-rank path (process group, per-rank packs, two-phase "
-            "commit, restores across devices, the engine's modes); more "
-            "than one rank was held only by the CPU tests "
-            "(tests/test_torch_dist*.py, gloo)")
+            "commit, restores across devices, the engine's modes) on a "
+            "(1, 1) process mesh; more than one rank, and the model axis "
+            "(expert-parallel MoE on (2, 2)), were held only by the CPU "
+            "tests (tests/test_torch_dist*.py, gloo)")
     launches, variants = _merge_launches(runs)
     log(f"[dist] phase 11 wall {time.perf_counter() - t_phase:.1f} s, "
         f"launches flash / RMSNorm {launches['flash_attention']} / "

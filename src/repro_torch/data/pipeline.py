@@ -16,9 +16,11 @@ A copy of the JAX package's ``data/pipeline.py`` (numpy only, on the
 port's ``ModelConfig``): its batches are bitwise the reference's for every
 ``(seed, step, host_id)``, so both packages train on the same tokens.
 Across the ranks of a process group every rank draws the same global
-batch and keeps its rows (:func:`local_rows`): the rows the reference's
-``data`` axis gives that rank's device, so the inputs are bit-equal to
-the reference's at any world size.
+batch and keeps its rows (:func:`local_rows`): the rows the policy's
+data-parallel axes (``dp``; ``("pod", "data")`` in the baseline) give
+that rank's device, by its coordinate over them, so the inputs are
+bit-equal to the reference's at any mesh shape.  The ranks of one data coordinate (over ``model``) take
+the same rows.
 """
 from __future__ import annotations
 
@@ -99,16 +101,17 @@ class TokenPipeline:
         return self.next()
 
 
-def local_rows(batch: Dict[str, np.ndarray], rank: int, world: int
+def local_rows(batch: Dict[str, np.ndarray], coord: int, size: int
                ) -> Dict[str, np.ndarray]:
-    """Rank `rank`'s rows of a global batch: the `rank`-th of `world`
-    equal blocks of the batch dim (the block a ``data``-sharded batch
-    puts on that rank's device)."""
+    """The rows of a global batch at data coordinate `coord` of `size`:
+    the `coord`-th of `size` equal blocks of the batch dim (the block a
+    batch sharded over the data-parallel axes puts on the devices of that
+    coordinate; ``ProcessMesh.coord`` over the policy's ``dp``)."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % world:
+        if v.shape[0] % size:
             raise ValueError(f"batch of {v.shape[0]} rows does not divide "
-                             f"over {world} ranks")
-        n = v.shape[0] // world
-        out[k] = v[rank * n:(rank + 1) * n]
+                             f"over a data size of {size}")
+        n = v.shape[0] // size
+        out[k] = v[coord * n:(coord + 1) * n]
     return out

@@ -17,6 +17,14 @@ is ``repro_torch.launch.dist``'s.
     eager, so a failure raises: nothing falls back to gloo or the CPU.
   * The group meets through a file store (``init_method=file://…``): no
     TCP port, nothing on the network.
+  * A mesh over the ranks (``launch.mesh.ProcessMesh``) splits them into
+    one subgroup per mesh axis, and per set of axes: the ranks that share
+    every coordinate but those axes' (:meth:`Group.subgroup`; the
+    mesh's ``axis_group(("model",))``).  torch needs every rank to create every
+    subgroup, the ones it is not in too, in one order: the mesh creates
+    them all when it is built, in its axes' order, over the same backend
+    and store, each bounded by the world's timeout.  A subgroup of one
+    rank runs no collective.
 
 The collectives are the library's: communication, not kernels.
 """
@@ -25,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Any, List
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -40,38 +48,63 @@ DEFAULT_TIMEOUT_S = 300.0
 class Group:
     """This process's place in the job -- its rank, the world size, its
     device, the backend (``nccl`` or ``gloo``) and the seconds that bound
-    each collective -- and the collectives over its ranks."""
+    each collective -- and the collectives over its ranks.  A subgroup
+    (:meth:`subgroup`) is a Group too: its `rank` and `world` count its
+    own members (`members`, the job's ranks in order), and its
+    collectives run over its process group `pg`."""
     rank: int
     world: int
     device: torch.device
     backend: str
     timeout_s: float = DEFAULT_TIMEOUT_S
+    #: the job's ranks of this group, in order (empty: every rank)
+    members: Tuple[int, ...] = ()
+    #: torch's process group of a subgroup (None: the job's own)
+    pg: Any = dataclasses.field(default=None, compare=False, repr=False)
+    #: the subgroups made over this job's ranks, by their members
+    _subgroups: Dict[Tuple[int, ...], "Group"] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False, hash=False)
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The job's ranks in this group, in its rank order."""
+        return self.members or tuple(range(self.world))
+
+    def _kw(self) -> Dict[str, Any]:
+        return {} if self.pg is None else {"group": self.pg}
 
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's `t` (equal shapes), in rank order."""
+        if self.world == 1:
+            return [t]
         import torch.distributed as tdist
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.world)]
-        tdist.all_gather(parts, t)
+        tdist.all_gather(parts, t, **self._kw())
         return parts
 
     def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
         """`flat` is the world's blocks laid end to end, in rank order,
         each of one size; returns this rank's block summed over the
         ranks."""
+        if self.world == 1:
+            return flat
         import torch.distributed as tdist
         out = torch.empty(flat.numel() // self.world, dtype=flat.dtype,
                           device=flat.device)
-        tdist.reduce_scatter_tensor(out, flat.contiguous())
+        tdist.reduce_scatter_tensor(out, flat.contiguous(), **self._kw())
         return out
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """`t` reduced over the ranks in place (``sum``, ``max`` or
-        ``min``); returns it."""
+        ``min``); returns it.  Every rank gets the same bytes."""
+        if self.world == 1:
+            return t
         import torch.distributed as tdist
         tdist.all_reduce(t, op={"sum": tdist.ReduceOp.SUM,
                                 "max": tdist.ReduceOp.MAX,
-                                "min": tdist.ReduceOp.MIN}[op])
+                                "min": tdist.ReduceOp.MIN}[op],
+                         **self._kw())
         return t
 
     def any_rank(self, flag: bool) -> bool:
@@ -89,17 +122,68 @@ class Group:
 
     def gather_objects(self, obj: Any) -> List[Any]:
         """Every rank's picklable `obj`, in rank order."""
+        if self.world == 1:
+            return [obj]
         import torch.distributed as tdist
         out: List[Any] = [None] * self.world
-        tdist.all_gather_object(out, obj)
+        tdist.all_gather_object(out, obj, **self._kw())
         return out
 
     def broadcast_object(self, obj: Any) -> Any:
-        """Rank 0's `obj` on every rank."""
+        """The first rank's `obj` on every rank."""
+        if self.world == 1:
+            return obj
         import torch.distributed as tdist
         box = [obj]
-        tdist.broadcast_object_list(box, src=0)
+        tdist.broadcast_object_list(box, src=self.ranks[0], **self._kw())
         return box[0]
+
+    # ------------------------------------------------------- subgroups
+    def subgroup(self, members: Sequence[int]) -> "Group":
+        """The group of this group's ranks `members`: made once, then the
+        same object.  Every rank must ask for every subgroup in one
+        order, including those it is not in (its `rank` there is -1); a
+        subgroup of one rank or of every rank makes no process group.  A
+        subgroup's own subgroups are itself and its single ranks (a mesh
+        of one axis over it)."""
+        members = tuple(sorted(int(r) for r in members))
+        if members == tuple(range(self.world)):
+            return self
+        if self.members:
+            if len(members) > 1:
+                raise ValueError("subgroups are made from the job's "
+                                 "group")
+            return Group(0, 1, self.device, self.backend, self.timeout_s,
+                         (self.members[members[0]],))
+        got = self._subgroups.get(members)
+        if got is None:
+            pg = None
+            if len(members) > 1:
+                import torch.distributed as tdist
+                pg = tdist.new_group(
+                    list(members), backend=self.backend,
+                    timeout=datetime.timedelta(seconds=self.timeout_s))
+            got = Group(members.index(self.rank) if self.rank in members
+                        else -1, len(members), self.device, self.backend,
+                        self.timeout_s, members, pg)
+            self._subgroups[members] = got
+        return got
+
+
+class AllReduce(torch.autograd.Function):
+    """``apply(t, group)``: `t` summed over `group`'s ranks, into a new
+    tensor.  The backward sums the grads over the ranks the same way, as
+    the transpose of JAX's ``psum`` does: a rank's grad of the sum is
+    every rank's share of the loss, so its inputs' grads count them all."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.clone()), None
 
 
 def init(rank: int, world: int, device_type: str, init_file: str,

@@ -24,7 +24,14 @@ carries it: slot ``i`` names rank ``i``'s device, and this process holds
 sharding; the sharding's block arithmetic is the same
 (``repro_torch.sharding.policy``), and images are committed through
 ``core/multihost.py``.  ``make_host_mesh(..., group=)`` builds one with
-a slot per rank (the launchers' ``data = world size``, ``model = 1``).
+a slot per rank, row-major (the launchers' ``data = world size``,
+``model = 1``, as the reference's launchers lay their devices; a
+caller asks for ``model > 1`` through the API, as in JAX).  Built, it
+splits the group into a subgroup per set of its axes
+(:meth:`ProcessMesh.axis_group`: the ranks that share every other
+coordinate), every rank making every subgroup in one order, and gives
+this rank's coordinate over any of them (:meth:`ProcessMesh.coord`;
+over a policy's data-parallel axes: the rows of a batch a rank takes).
 
 The reference's JAX-version shims (``_axis_type_support``,
 ``AXIS_TYPE`` / ``HAS_AXIS_TYPES``, ``use_mesh``) have no torch meaning
@@ -36,6 +43,7 @@ importing this module touches no device.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -107,7 +115,10 @@ class ProcessMesh(Mesh):
     """A named grid whose slot ``i`` (row-major) is rank ``i`` of
     `group`: ``devices`` holds each rank's device, ``rank`` is this
     process's rank, ``local_slots`` the slots it holds (one: its rank).
-    ``device`` is this process's device."""
+    ``device`` is this process's device.  Building one makes the
+    group's subgroup for every set of its axes (see the module
+    docstring): every rank of the group must build the same meshes in
+    one order."""
 
     is_process_mesh = True
 
@@ -118,6 +129,44 @@ class ProcessMesh(Mesh):
             raise ValueError(f"a mesh of {self.size} slots over a group of "
                              f"{group.world} ranks")
         self.group = group
+        self._axis_groups: Dict[Tuple[str, ...], Group] = {}
+        for n in range(len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, n):
+                # every rank makes each subgroup of the partition, in
+                # the order of their first ranks
+                for members in self._partition(axes):
+                    sub = group.subgroup(members)
+                    if self.rank in members:
+                        self._axis_groups[axes] = sub
+
+    def _partition(self, axes: Tuple[str, ...]):
+        """The ranks grouped by their coordinates off `axes`: each group
+        varies over `axes` alone, in rank order."""
+        grid = np.arange(self.size).reshape(self.devices.shape)
+        keep = [i for i, a in enumerate(self.axis_names) if a in axes]
+        rest = [i for i in range(grid.ndim) if i not in keep]
+        grid = np.transpose(grid, rest + keep).reshape(
+            -1, math.prod(grid.shape[i] for i in keep))
+        return [tuple(int(r) for r in row) for row in grid]
+
+    def axis_group(self, axes: Sequence[str]) -> Group:
+        """This rank's subgroup over the mesh axes `axes` (any order;
+        names not in the mesh are dropped): the ranks that share every
+        other coordinate.  No axes: this rank alone; every axis: the
+        group."""
+        key = tuple(a for a in self.axis_names if a in tuple(axes))
+        return self._axis_groups[key]
+
+    def coord(self, axes: Sequence[str]) -> Tuple[int, int]:
+        """(this rank's index, the count) over the mesh axes `axes`: its
+        coordinates on them, row-major in mesh order (names not in the
+        mesh are dropped)."""
+        idx, n = 0, 1
+        for a, c in zip(self.axis_names, self.local_coord):
+            if a in tuple(axes):
+                size = self.shape[a]
+                idx, n = idx * size + c, n * size
+        return idx, n
 
     @staticmethod
     def _check_devices(devices: np.ndarray) -> None:

@@ -157,6 +157,7 @@ def rank_main(argv, group, *, cfg=None) -> int:
         "pos": srv.pos,
         "tokens_sha256": hashlib.sha256(gen.tobytes()).hexdigest(),
         "timings": timings, "device": str(device), "ranks": world,
+        "mesh": mesh.shape,
         "per_rank": per_rank,
     }, indent=1))
     return 0

@@ -200,6 +200,7 @@ def rank_main(argv, group, *, cfg=None, ckpt=None,
             # the images the straggler monitor asked for, off the period
             "jit_snapshots": trainer.jit_ckpt.triggered,
             "restore_s": restore_s, "device": str(device), "ranks": world,
+            "mesh": mesh.shape,
             "per_rank": per_rank,
         }, indent=1))
     return 0

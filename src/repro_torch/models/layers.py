@@ -67,13 +67,23 @@ def gathering(gather):
     of the params' subtree at `path` (keys from the root) or of one layer
     of a stacked subtree (``sharding.policy.param_gather``).  A model
     gathers each layer where it reads it, inside its remat unit, and the
-    top-level leaves once a call; it holds no mesh or policy.  Outside
-    any block (or with None) the params are whole."""
+    top-level leaves once a call; it holds no mesh or policy.  The same
+    gather carries the MoE block's place across ranks
+    (:func:`expert_shard`): its expert leaves come gathered over the
+    data axes alone, a rank's own experts whole.  Outside any block (or
+    with None) the params are whole."""
     token = _GATHER.set(gather)
     try:
         yield
     finally:
         _GATHER.reset(token)
+
+
+def expert_shard(gather):
+    """The MoE block's place across ranks that `gather` carries
+    (``sharding.policy.ExpertShard``), or None: one rank holds every
+    expert."""
+    return getattr(gather, "experts", None)
 
 
 def no_gather(tree, *path):

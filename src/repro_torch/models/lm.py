@@ -30,7 +30,11 @@ top-level leaves (embedding, final norm, an untied head) once and each
 layer's params where it reads them -- a training super-block inside its
 remat unit, so the backward's recompute gathers again and a layer's
 whole copy dies with its super-block; a prefill or decode layer in its
-loop.  With ``CAST_PARAMS_ONCE`` the cast comes after the gather.
+loop.  With ``CAST_PARAMS_ONCE`` the cast comes after the gather.  The
+gather also places each MoE block across the ranks
+(``layers.expert_shard``): a rank computes its own experts, gathered
+over the data axes alone, and sums the partial outputs over the model
+ranks (``models/moe.py``).
 Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
 ``models.encdec.build_model`` picks the class from the config.
 
@@ -169,12 +173,14 @@ class LM:
                              f"sequence of {S} tokens")
         return torch.cat([ve.to(self.compute_dtype), x[:, P:]], dim=1)
 
-    def _ffn(self, lp, x, dropless: bool = False):
-        """x + the layer's FFN, and the MoE aux (None without MoE)."""
+    def _ffn(self, lp, x, dropless: bool = False, ep=None):
+        """x + the layer's FFN, and the MoE aux (None without MoE); `ep`
+        places the MoE block across ranks (``sharding.policy.
+        ExpertShard``, from the call's gather)."""
         if "moe" in lp:
             f, aux = MOE.moe_block(lp["moe"], self.cfg,
                                    self._norm(lp["pre_mlp_norm"], x),
-                                   dropless=dropless)
+                                   dropless=dropless, ep=ep)
             return x + f, aux
         if "mlp" in lp:
             return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x)), \
@@ -198,22 +204,22 @@ class LM:
         return base.expand(3, B, S) if self.cfg.mrope else base
 
     # ---------------- forward / loss (training) ----------------
-    def _block(self, lp, j: int, x, positions):
+    def _block(self, lp, j: int, x, positions, ep=None):
         """One layer: (x, its MoE aux or None)."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
             o = self._attn(lp, j, h, positions, expand_gqa=True)[0]
         else:
             o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
-        return self._ffn(lp, x + o)
+        return self._ffn(lp, x + o, ep=ep)
 
-    def _superblock(self, lps, x, aux, positions, g=L.no_gather):
+    def _superblock(self, lps, x, aux, positions, g=L.no_gather, ep=None):
         """One pass over the pattern (layers ``lps``, one per position,
         each gathered by `g` first): (x, aux plus each MoE layer's aux,
         in layer order)."""
         lps = [g(lp, "blocks", f"pos{j}") for j, lp in enumerate(lps)]
         for j, lp in enumerate(lps):
-            x, a = self._block(lp, j, x, positions)
+            x, a = self._block(lp, j, x, positions, ep)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -231,6 +237,7 @@ class LM:
         gathers its layers again there.  Without remat the backward
         saves every gathered layer: correct, but no memory saved."""
         gather = L.current_gather()
+        ep = L.expert_shard(gather)
         if gather is None:
             params, g = (L.maybe_cast_params(params, self.compute_dtype),
                          L.no_gather)
@@ -248,9 +255,9 @@ class LM:
             lps = [layers[f"pos{j}"][i] for j in range(self._P)]
             if self.remat:
                 x, aux = checkpoint(self._superblock, lps, x, aux,
-                                    positions, g, use_reentrant=False)
+                                    positions, g, ep, use_reentrant=False)
             else:
-                x, aux = self._superblock(lps, x, aux, positions, g)
+                x, aux = self._superblock(lps, x, aux, positions, g, ep)
         x = self._norm(top["final_norm"], x)
         return L.head(top, x, self.cfg), aux
 
@@ -315,7 +322,8 @@ class LM:
         and the populated KV/SSM cache (KV length == prompt length; an
         SWA layer keeps its last `window` positions, position p at slot
         ``p % window``)."""
-        g = L.current_gather() or L.no_gather
+        gather = L.current_gather()
+        g, ep = gather or L.no_gather, L.expert_shard(gather)
         top = self._top(params, g)
         x = self._embed_batch(top, batch)
         positions = self._positions(batch)
@@ -327,7 +335,7 @@ class LM:
                 # the gathered layer lives for this call only
                 x, nc = self._prefill_layer(
                     g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
-                    positions)
+                    positions, ep)
                 for k, t in nc.items():
                     caches[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(top["final_norm"], x[:, -1:, :].contiguous())
@@ -336,7 +344,7 @@ class LM:
                  for p, leaves in caches.items()}
         return logits, cache
 
-    def _prefill_layer(self, lp, j: int, x, positions):
+    def _prefill_layer(self, lp, j: int, x, positions, ep=None):
         """One prefill layer: (x, its cache leaves)."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
@@ -351,7 +359,7 @@ class LM:
             o, hfin, nc = M.mamba_prefill(lp["mamba"], self.cfg, h,
                                           self.use_kernels)
             nc = {"h": hfin, **nc}
-        return self._ffn(lp, x + o)[0], nc
+        return self._ffn(lp, x + o, ep=ep)[0], nc
 
     def _window(self, j: int) -> int:
         """The attention window of pattern position j (0: none)."""
@@ -407,7 +415,8 @@ class LM:
                 if not 0 <= pos < S_c:
                     raise ValueError(f"decode position {pos} outside the "
                                      f"cache (length {S_c})")
-        g = L.current_gather() or L.no_gather
+        gather = L.current_gather()
+        g, ep = gather or L.no_gather, L.expert_shard(gather)
         top = self._top(params, g)
         x = self._embed(top, tokens)                         # (B, d)
         layers = self._layers(params)
@@ -416,11 +425,11 @@ class LM:
             for j in range(self._P):
                 x = self._decode_layer(
                     g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
-                    caches[f"pos{j}"][i], pos)
+                    caches[f"pos{j}"][i], pos, ep)
         x = self._norm(top["final_norm"], x)
         return L.head(top, x, self.cfg), cache
 
-    def _decode_layer(self, lp, j: int, x, lc, pos: int):
+    def _decode_layer(self, lp, j: int, x, lc, pos: int, ep=None):
         """One decode layer against its cache `lc`, written in place."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
@@ -428,4 +437,4 @@ class LM:
         else:
             o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
                                self.use_kernels)
-        return self._ffn(lp, x + o, dropless=True)[0]         # MoE: no drops
+        return self._ffn(lp, x + o, dropless=True, ep=ep)[0]  # no drops

@@ -9,10 +9,13 @@ reassembled and laid out for whatever mesh the replacement job brings up
 "resharded" topology mode; onto the image's own mesh each block is
 placed straight at its index ("identical").
 
-The port's meshes are grids of slots on one device
-(:mod:`repro_torch.launch.mesh`): the restored tensors are whole, and
-the target layout decides how they are placed and how the next image
-of the state is cut.
+On a mesh of slots on one device (:mod:`repro_torch.launch.mesh`) the
+restored tensors are whole, and the target layout decides how they are
+placed and how the next image of the state is cut.  On a process mesh
+(any ``(data, model)`` shape over the ranks of a group) each rank reads
+and places only its own block of the target layout, from the saved
+blocks that overlap it: an image of ``(2, 2)`` ranks restores onto
+``(4, 1)``, ``(2, 1)`` or one process, and back, bit-equal.
 """
 from __future__ import annotations
 

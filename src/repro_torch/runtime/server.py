@@ -20,18 +20,26 @@ sequence-sharded by the reference's rule, fitted to its shape), so
 images hold each tensor's blocks and a restore lays them out on this
 mesh; ``mesh=None`` writes every tensor whole.
 
-With a process mesh (one rank per card, ``data`` = the world size) the
-batch and the cache go over ``data``: each rank prefills and decodes its
-rows of the batch against its block of the cache (batch-sharded, the
-cache's ``cache_seq`` losing the contested axis by the policy's rule).
-A rank keeps only its ``d_model`` blocks of the params: each prefill and
-decode step runs the model under ``layers.gathering(param_gather(...))``,
-which gathers the top-level leaves once a call and each layer in the
-model's loop, so a rank holds one layer's whole weights at a time and no
-whole tree between steps (``gathered``: what the last call gathered).
-The tokens are gathered every step, so every rank holds the whole
-generation and rank 0's pack carries it in the decode cursor.  The
-global batch must divide over the ranks.
+With a process mesh (one rank per card, over ``(data, model)``; the
+launchers' ``data`` = the world size) the batch and the cache go over
+the policy's data-parallel axes (``dp``): each rank prefills and
+decodes the rows of the batch at its coordinate over them (the ranks of
+one coordinate, over ``model``, the same rows).  A rank computes its
+rows' attention whole, so it keeps its rows' cache whole, with no
+collective a token; an image holds the block the policy lays on the
+rank, cut from it when captured: its rows (batch-sharded, the cache's
+``cache_seq`` losing the contested axis by the policy's rule) and, over
+``model``, its share of ``kv_heads`` (or of the SSM heads), which a
+restore gathers back over the off-data axes.  A rank keeps
+only its blocks of the params: each prefill and decode step runs the
+model under ``layers.gathering(param_gather(...))``, which gathers the
+top-level leaves once a call and each layer in the model's loop (an
+expert leaf over the data axes alone: a rank computes its own experts,
+``models/moe.py``), so a rank holds one layer's weights at a time and
+no whole tree between steps (``gathered``: what the last call
+gathered).  The tokens are gathered over the ``dp`` axes every step, so
+every rank holds the whole generation and rank 0's pack carries it in
+the decode cursor.  The global batch must divide over the data size.
 """
 from __future__ import annotations
 
@@ -51,8 +59,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
 from repro_torch.models.layers import gathering
 from repro_torch.runtime.fault import SimulatedFailure
-from repro_torch.sharding import state_shardings
-from repro_torch.sharding.policy import (GATHERED, local_block, map_tree,
+from repro_torch.sharding import get_policy, state_shardings
+from repro_torch.sharding.policy import (GATHERED, block_of, gather_leaves,
+                                         local_block, map_tree,
                                          param_gather)
 
 
@@ -90,16 +99,30 @@ class DecodeServer:
         # the params' blocks (None at one rank: each block is whole)
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
-        self._gather = (param_gather(self._param_shardings)
-                        if self.ranks is not None else None)
+        self._gather = None
+        # the cache's mesh axes off the data axes (None: its block is
+        # its rows whole)
+        self._cache_axes = self._cache_sh = None
+        if self.ranks is not None:
+            # the policy's data-parallel axes split the batch: this
+            # rank's coordinate over them, and their ranks
+            dp = get_policy(policy or "baseline").dp
+            self._row = self.ranks.coord(dp)[0]
+            self._data = self.ranks.axis_group(dp)
+            self._gather = param_gather(self._param_shardings,
+                                        self.model.param_axes(), dp)
+            off = tuple(a for a in mesh.axis_names
+                        if a not in dp and mesh.shape[a] > 1)
+            self._cache_axes = off or None
         # what the last prefill or decode step gathered
         self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.session = CheckpointSession(run_dir, options,
                                          device=self.device, mesh=mesh)
         self._pending_cache_template = None   # lazy: cache still streaming
         self.session.attach(
-            lambda: {"serve_state": {"params": self.params,
-                                     "cache": self.cache}},
+            lambda: {"serve_state": {
+                "params": self.params,
+                "cache": self._cache_blocks(self.cache)}},
             self._shardings if mesh is not None else None)
         self.session.register_host_state(
             "decode_cursor",
@@ -153,15 +176,44 @@ class DecodeServer:
         """This rank's rows of a batch-major array (all of it alone)."""
         if self.ranks is None:
             return a
-        return local_rows({"a": a}, self.ranks.rank, self.ranks.world)["a"]
+        return local_rows({"a": a}, self._row, self._data.world)["a"]
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy next tokens of the whole batch from this rank's logits
         (gathered over the ranks)."""
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if self.ranks is not None:
-            nxt = torch.cat(self.ranks.group.all_gather(nxt))
+            nxt = torch.cat(self._data.all_gather(nxt))
         return nxt.cpu().numpy()
+
+    # ------------------------------------------------------------- cache
+    def _cache_shardings(self):
+        """The cache's shardings for this generation's batch (kept)."""
+        B = int(self.tokens.shape[0])
+        if self._cache_sh is None or self._cache_sh[0] != B:
+            self._cache_sh = (B, state_shardings(
+                self.model, self.mesh, self.policy, batch=B,
+                max_seq=self.max_seq)["cache"])
+        return self._cache_sh[1]
+
+    def _cache_rows(self, blocks):
+        """The cache of this rank's rows, whole over the off-data axes,
+        from its blocks `blocks` (a restored image's): gathered over
+        them (`blocks` itself when a block is its rows whole)."""
+        if self._cache_axes is None or blocks is None:
+            return blocks
+        return map_tree(lambda t, sh: gather_leaves(
+            [t], [sh], [self._cache_axes], count=False)[0],
+            blocks, self._cache_shardings())
+
+    def _cache_blocks(self, rows):
+        """This rank's blocks of its rows' cache `rows`, as the policy
+        lays them (e.g. ``kv_heads`` over ``model``): views of `rows`,
+        for an image (`rows` itself when a block is its rows whole)."""
+        if self._cache_axes is None or rows is None:
+            return rows
+        return map_tree(lambda t, sh: block_of(t, sh, self._cache_axes),
+                        rows, self._cache_shardings())
 
     # ------------------------------------------------------------- serving
     def start(self, batch: Dict[str, Any]) -> None:
@@ -303,21 +355,23 @@ class DecodeServer:
             if self.session.lazy_pending:
                 self._pending_cache_template = template["cache"]
             else:
-                self.cache = engine.retree(template["cache"], raw["cache"])
+                self.cache = self._cache_rows(
+                    engine.retree(template["cache"], raw["cache"]))
             return self.pos
         if template["params"] is None or template["cache"] is None:
             raw = self.session.restore(step=step,
                                        **self._layout())["serve_state"]
             template = self._boot_template(template)
             self.params = engine.retree(template["params"], raw["params"])
-            self.cache = engine.retree(template["cache"], raw["cache"])
+            self.cache = self._cache_rows(
+                engine.retree(template["cache"], raw["cache"]))
             return self.pos
         layout = self._layout()
         restored = self.session.restore_into(
             template, state="serve_state", step=step, mesh=layout["mesh"],
             shardings=(layout["shardings"] or {}).get("serve_state"))
         self.params = restored["params"]
-        self.cache = restored["cache"]
+        self.cache = self._cache_rows(restored["cache"])
         return self.pos
 
     def release(self) -> None:
@@ -334,5 +388,5 @@ class DecodeServer:
         template, self._pending_cache_template = \
             self._pending_cache_template, None
         full = self.session.restore_barrier()
-        self.cache = self.session.engine.retree(
-            template, full["serve_state"]["cache"])
+        self.cache = self._cache_rows(self.session.engine.retree(
+            template, full["serve_state"]["cache"]))

@@ -37,22 +37,32 @@ translated or resharded).  Compute is the same whole-tensor step either
 way; ``mesh=None`` writes every tensor whole.
 
 With a process mesh (``launch.mesh.ProcessMesh``, one rank per card,
-``data`` = the world size) the state is laid out as the reference's
-GSPMD lays it: each rank holds its block of every param and moment (the
-policy's ``d_model`` blocks over ``data``) and takes its rows of the
-global batch.  A step runs the model on the blocks under
-``layers.gathering(param_gather(...))``: the model gathers the top-level
-leaves once and each super-block's layers inside its remat unit
-(``sharding.policy.GatherLeaves``: one all-gather forward and one
-reduce-scatter backward for a layer's leaves), so the backward's
-recompute gathers each super-block again and a rank holds its blocks
-plus one super-block's whole weights, never a whole copy of the params.
-The loss on the rank's rows is weighted by its share of the global
-token count (so the grads summed over the ranks are those of the global
-mean); the grads that come back are the blocks' grads, already summed
-over the ranks, and update the blocks, the clip's norm all-reduced.  At
-one rank every block is its whole leaf and the model reads the blocks
-as they are.  With remat off the backward saves every gathered layer:
+over ``(data, model)``; the launchers' ``data`` = the world size) the
+state is laid out as the reference's GSPMD lays it: each rank holds its
+block of every param and moment (the policy's ``d_model`` blocks over
+``data``; heads, ``d_ff``, vocab and experts over ``model``) and takes
+the rows of the global batch at its coordinate over the policy's
+data-parallel axes (``dp``; the ranks of one coordinate, over
+``model``, take the same rows).  A step runs the model
+on the blocks under ``layers.gathering(param_gather(...))``: the model
+gathers the top-level leaves once and each super-block's layers inside
+its remat unit (``sharding.policy.GatherLeaves``: one all-gather forward
+and one reduce-scatter backward for a layer's leaves), so the
+backward's recompute gathers each super-block again and a rank holds
+its blocks plus one super-block's weights, never a whole copy of the
+params.  Dense leaves are gathered whole, and every rank of a data row
+computes the row's dense layers whole; expert leaves are gathered over
+the data axes alone, and a rank computes its own experts, the partial
+outputs summed over the model ranks (``models/moe.py``).  Each token's
+gradient is counted once: the loss on the rank's rows is weighted by
+its row's share of the global token count over the ranks per row
+(``|model|``), the gathers' backward sums over every rank that
+gathered, and the MoE's sum over the model ranks sums the grads back,
+as the transpose of the reference's ``psum`` does.  The grads that come
+back are the blocks' grads and update the blocks, the clip's norm
+counting each distinct block once (replica 0's) over the ranks.  At one
+rank every block is its whole leaf and the model reads the blocks as
+they are.  With remat off the backward saves every gathered layer:
 correct, but the rank then holds the whole params again.  The logged
 loss is the global mean; ``gathered`` holds what the last step gathered
 (``sharding.policy.GATHERED``: the peak of the live gathered bytes and
@@ -84,7 +94,7 @@ from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
                                        SimulatedFailure, StragglerMonitor)
-from repro_torch.sharding import state_shardings
+from repro_torch.sharding import get_policy, state_shardings
 from repro_torch.sharding.policy import (GATHERED, local_block, map_tree,
                                          param_gather)
 
@@ -164,9 +174,17 @@ class Trainer:
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
         if self.ranks is not None:
-            if tcfg.batch_size % self.ranks.world:
+            # the policy's data-parallel axes split the batch: this
+            # rank's data coordinate, their size and their ranks (its
+            # share of the tokens), and how many ranks compute each data
+            # row (the model axis)
+            dp = get_policy(policy or "baseline").dp
+            self._row, size = self.ranks.coord(dp)
+            if tcfg.batch_size % size:
                 raise ValueError(f"global batch {tcfg.batch_size} does not "
-                                 f"divide over {self.ranks.world} ranks")
+                                 f"divide over a data size of {size}")
+            self._data = self.ranks.axis_group(dp)
+            self._per_row = self.ranks.world // size
             # the leaves whose block this rank holds replica 0 of: the
             # clip's norm counts each block once over the ranks
             coord = self.ranks.local_coord
@@ -175,8 +193,10 @@ class Trainer:
                 for (k, a), sh in zip(
                     flatten_with_paths(self.model.init_abstract()).items(),
                     flatten_with_paths(self.shardings["params"]).values())}
-            # the model's gather (None at one rank: each block is whole)
-            self._gather = param_gather(self.shardings["params"])
+            # the model's gather (None at one rank: each block is whole),
+            # expert leaves over the data axes alone
+            self._gather = param_gather(
+                self.shardings["params"], self.model.param_axes(), dp)
         # what the last step gathered (0 without ranks, or at one)
         self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.params = None
@@ -229,14 +249,17 @@ class Trainer:
         weighted by the rank's token share, the model gathering each
         layer where it reads it and reduce-scattering its grads; a
         blockwise update."""
-        group = self.ranks.group
+        group, data = self.ranks.group, self._data
         ntok = {}
 
         def share(metrics):
+            # the data row's share of the global tokens, over the ranks
+            # that compute it: summed over every rank, each token counts
+            # once
             n = metrics["ntokens"].float()
             ntok["local"] = n.detach()
-            ntok["global"] = group.all_reduce(n.detach().clone())
-            return n.detach() / ntok["global"]
+            ntok["global"] = data.all_reduce(n.detach().clone())
+            return n.detach() / (ntok["global"] * self._per_row)
 
         GATHERED.begin()
         with gathering(self._gather):
@@ -252,8 +275,8 @@ class Trainer:
 
         _, _, om = self.opt.update(grads, self.opt_state, self.params,
                                    grad_sq=grad_sq)
-        if self.ranks.world > 1:
-            metrics["loss"] = group.all_reduce(
+        if data.world > 1:
+            metrics["loss"] = data.all_reduce(
                 metrics["loss"] * ntok["local"]) / ntok["global"]
             metrics["ntokens"] = ntok["global"]
         return {**metrics, **om}
@@ -331,7 +354,7 @@ class Trainer:
     def _batch(self) -> Dict[str, torch.Tensor]:
         batch = self.pipeline.next()
         if self.ranks is not None:
-            batch = local_rows(batch, self.ranks.rank, self.ranks.world)
+            batch = local_rows(batch, self._row, self._data.world)
         out = {k: torch.as_tensor(v).to(self.device)
                for k, v in batch.items()}
         out["tokens"] = out["tokens"].long()

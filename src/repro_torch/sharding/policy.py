@@ -15,15 +15,24 @@ its rank's block: :func:`local_block` cuts it from the whole,
 :func:`gather_leaf` rebuilds the whole from every rank's block and
 :func:`scatter_grad` sums a whole gradient over the ranks into each
 rank's block, by the same block arithmetic and the collectives of the
-mesh's group.  :class:`GatherLeaves` is the two as one differentiable
-op over a layer's leaves (one all-gather forward, one reduce-scatter
-backward), and :func:`param_gather` the models' ``gather``: a model
-calls it on each layer's params where it reads them (inside its remat
-unit, so the backward's recompute gathers again) and on the top-level
-leaves once a call, so a rank holds its blocks plus one super-block's
-whole weights, never a whole copy of the params (with remat off the
-backward saves every gathered layer: correct, but no saving).  :data:`GATHERED` counts
-the gathered bytes of a step or serving call.  The block arithmetic is
+mesh's group.  :func:`gather_leaves` and :func:`scatter_grads` do the
+same for many leaves at once and over any set of the mesh's axes (the
+subgroup of the ranks that share the other coordinates): a leaf
+gathered over ``data`` alone keeps its ``model`` block.  The backward's
+sum runs one axis at a time, so that every rank of a replicated block
+gets the same bytes.  :class:`GatherLeaves` is the two as one
+differentiable op over a layer's leaves (one all-gather forward and one
+reduce-scatter backward per axis set), and :func:`param_gather` the
+models' ``gather``: a model calls it on each layer's params where it
+reads them (inside its remat unit, so the backward's recompute gathers
+again) and on the top-level leaves once a call, so a rank holds its
+blocks plus one super-block's weights, never a whole copy of the params
+(with remat off the backward saves every gathered layer: correct, but
+no saving).  Dense leaves are gathered whole; expert leaves over the
+data axes alone, so that a rank holds its own experts whole and the MoE
+block runs expert-parallel (the gather carries its
+:class:`ExpertShard`).  :data:`GATHERED` counts the gathered bytes of a
+step or serving call.  The block arithmetic is
 JAX's: a dim sharded over the axes ``(a, b)`` is cut into ``|a|·|b|``
 equal blocks with ``a`` the major axis; a slot's replica id counts, in
 mesh order, the slots before it that hold the same block.  The
@@ -302,86 +311,219 @@ class GatherCounter:
 GATHERED = GatherCounter()
 
 
+def drop_axes(sharding: NamedSharding, axes) -> NamedSharding:
+    """`sharding` with the mesh axes `axes` taken off every dim: the
+    layout of a leaf gathered over them."""
+    return NamedSharding(sharding.mesh, PartitionSpec(*(
+        _spec_entry(tuple(a for a in _axes_of(e) if a not in axes))
+        for e in sharding.spec)))
+
+
+def _spec_entry(axes: Tuple[str, ...]):
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def gather_axes(mesh, axes=None) -> Optional[Tuple[str, ...]]:
+    """The mesh axes a gather over `axes` (None: every axis) runs over,
+    those of one slot left out; None when that is every rank."""
+    axes = mesh.axis_names if axes is None else tuple(axes)
+    key = tuple(a for a in mesh.axis_names
+                if a in axes and mesh.shape[a] > 1)
+    if key == tuple(a for a in mesh.axis_names if mesh.shape[a] > 1):
+        return None
+    return key
+
+
+class _Layout(collections.namedtuple(
+        "_Layout", "members shape index mine whole")):
+    """A leaf's gather over a set of mesh axes: the ranks that gather
+    together (`members`, rank order), the gathered tensor's `shape`, each
+    member's block as an index into it (`index`), this rank's position
+    in `members` (`mine`) and whether every member holds all of it
+    (`whole`: nothing to gather)."""
+
+
 @functools.lru_cache(maxsize=4096)
-def _rank_indices(sharding: NamedSharding, shape: Tuple[int, ...]
-                  ) -> Tuple[Tuple[slice, ...], ...]:
-    """Every rank's block of a `shape` tensor, in rank order (cached: a
-    model asks again for each layer at every call)."""
-    return tuple(rank_index(sharding, shape, r)
-                 for r in range(sharding.mesh.size))
+def _gather_layout(sharding: NamedSharding, shape: Tuple[int, ...],
+                   axes: Optional[Tuple[str, ...]]) -> _Layout:
+    """The :class:`_Layout` of a `shape` leaf sharded by `sharding`,
+    gathered over `axes` (:func:`gather_axes`; cached: a model asks
+    again for each layer at every call)."""
+    mesh = sharding.mesh
+    over = mesh.axis_names if axes is None else axes
+    members = [r for r in range(mesh.size)
+               if all(int(c) == int(m) for a, c, m in zip(
+                   mesh.axis_names,
+                   np.unravel_index(r, mesh.devices.shape),
+                   mesh.local_coord) if a not in over)]
+    target = drop_axes(sharding, over)
+    start = [a for a, _ in _index_key(rank_index(target, shape), shape)]
+    index = []
+    for r in members:
+        key = _index_key(rank_index(sharding, shape, r), shape)
+        index.append(tuple(slice(a - s0, b - s0)
+                           for (a, b), s0 in zip(key, start)))
+    tshape = target.shard_shape(shape)
+    return _Layout(tuple(members), tshape, tuple(index),
+                   members.index(mesh.rank),
+                   all(_whole(i, tshape) for i in index))
 
 
-def gather_leaves(ts, shardings) -> List[torch.Tensor]:
-    """:func:`gather_leaf` of every block of `ts` (one sharding each) by
-    one all-gather per dtype: the blocks laid end to end, each rank's
-    part placed at its indices.  A leaf every rank holds whole is `t`
-    itself.  The receive buffers live for the call only."""
+def gather_leaves(ts, shardings, axes, count: bool = True
+                  ) -> List[torch.Tensor]:
+    """:func:`gather_leaf` of every block of `ts` (one sharding each),
+    each over the mesh axes of `axes` (one entry a leaf, None: every
+    axis; :func:`gather_axes`), by one all-gather per dtype and axis set:
+    the blocks laid end to end, each rank's part placed at its indices.
+    A leaf gathered over axes it is not split on is `t` itself.  The
+    receive buffers live for the call only.  `count`: add the gathered
+    tensors to :data:`GATHERED` (a param's; not a cache's)."""
     out = list(ts)
     todo: Dict[Any, list] = collections.defaultdict(list)
     for i, (t, sh) in enumerate(zip(ts, shardings)):
-        shape = global_shape(sh, tuple(t.shape))
-        idx = _rank_indices(sh, shape)
-        if not _whole(idx[sh.mesh.rank], shape):
-            todo[t.dtype].append((i, shape, idx))
-    for members in todo.values():
-        group = shardings[members[0][0]].mesh.group
-        parts = group.all_gather(torch.cat([ts[i].reshape(-1)
-                                            for i, _, _ in members]))
+        ax = gather_axes(sh.mesh, axes[i])
+        lay = _gather_layout(sh, global_shape(sh, tuple(t.shape)), ax)
+        if not lay.whole:
+            todo[(t.dtype, ax)].append((i, lay))
+    for (_, ax), members in todo.items():
+        mesh = shardings[members[0][0]].mesh
+        parts = _group(mesh, ax).all_gather(
+            torch.cat([ts[i].reshape(-1) for i, _ in members]))
         off = 0
-        for i, shape, idx in members:
+        for i, lay in members:
             t, n = ts[i], ts[i].numel()
-            whole = t.new_empty(shape)
+            whole = t.new_empty(lay.shape)
             for r, part in enumerate(parts):
-                whole[idx[r]] = part[off:off + n].view(t.shape)
+                whole[lay.index[r]] = part[off:off + n].view(t.shape)
             off += n
-            GATHERED.add(whole)
+            if count:
+                GATHERED.add(whole)
             out[i] = whole
     return out
 
 
-def scatter_grads(gs, shardings) -> List[torch.Tensor]:
-    """:func:`scatter_grad` of every whole grad of `gs` by one
-    reduce-scatter per dtype: the ranks' blocks of every grad laid end to
-    end in rank order.  A leaf every rank holds whole puts its whole grad
-    in each rank's part, so its block is the all-reduce."""
+def scatter_grads(gs, shardings, axes) -> List[torch.Tensor]:
+    """:func:`scatter_grad` of every gathered grad of `gs`, each summed
+    over the ranks it was gathered from (`axes` as for
+    :func:`gather_leaves`) into this rank's block.  The sum runs one
+    mesh axis at a time, the last first, over that axis's subgroup: per
+    dtype and axis set, one reduce-scatter of the pieces of every grad
+    split over the axis, laid end to end in rank order, and one
+    all-reduce of those of the grads not split over it (their ranks hold
+    one block), so that every rank of a block gets the same bytes.  On a
+    ``(data, model)`` mesh the ranks of a data row add their shares
+    first, then the rows are added, as one rank a row would."""
     out: List[Any] = [None] * len(gs)
     todo: Dict[Any, list] = collections.defaultdict(list)
-    for i, g in enumerate(gs):
-        todo[g.dtype].append(i)
-    for members in todo.values():
+    for i, (g, sh) in enumerate(zip(gs, shardings)):
+        ax = gather_axes(sh.mesh, axes[i])
+        todo[(g.dtype, ax)].append(i)
+    for (_, ax), members in todo.items():
         mesh = shardings[members[0]].mesh
-        idx = {i: _rank_indices(shardings[i], tuple(gs[i].shape))
-               for i in members}
-        mine = mesh.group.reduce_scatter(torch.cat([
-            gs[i][idx[i][r]].reshape(-1)
-            for r in range(mesh.size) for i in members]))
-        off = 0
+        rem = [a for a in mesh.axis_names if mesh.shape[a] > 1
+               and (ax is None or a in ax)]
+        held = {}                     # leaf -> {coords over rem: piece}
         for i in members:
-            shape = shardings[i].shard_shape(tuple(gs[i].shape))
-            n = math.prod(shape)
-            out[i] = mine[off:off + n].view(shape)
-            off += n
+            shape = _gathered_shape(shardings[i], tuple(gs[i].shape), ax)
+            lay = _gather_layout(shardings[i], shape, ax)
+            held[i] = {_coords(mesh, r, rem): gs[i][idx]
+                       for r, idx in zip(lay.members, lay.index)}
+        for x in reversed(list(rem)):
+            k, at = mesh.shape[x], rem.index(x)
+            mine = dict(zip(mesh.axis_names, mesh.local_coord))[x]
+            rem = rem[:at] + rem[at + 1:]
+            keys = sorted({c[:at] + c[at + 1:] for c in held[members[0]]})
+
+            def piece(i, c, j):
+                return held[i][c[:at] + (j,) + c[at:]]
+            split = [i for i in members if x in _spec_axes(shardings[i])]
+            whole = [i for i in members if i not in split]
+            group = mesh.axis_group((x,))
+            new = {i: {} for i in members}
+            if split:
+                summed = group.reduce_scatter(torch.cat([
+                    piece(i, c, j).reshape(-1) for j in range(k)
+                    for i in split for c in keys]))
+                _unpack(summed, split, keys, held, new,
+                        lambda i, c: piece(i, c, mine))
+            if whole:
+                summed = group.all_reduce(torch.cat([
+                    piece(i, c, mine).reshape(-1)
+                    for i in whole for c in keys]))
+                _unpack(summed, whole, keys, held, new,
+                        lambda i, c: piece(i, c, mine))
+            held = new
+        for i in members:
+            out[i] = held[i][()]
     return out
 
 
+def _coords(mesh, rank: int, axes) -> Tuple[int, ...]:
+    """`rank`'s coordinates on the mesh axes `axes`."""
+    pos = dict(zip(mesh.axis_names, (int(c) for c in np.unravel_index(
+        rank, mesh.devices.shape))))
+    return tuple(pos[a] for a in axes)
+
+
+def _spec_axes(sharding: NamedSharding) -> set:
+    return {a for e in sharding.spec for a in _axes_of(e)}
+
+
+def _unpack(flat, leaves, keys, held, new, like) -> None:
+    """Cut `flat` (the pieces of `leaves` at `keys`, in that order) back
+    into pieces shaped as `like(i, key)`, into `new`."""
+    off = 0
+    for i in leaves:
+        for c in keys:
+            shape = tuple(like(i, c).shape)
+            n = math.prod(shape)
+            new[i][c] = flat[off:off + n].view(shape)
+            off += n
+
+
+def block_of(t, sharding: NamedSharding, axes) -> torch.Tensor:
+    """This rank's block of `t`, its leaf gathered over the mesh axes
+    `axes` (:func:`gather_leaves`'s inverse): a view of `t`."""
+    ax = gather_axes(sharding.mesh, axes)
+    lay = _gather_layout(sharding, _gathered_shape(sharding, tuple(t.shape),
+                                                   ax), ax)
+    return t[lay.index[lay.mine]]
+
+
+def _group(mesh, axes: Optional[Tuple[str, ...]]):
+    """This rank's group over `axes` (None: every rank)."""
+    return mesh.axis_group(mesh.axis_names if axes is None else axes)
+
+
+def _gathered_shape(sharding: NamedSharding, shape: Tuple[int, ...],
+                    axes: Optional[Tuple[str, ...]]) -> Tuple[int, ...]:
+    """The whole leaf's shape from the shape of its gather over `axes`."""
+    over = sharding.mesh.axis_names if axes is None else axes
+    kept = drop_axes(sharding, over)
+    sizes = sharding.mesh.shape
+    return tuple(int(n) * math.prod(sizes[a] for a in ax)
+                 for n, ax in zip(shape, kept._dim_axes(len(shape))))
+
+
 class GatherLeaves(torch.autograd.Function):
-    """:func:`gather_leaves` with a gradient: ``apply(shardings,
-    *blocks)`` all-gathers the blocks into their whole tensors, and the
-    backward sums the whole tensors' grads over the ranks into the
-    blocks (:func:`scatter_grads`): one collective each way for a layer.
-    Gather f32 blocks and cast after: a leaf read twice (the tied
-    embedding) must be gathered once, so that autograd sums its grads on
-    the whole tensor before the one reduce-scatter."""
+    """:func:`gather_leaves` with a gradient: ``apply((shardings, axes),
+    *blocks)`` all-gathers the blocks over their axes (`axes`: one entry
+    a leaf, None for every axis), and the backward sums the gathered
+    tensors' grads over the same ranks into the blocks
+    (:func:`scatter_grads`): one collective each way for a layer and
+    axis set.  Gather f32 blocks and cast after: a leaf read twice (the
+    tied embedding) must be gathered once, so that autograd sums its
+    grads on the gathered tensor before the one reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, shardings, *blocks):
-        ctx.shardings = shardings
+    def forward(ctx, plan, *blocks):
+        ctx.plan = plan
         return tuple(w.view_as(w) if w is t else w for w, t in
-                     zip(gather_leaves(blocks, shardings), blocks))
+                     zip(gather_leaves(blocks, *plan), blocks))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *scatter_grads(grads, ctx.shardings))
+        return (None, *scatter_grads(grads, *ctx.plan))
 
 
 def _leaves(tree) -> list:
@@ -413,31 +555,108 @@ def layer_sharding(sharding: NamedSharding, ndim: int) -> NamedSharding:
     return NamedSharding(sharding.mesh, PartitionSpec(*spec[1:]))
 
 
-def param_gather(shardings):
-    """The models' ``gather`` over a process mesh, `shardings` the
-    params' named shardings: ``gather(tree, *path)`` is the whole of
-    `tree`, the rank's blocks of the params' subtree at `path` (the keys
-    from the root) or of one layer of it, by one :class:`GatherLeaves`
-    with each leaf's sharding (:func:`layer_sharding`).  None on a mesh
-    of one slot, where every block is its whole leaf."""
-    first = shardings
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    if first.mesh.size == 1:
-        return None
-    plans: Dict[Tuple[str, ...], list] = {}    # path -> leaf shardings
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """Where a rank's MoE block stands on a process mesh: the ranks that
+    split the experts (`group`, over the experts dim's mesh axes; None
+    when one rank holds them all), this rank's `index` of their expert
+    ranges, and the data-parallel ranks (`data`, None at one) over which
+    the aux loss is averaged."""
+    group: Any
+    index: int
+    data: Any
 
-    def gather(tree, *path):
-        plan = plans.get(path)
+
+class ParamGather:
+    """The models' ``gather`` over a process mesh (:func:`param_gather`):
+    ``gather(tree, *path)`` is the gathered `tree`, a rank's blocks of
+    the params' subtree at `path` (keys from the root) or of one layer
+    of it, by one :class:`GatherLeaves`; ``experts`` is the MoE block's
+    :class:`ExpertShard` (None without experts)."""
+
+    def __init__(self, shardings, logical, dp):
+        self.shardings = shardings
+        # each leaf's gather axes (None: every axis)
+        self.axes = map_tree(_leaf_gather_axes, shardings, logical)
+        self.plans: Dict[Tuple[str, ...], tuple] = {}
+        self.experts = None
+        mesh = _first(shardings).mesh
+        for sh, ax in zip(_leaves(shardings), _leaves(logical)):
+            ep = _expert_axes(sh, ax)
+            if ep is None:
+                continue
+            ep = tuple(a for a in ep if mesh.shape[a] > 1)
+            index, size = mesh.coord(ep)
+            dp_axes = tuple(a for a in dp if a in mesh.axis_names
+                            and mesh.shape[a] > 1)
+            if set(ep) & set(dp_axes):
+                # the model ranks would hold different tokens, and the
+                # sum of their partial outputs would mix them
+                raise ValueError(
+                    f"the experts' mesh axes {ep} also split the batch "
+                    f"(data-parallel axes {dp_axes}): expert parallelism "
+                    f"needs each rank of an expert group to hold the "
+                    f"same rows")
+            self.experts = ExpertShard(
+                mesh.axis_group(ep) if size > 1 else None, index,
+                mesh.axis_group(dp_axes) if dp_axes else None)
+            break
+
+    def __call__(self, tree, *path):
+        plan = self.plans.get(path)
         if plan is None:
-            sh = shardings
+            sh, ax = self.shardings, self.axes
             for k in path:
-                sh = sh[k]
-            plan = plans[path] = _leaves(map_tree(
-                lambda t, s: layer_sharding(s, t.ndim), tree, sh))
+                sh, ax = sh[k], ax[k]
+            pairs = _leaves(map_tree(
+                lambda t, s, a: (layer_sharding(s, t.ndim), a), tree, sh, ax))
+            plan = self.plans[path] = ([p for p, _ in pairs],
+                                       [a for _, a in pairs])
         return _rebuild(tree, iter(GatherLeaves.apply(plan,
                                                       *_leaves(tree))))
-    return gather
+
+
+def _first(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _expert_axes(sharding: NamedSharding, logical) -> Optional[Tuple[str,
+                                                                     ...]]:
+    """The mesh axes of an expert leaf's experts dim (logical axes with
+    ``"experts"``), or None for any other leaf."""
+    if not isinstance(logical, tuple) or "experts" not in logical:
+        return None
+    d = logical.index("experts")
+    spec = tuple(sharding.spec)
+    return _axes_of(spec[d]) if d < len(spec) else ()
+
+
+def _leaf_gather_axes(sharding: NamedSharding, logical
+                      ) -> Optional[Tuple[str, ...]]:
+    """The axes a leaf is gathered over: every axis (None), or for an
+    expert leaf every axis but its experts dim's, so that a rank holds
+    its own experts whole (the reference's FSDP gather of its local
+    experts, ``src/repro/models/moe.py:59-63``)."""
+    ep = _expert_axes(sharding, logical)
+    if not ep:
+        return None
+    return tuple(a for a in sharding.mesh.axis_names if a not in ep)
+
+
+def param_gather(shardings, logical, dp):
+    """The models' ``gather`` over a process mesh, `shardings` the
+    params' named shardings, `logical` their logical axes (the model's
+    ``param_axes()``: expert leaves are gathered over every axis but
+    their experts dim's, and the gather carries the MoE block's
+    :class:`ExpertShard`), `dp` the policy's data-parallel axes (the
+    ranks that split the batch: the aux loss is averaged over them): a
+    :class:`ParamGather`.  None on a mesh of one slot, where every block
+    is its whole leaf."""
+    if _first(shardings).mesh.size == 1:
+        return None
+    return ParamGather(shardings, logical, dp)
 
 
 def _mesh_coords(mesh) -> List[Tuple[int, ...]]:

@@ -283,4 +283,5 @@ def test_one_rank_has_nothing_to_gather():
     group = Group(0, 1, torch.device("cpu"), "gloo")   # no collective runs
     mesh = make_host_mesh(data=1, model=1, device="cpu", group=group)
     model = build_model(get_smoke_config(SERVE_ARCH), device="cpu")
-    assert param_gather(state_shardings(model, mesh)["params"]) is None
+    assert param_gather(state_shardings(model, mesh)["params"],
+                        model.param_axes(), ("pod", "data")) is None
