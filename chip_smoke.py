@@ -372,8 +372,10 @@ ATTN_SLICE = (4, 512, 512, 16, 16, 64, True, 0)   # qwen1.5-0.5b prefill
 ATTN_LONG = (1, 4096, 4096, 40, 10, 128, True, 0)
 NORM_SLICE = (2048, 1024)                          # prefill rows x d_model
 NORM_DESIGN_SHAPE = (2048, 5120)                   # mamba2's gated norm
-# both RMSNorm designs, timed in turns: mamba2's block and gated norms
-NORM_DESIGN_SHAPES = [(2048, 2560), NORM_DESIGN_SHAPE]
+# both RMSNorm designs, timed in turns: mamba2's block and gated norms,
+# and deepseek-coder-33b's prefill rows (d 7168: wider than SPLIT_MAX_D,
+# and 29.4 MB, more than half of L2, so the module takes "split")
+NORM_DESIGN_SHAPES = [(2048, 2560), NORM_DESIGN_SHAPE, (2048, 7168)]
 # qwen1.5 block norms (prefill, decode), odd widths, then mamba2's block
 # norms (d_model 2560) and gated norms (d_inner 5120)
 NORM_CASES = [(2048, 1024), (4, 1024), (21, 96), (1, 384), (130, 384),
@@ -399,21 +401,27 @@ SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
 SSD_H_TOL = 1e-4
 # the decoder zoo's serving shapes (bf16, phase 2b): flash attention at
 # h2o-danube's prefill (hd 80, the window of 4096 binding at S = 4608),
-# qwen3-moe-30b's (hd 128, 32 query heads over 4), jamba's and
-# qwen3-moe-235b's (64 query heads over 4: a GQA group of 16); the SSD
-# scan at jamba's (nh 128, P 64, N 16); RMSNorm at each path's prefill
-# rows x d_model, qwen3-moe's and jamba's decode rows (the one-row
-# design; danube's (2, 2560) is that of (4, 2560) above), jamba's gated
-# norm (d_inner 8192) at prefill and decode, and qwen3-moe-235b's q-norm
-# rows (4 x 512 tokens x 64 heads, hd 128; its k-norm rows, 8192 x 128,
-# are TRAIN_NORM's)
+# qwen3-moe-30b's (hd 128, 32 query heads over 4), jamba's,
+# qwen3-moe-235b's (64 query heads over 4: a GQA group of 16),
+# phi3-medium-14b's (40 over 10: a group of 4) and deepseek-coder-33b's
+# (56 over 8: a group of 7); the SSD scan at jamba's (nh 128, P 64, N
+# 16); RMSNorm at each path's prefill rows x d_model, qwen3-moe's and
+# jamba's decode rows (the one-row design; danube's (2, 2560) is that of
+# (4, 2560) above), jamba's gated norm (d_inner 8192) at prefill and
+# decode, qwen3-moe-235b's q-norm rows (4 x 512 tokens x 64 heads, hd
+# 128; its k-norm rows, 8192 x 128, are TRAIN_NORM's) and
+# deepseek-coder-33b's rows at prefill and decode (d 7168; phi3-medium's
+# d 5120 rows are NORM_CASES')
 ZOO_ATTN = [(2, 4608, 4608, 32, 8, 80, True, 4096),
             (4, 512, 512, 32, 4, 128, True, 0),
             (2, 1024, 1024, 32, 8, 128, True, 0),
-            (4, 512, 512, 64, 4, 128, True, 0)]
+            (4, 512, 512, 64, 4, 128, True, 0),
+            (4, 512, 512, 40, 10, 128, True, 0),
+            (4, 512, 512, 56, 8, 128, True, 0)]
 ZOO_SSD = [(2, 1024, 128, 64, 16, 128)]
 ZOO_NORM = [(9216, 2560), (2048, 2048), (2048, 4096), (2048, 8192),
-            (4, 2048), (2, 4096), (2, 8192), (131072, 128)]
+            (4, 2048), (2, 4096), (2, 8192), (131072, 128), (2048, 7168),
+            (4, 7168)]
 # the shapes of phase 2c (bf16): flash attention at whisper-tiny's encoder
 # (non-causal over 1500 frames, not a multiple of the key tile), at its
 # prefill cross-attention (4 prompt tokens against 1500 frames: one query
@@ -583,7 +591,7 @@ def rmsnorm_case(shape, dtype, gen):
     b_ms, b_by = bound(nbytes, 4.0 * x.numel(), torch.float32)
     sx = s.to(dtype)
     return {
-        "ok": ok, "max_abs_err": err,
+        "ok": ok, "max_abs_err": err, "variant": rn.design_for(x),
         "ms": cuda_ms(lambda: rn.rmsnorm(x, s)),
         "plain_ms": cuda_ms(lambda: rn.rmsnorm_plain(x, s)),
         "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), sx, eps=1e-5)),
@@ -735,7 +743,7 @@ def path_shape_cases(rows: dict, gen) -> list:
             rows[group][name] = []
             for case in cases:
                 r = case_fn(case, torch.bfloat16, gen)
-                variant = r.get("variant", "triton")
+                variant = r["variant"]
                 lib = r["library_ms"]
                 log(f"[kernels] {name} ({variant}) {group} {case} bf16: "
                     f"ok={r['ok']} err={r['max_abs_err']:.3g} "
@@ -795,7 +803,8 @@ def phase_kernels(seed: int) -> dict:
                 rows[f"flash_attention/{r['variant']}"] = r
         for shape in NORM_CASES:
             r = rmsnorm_case(shape, dtype, gen)
-            log(f"[kernels] rmsnorm {shape} {dtype}: ok={r['ok']} "
+            log(f"[kernels] rmsnorm ({r['variant']}) {shape} {dtype}: "
+                f"ok={r['ok']} "
                 f"err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                 f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
                 f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
@@ -1357,7 +1366,11 @@ def profile_serving(model, params, batch, dev,
 # prompt of 4608 puts the window (4096) inside the prefill and wraps the
 # ring in decode.  qwen3-moe-235b-a22b at 1 of its 94 layers: one layer's
 # experts are 2.42 B params, the embedding and head 1.24 B, 7.5 GB of
-# bf16 in all (serving, not training, fits one card: ROADMAP A.13.5).  As
+# bf16 in all (serving, not training, fits one card: ROADMAP A.13.5).
+# phi3-medium-14b and deepseek-coder-33b (dense, untied head, no QKV
+# bias) at 4 of their 40 and 62 layers in bf16: 2.39 B and 2.58 B
+# params, images of ~4.8 and ~5.2 GB, cut for the run's time (their
+# images' write and cold restore).  As
 # for mamba2, the logit check keeps 4 layers (qwen3-moe-30b its 2,
 # 235b its 1) where many random layers carry both bf16 paths O(1) logits
 # away from f32, so that a wrong kernel would not show; jamba keeps its
@@ -1371,6 +1384,10 @@ ZOO_PATHS = (
      ("flash_attention", "rmsnorm", "ssd_scan"), None),
     ("qwen3-moe-235b-a22b", 1, "bfloat16", 4, 512, 576, 32,
      ("flash_attention", "rmsnorm"), 1),
+    ("phi3-medium-14b", 4, "bfloat16", 4, 512, 576, 32,
+     ("flash_attention", "rmsnorm"), 4),
+    ("deepseek-coder-33b", 4, "bfloat16", 4, 512, 576, 32,
+     ("flash_attention", "rmsnorm"), 4),
 )
 
 

@@ -145,6 +145,17 @@ def _props(device: torch.device):
     return props
 
 
+def design_for(x: torch.Tensor) -> str:
+    """The design ``rmsnorm`` takes for `x` (CUDA) when none is asked for:
+    "chunked" for rows wider than SPLIT_MAX_D when there are more rows
+    than SMs and x fits in half of L2, else "split"."""
+    d = x.shape[-1]
+    props = _props(x.device)
+    wide = (d > SPLIT_MAX_D and x.numel() // d > props.multi_processor_count
+            and 2 * x.numel() * x.element_size() <= props.L2_cache_size)
+    return "chunked" if wide else "split"
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
             design: Optional[str] = None) -> torch.Tensor:
     """Launch the Triton kernel (``design`` None: chosen by the row's width
@@ -166,10 +177,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     x2 = x.reshape(-1, d)
     rows = x2.shape[0]
     if design is None:
-        props = _props(x.device)
-        wide = (d > SPLIT_MAX_D and rows > props.multi_processor_count
-                and 2 * x.numel() * x.element_size() <= props.L2_cache_size)
-        design = "chunked" if wide else "split"
+        design = design_for(x2)
     if design not in DESIGNS:
         raise ValueError(f"rmsnorm: design {design!r} not in {DESIGNS}")
     kernel = _kernels()[design]

@@ -51,7 +51,7 @@ experts bit for bit, with and without dropped tokens.
 
 One JAX subprocess and one 4-rank launch (each rank one torch thread)
 run beside each other; then a second JAX subprocess restores the port's
-image.  Each is bounded by a timeout.
+image.  Each is bounded by a timeout from its own start.
 """
 import json
 import os
@@ -76,7 +76,10 @@ ARCHS = ("qwen3-moe-30b-a3b", "qwen1.5-0.5b")
 STEPS = 3
 #: serving: batch, prompt, cache, tokens, the snapshot's token
 SB, SS, MAX_SEQ, TOKENS, AT = 4, 8, 32, 6, 3
-TIMEOUT_S = 200
+#: per subprocess, from its own start: under the tier-1 command (six
+#: xdist workers, --dist loadfile) the 4-rank launch ran 143 s and the
+#: JAX subprocesses 138 and 19 s; twice the longest
+TIMEOUT_S = 300
 BARRIER_S = 60.0
 
 _COMMON = f"STEPS, SB, SS, MAX_SEQ, TOKENS, AT = {STEPS}, {SB}, {SS}, " \
@@ -372,15 +375,18 @@ def _env(extra=None):
 
 
 def _start(argv, env=None):
-    return subprocess.Popen([sys.executable, *argv], env=env or _env(),
+    """A started subprocess, with its own deadline: TIMEOUT_S from now."""
+    proc = subprocess.Popen([sys.executable, *argv], env=env or _env(),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, cwd=REPO)
+    proc.deadline = time.monotonic() + TIMEOUT_S
+    return proc
 
 
-def _finish(proc, deadline):
+def _finish(proc):
     try:
         out, err = proc.communicate(
-            timeout=max(deadline - time.monotonic(), 1.0))
+            timeout=max(proc.deadline - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
         proc.kill()
         out, err = proc.communicate()
@@ -395,17 +401,16 @@ def runs(tmp_path_factory):
     image; the ranks' reports and the root."""
     root = tmp_path_factory.mktemp("dist_ep")
     (root / "ep_ranks.py").write_text(_RANKS)
-    deadline = time.monotonic() + TIMEOUT_S
     jax = _start(["-c", _JAX, str(root), *ARCHS])
     code = ("import sys\nfrom repro_torch.launch import dist\n"
             f"sys.exit(dist.launch('ep_ranks:main', "
             f"{[str(root), *ARCHS]!r}, 4, 'cpu', {str(root)!r}, "
             f"{BARRIER_S!r}))")
     port = _start(["-c", code], _env([str(root)]))
-    assert "JAX_OK" in _finish(jax, deadline)
-    _finish(port, deadline)
+    assert "JAX_OK" in _finish(jax)
+    _finish(port)
     assert "JAX_OK" in _finish(_start(["-c", _JAX_RESTORE, str(root),
-                                       *ARCHS]), deadline)
+                                       *ARCHS]))
     with open(root / "reports.json") as f:
         return {"root": root, "reports": json.load(f)}
 

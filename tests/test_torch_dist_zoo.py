@@ -33,7 +33,7 @@ JAX's within rtol 1e-4.
 JAX runs in three subprocesses with 2 host devices (jamba's 2-device and
 1-device runs apart: its compile is the longest); each port run starts as soon as its arch's
 step-0 image is written, at most PARALLEL runs at once.  Every subprocess has one
-torch thread per rank and is bounded by a timeout.
+torch thread per rank and is bounded by a timeout from its own start.
 """
 import json
 import os
@@ -62,8 +62,12 @@ OVERRIDES = {JAMBA: {"ssm_chunk": 4}}
 #: test files' workers share the host's cores
 PARALLEL = 2
 STEPS = 6
-TIMEOUT_S = 170          # per subprocess; the ranks' own deadline is far
-BARRIER_S = 30           # below it (the group's timeout)
+#: per subprocess, from its own start; the ranks' own deadline is far
+#: below it (BARRIER_S, the group's timeout).  Under the tier-1 command
+#: (six xdist workers, --dist loadfile) JAX's jamba 2-device process took
+#: up to 199 s (95 s with nothing beside it): twice that
+TIMEOUT_S = 400
+BARRIER_S = 30
 
 
 def _env(extra=None):
@@ -74,17 +78,20 @@ def _env(extra=None):
 
 
 def _start(argv, env=None):
-    return subprocess.Popen([sys.executable, *argv], env=env or _env(),
+    """A started subprocess, with its own deadline: TIMEOUT_S from now."""
+    proc = subprocess.Popen([sys.executable, *argv], env=env or _env(),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, cwd=REPO)
+    proc.deadline = time.monotonic() + TIMEOUT_S
+    return proc
 
 
-def _finish(proc, deadline):
-    """(exit code, stdout, stderr) of a started process, killed past the
-    monotonic `deadline`."""
+def _finish(proc):
+    """(exit code, stdout, stderr) of a started process, killed past its
+    own deadline."""
     try:
         out, err = proc.communicate(
-            timeout=max(deadline - time.monotonic(), 1.0))
+            timeout=max(proc.deadline - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
         proc.kill()
         out, err = proc.communicate()
@@ -212,7 +219,6 @@ def runs(tmp_path_factory):
     there; {arch: (exit code, stdout, stderr)} and the root."""
     root = tmp_path_factory.mktemp("dist_zoo")
     (root / "dist_zoo.py").write_text(_TARGET)
-    deadline = time.monotonic() + TIMEOUT_S
     rest = [a for a in ARCHS if a != JAMBA]
     over = json.dumps(OVERRIDES)
     jax = [_start(["-c", _JAX_TRAIN, str(root), "two", over, JAMBA]),
@@ -226,15 +232,16 @@ def runs(tmp_path_factory):
                 port[arch] = _launch_port(root, arch)
         for arch, p in port.items():
             if arch not in res and p.poll() is not None:
-                res[arch] = _finish(p, deadline)
-        if any(p.poll() not in (None, 0) for p in jax) or \
-                time.monotonic() > deadline:
+                res[arch] = _finish(p)
+        if any(p.poll() not in (None, 0) for p in jax) or any(
+                p.poll() is None and time.monotonic() > p.deadline
+                for p in [*jax, *port.values()]):
             break
         time.sleep(0.2)
-    res["jax"] = [_finish(p, deadline) for p in jax]
+    res["jax"] = [_finish(p) for p in jax]
     for arch, p in port.items():
         if arch not in res:
-            res[arch] = _finish(p, deadline)
+            res[arch] = _finish(p)
     res["root"] = root
     return res
 

@@ -1,6 +1,8 @@
 """The decoder model zoo in the port, held against the JAX package on the
 CPU: sliding-window attention (h2o-danube), the Mamba/attention hybrid
-with MoE (jamba) and MoE with q/k-norm (both qwen3-moe configs).
+with MoE (jamba), MoE with q/k-norm (both qwen3-moe configs) and the
+dense GQA arches with an untied head (phi3-medium, deepseek-coder, the
+latter also at its GQA group of 7).
 
 Same numpy params (``params_from_numpy``) and tokens into both packages,
 f32, smoke configs: logits, loss and the MoE aux loss to 1e-3; every grad
@@ -33,7 +35,10 @@ from repro_torch.models.lm import LM
 from repro_torch.runtime.trainer import loss_and_grads
 
 ZOO = ["h2o-danube-1.8b", "jamba-v0.1-52b", "qwen3-moe-30b-a3b",
-       "qwen3-moe-235b-a22b"]
+       "qwen3-moe-235b-a22b", "phi3-medium-14b", "deepseek-coder-33b"]
+#: the smoke configs keep 4 query heads over 2; deepseek-coder-33b's
+#: published GQA group of 7 (56 over 8) at the smoke width
+GQA7 = dict(num_heads=14, num_kv_heads=2)
 POLICY = get_policy("baseline")
 TOL = dict(rtol=1e-3, atol=1e-3)
 
@@ -179,6 +184,30 @@ def test_prefill_decode_matches_forward_and_jax(arch):
     ljd, _ = jm.decode_step(jp, cj, jnp.asarray(toks[:, S]), jnp.int32(S))
     np.testing.assert_allclose(ld.numpy(), full[:, S].detach().numpy(),
                                rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ld.numpy()[:, :V], np.asarray(ljd)[:, :V],
+                               **TOL)
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "deepseek-coder-33b"])
+def test_gqa_group_of_seven_matches_jax(arch):
+    """The smoke config at a GQA group of 7 (``GQA7``, in both packages):
+    forward logits, then prefill + decode against the JAX prefill and
+    decode step."""
+    jm, jp, tm, tp = _models(arch, **GQA7)
+    assert tm.cfg.num_heads // tm.cfg.num_kv_heads == 7
+    V, S = tm.cfg.vocab_size, 24
+    toks = _tokens(arch, S=S + 1, seed=3)
+    lt = tm.forward(tp, {"tokens": torch.as_tensor(toks).long()})
+    lj = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(lt.detach().numpy()[..., :V],
+                               np.asarray(lj)[..., :V], **TOL)
+    pt, ct = tm.prefill(tp, {"tokens": torch.as_tensor(toks[:, :S]).long()})
+    pj, cj = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])})
+    np.testing.assert_allclose(pt.numpy()[:, :V], np.asarray(pj)[:, :V],
+                               **TOL)
+    ct, cj = _pad(ct, S, 8, _pad_torch), _pad(cj, S, 8, _pad_jax)
+    ld, _ = tm.decode_step(tp, ct, torch.as_tensor(toks[:, S]).long(), S)
+    ljd, _ = jm.decode_step(jp, cj, jnp.asarray(toks[:, S]), jnp.int32(S))
     np.testing.assert_allclose(ld.numpy()[:, :V], np.asarray(ljd)[:, :V],
                                **TOL)
 
