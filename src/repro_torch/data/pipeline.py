@@ -101,6 +101,14 @@ class TokenPipeline:
         return self.next()
 
 
+def batch_axis(key: str, v) -> int:
+    """The batch dim of a batch entry: 1 for M-RoPE ``positions`` (3, B,
+    S), whose leading dim is the three rotary components (the
+    reference's spec ``(None, "batch", "seq")``, ``launch/shapes.py``),
+    else 0."""
+    return 1 if key == "positions" and v.ndim == 3 else 0
+
+
 def local_rows(batch: Dict[str, np.ndarray], coord: int, size: int
                ) -> Dict[str, np.ndarray]:
     """The rows of a global batch at data coordinate `coord` of `size`:
@@ -109,9 +117,11 @@ def local_rows(batch: Dict[str, np.ndarray], coord: int, size: int
     coordinate; ``ProcessMesh.coord`` over the policy's ``dp``)."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % size:
-            raise ValueError(f"batch of {v.shape[0]} rows does not divide "
-                             f"over a data size of {size}")
-        n = v.shape[0] // size
-        out[k] = v[coord * n:(coord + 1) * n]
+        axis = batch_axis(k, v)
+        if v.shape[axis] % size:
+            raise ValueError(f"batch of {v.shape[axis]} rows does not "
+                             f"divide over a data size of {size}")
+        n = v.shape[axis] // size
+        rows = [slice(None)] * axis + [slice(coord * n, (coord + 1) * n)]
+        out[k] = v[tuple(rows)]
     return out

@@ -23,8 +23,12 @@ is ``repro_torch.launch.dist``'s.
     mesh's ``axis_group(("model",))``).  torch needs every rank to create every
     subgroup, the ones it is not in too, in one order: the mesh creates
     them all when it is built, in its axes' order, over the same backend
-    and store, each bounded by the world's timeout.  A subgroup of one
-    rank runs no collective.
+    and store.  A subgroup of one rank runs no collective.
+  * Forming the group and each subgroup (the store's waits, the
+    backend's connections) is bounded by :func:`rendezvous_s`, which is
+    never shorter than :data:`DEFAULT_TIMEOUT_S`: a rank that starts
+    late on a loaded host still joins.  Once formed, every collective
+    of the group keeps the group's own `timeout_s`.
 
 The collectives are the library's: communication, not kernels.
 """
@@ -42,6 +46,20 @@ from repro_torch.devices import resolve_device, set_deterministic
 #: seconds: a group's collective timeout and the commit barrier's
 #: deadline unless the launcher is given another
 DEFAULT_TIMEOUT_S = 300.0
+
+
+def rendezvous_s(timeout_s: float) -> float:
+    """Seconds a rank waits for the others to form a group or subgroup
+    whose collectives are bounded by `timeout_s`."""
+    return max(float(timeout_s), DEFAULT_TIMEOUT_S)
+
+
+def _formed(pg, timeout_s: float):
+    """`pg`, made under the rendezvous bound, with its collectives bounded
+    by `timeout_s` from now on (None: the job's own group)."""
+    from torch.distributed import distributed_c10d as c10d
+    c10d._set_pg_timeout(datetime.timedelta(seconds=timeout_s), pg)
+    return pg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +180,10 @@ class Group:
                 import torch.distributed as tdist
                 pg = tdist.new_group(
                     list(members), backend=self.backend,
-                    timeout=datetime.timedelta(seconds=self.timeout_s))
+                    timeout=datetime.timedelta(
+                        seconds=rendezvous_s(self.timeout_s)))
+                if self.rank in members:
+                    _formed(pg, self.timeout_s)
             got = Group(members.index(self.rank) if self.rank in members
                         else -1, len(members), self.device, self.backend,
                         self.timeout_s, members, pg)
@@ -212,8 +233,10 @@ def init(rank: int, world: int, device_type: str, init_file: str,
                          f"{device_type!r}")
     tdist.init_process_group(
         backend, init_method=f"file://{init_file}", rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s),
+        world_size=world,
+        timeout=datetime.timedelta(seconds=rendezvous_s(timeout_s)),
         **kwargs)
+    _formed(None, timeout_s)
     return Group(rank, world, device, backend, float(timeout_s))
 
 

@@ -229,10 +229,13 @@ class DecodeServer:
         inputs = {"tokens": torch.as_tensor(self._rows(prompt),
                                             dtype=torch.long,
                                             device=self.device)}
-        for key in ("frames", "vision_embeds", "positions"):
-            if batch.get(key) is not None:
-                inputs[key] = torch.as_tensor(
-                    self._rows(np.asarray(batch[key])), device=self.device)
+        extra = {key: np.asarray(batch[key])
+                 for key in ("frames", "vision_embeds", "positions")
+                 if batch.get(key) is not None}
+        if self.ranks is not None:
+            extra = local_rows(extra, self._row, self._data.world)
+        for key, v in extra.items():
+            inputs[key] = torch.as_tensor(v, device=self.device)
         logits, cache = self._run(self.model.prefill, inputs)
         self.cache = self._pad_cache(
             cache, self.model.cache_abstract(B, self.max_seq))

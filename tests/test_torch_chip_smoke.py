@@ -62,6 +62,26 @@ def test_visible_pairs(S, window, want):
     assert want == sum(min(q + 1, window or S) for q in range(S))
 
 
+def test_train_flops_counts_an_untied_head_but_not_its_embedding():
+    """phi3-medium-14b at 2 of 40 layers, B 4 x 512: a token runs the
+    attention projections (40 query heads over 10), the block norms,
+    the SwiGLU MLP and the untied 100352-row head's product; the
+    embedding table beside it is a gather.  Attention: all causal
+    pairs."""
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2)
+    d, H, KV, hd, f, V, B, S = 5120, 40, 10, 128, 17920, 100352, 4, 512
+    layer = (d * H * hd + 2 * d * KV * hd + H * hd * d   # q, k, v, o
+             + 3 * d * f                               # gate, up, down
+             + 2 * d)                                  # block norms
+    used = 2 * layer + d + d * V                       # final norm, head
+    n = _params(cfg)
+    assert n == 1_709_204_480 and n - used == V * d
+    attn = 2 * 3 * 4 * B * H * hd * (S * (S + 1) // 2)
+    assert chip_smoke.train_flops(cfg, n, B, S) == 6 * used * B * S + attn
+    # 14.754 TFLOP a step; the embedding would add 6.3 more
+    assert round(chip_smoke.train_flops(cfg, n, B, S) / 1e12, 3) == 14.754
+
+
 def test_train_flops_of_a_tied_dense_model_is_unchanged():
     """qwen1.5-0.5b (tied embedding, no window): 6 per param per token
     plus all causal pairs, the count phase 3's MFU has always used."""

@@ -72,7 +72,8 @@ def _assert_params_equal(a, b):
 # ------------------------------------------------ tests/test_determinism
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "qwen3-moe-30b-a3b",
                                   "h2o-danube-1.8b", "qwen2-vl-7b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "phi3-medium-14b",
+                                  "deepseek-coder-33b"])
 def test_bitwise_deterministic_restart(tmp_path, arch):
     t_ref = make_trainer(str(tmp_path / "ref"), arch)
     t_ref.run(12)
@@ -317,12 +318,14 @@ def test_trainer_losses_match_jax(tmp_path, mesh1):
     assert int(tt.opt_state.step) == int(jt.opt_state.step) == 9
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "h2o-danube-1.8b",
+                                  "phi3-medium-14b", "deepseek-coder-33b"])
 def test_zoo_trainer_losses_match_jax(arch, tmp_path):
-    """MoE (the aux loss in the total, capacity drops) and the sliding
-    window: 6 steps of both packages' trainers from the same params and
-    AdamW state, as ``test_trainer_losses_match_jax``.  The JAX MoE block
-    needs the mesh's expert axis: a (1, 1) ``("data", "model")`` mesh."""
+    """MoE (the aux loss in the total, capacity drops), the sliding
+    window and the dense arches with an untied head: 6 steps of both
+    packages' trainers from the same params and AdamW state, as
+    ``test_trainer_losses_match_jax``.  The JAX MoE block needs the
+    mesh's expert axis: a (1, 1) ``("data", "model")`` mesh."""
     from repro.launch.mesh import make_mesh
     mesh = make_mesh((1, 1), ("data", "model"))
     jt = _jax_trainer(str(tmp_path / "jax"), mesh, arch)
@@ -365,25 +368,60 @@ def _image_entries(run, step):
         reader.close()
 
 
-@pytest.mark.parametrize("writer", ["port", "jax"])
-def test_training_images_restore_across_packages(writer, tmp_path, mesh1):
+def _state(t):
+    """A trainer's params and AdamW state as numpy, by image name, from
+    either package."""
+    if isinstance(t, Trainer):
+        tree, flat = {"params": t.params, "opt": t.opt_state}, \
+            flatten_with_paths
+    else:
+        from repro.core.device_plugin import flatten_with_paths as flat
+        tree = {"params": t.params, "opt": t.opt_state}
+    return {k: np.asarray(v) for k, v in flat(tree).items()}
+
+
+#: the untied-head case: deepseek-coder-33b's smoke config
+UNTIED = "deepseek-coder-33b"
+
+
+@pytest.mark.parametrize("writer,arch", [
+    pytest.param("port", ARCH, id="port"), pytest.param("jax", ARCH, id="jax"),
+    pytest.param("port", UNTIED, id=f"port-{UNTIED}"),
+    pytest.param("jax", UNTIED, id=f"jax-{UNTIED}")])
+def test_training_images_restore_across_packages(writer, arch, tmp_path,
+                                                 mesh1):
     """One package writes a training image at step 3; a fresh trainer of
-    the other package restores it, and both continue 3 steps with the
-    same losses (to the trainer-parity tolerance)."""
+    the other package restores it bit for bit (params and AdamW state),
+    and both continue 3 steps with the same losses (to the
+    trainer-parity tolerance).  The other package's own step-3 image of
+    the same state names the same entries with the same shapes and
+    dtypes.  qwen1.5's tied embedding, and deepseek-coder's untied
+    embedding and head."""
     run = str(tmp_path / "run")
     jt = _jax_trainer(run if writer == "jax" else str(tmp_path / "j"),
-                      mesh1, ckpt_every=3)
+                      mesh1, arch, ckpt_every=3)
     tt = _port_trainer(run if writer == "port" else str(tmp_path / "t"),
-                       ckpt_every=3)
+                       arch, ckpt_every=3)
     _load(jt, tt, *_np_state(jt, seed=1))
-    src = tt if writer == "port" else jt
+    src, other = (tt, jt) if writer == "port" else (jt, tt)
     src.run(3)
+    written = _state(src)
+    if arch == UNTIED:
+        assert "params/lm_head" in written
     if writer == "port":
-        dst = _jax_trainer(run, mesh1)
+        dst = _jax_trainer(run, mesh1, arch)
     else:
-        dst = _port_trainer(run)
+        dst = _port_trainer(run, arch)
     assert dst.restore() == 3
+    restored = _state(dst)
+    assert sorted(restored) == sorted(written)
+    for k, v in written.items():
+        assert v.dtype == restored[k].dtype, k
+        np.testing.assert_array_equal(restored[k], v, err_msg=k)
     assert dst.pipeline.state() == src.pipeline.state()
+    other.run(3)
+    assert _image_entries(run, 3) == _image_entries(
+        str(tmp_path / ("j" if writer == "port" else "t")), 3)
     src.run(3)
     dst.run(3)
     np.testing.assert_allclose(dst.metrics_history["loss"][-3:],
