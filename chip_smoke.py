@@ -888,14 +888,18 @@ GRAD_REF_CASES = {"attention": (1, 64, 64, 4, 2, 32, True, 0),
 # the decoder zoo's training shapes (phase 10), checked as the slice
 # shapes are: flash attention at h2o-danube's (B 1 x 4608, hd 80, the
 # window of 4096 binding), qwen3-moe's (hd 128, GQA 32/4), qwen2-vl's
-# (28/4), phi3-medium-14b's (40/10) and deepseek-coder-33b's (56/8: a
-# group of 7); RMSNorm on qwen3-moe's q-norm and k-norm rows and on
-# phi3-medium's and deepseek-coder's block norm rows (d 5120 and 7168)
+# (28/4), phi3-medium-14b's (40/10), deepseek-coder-33b's (56/8: a
+# group of 7) and qwen3-moe-235b-a22b's (64/4: a group of 16); RMSNorm
+# on qwen3-moe's q-norm and k-norm rows, on phi3-medium's and
+# deepseek-coder's block norm rows (d 5120 and 7168) and on 235b's
+# q-norm rows (131072 x 128; its k-norm rows, 8192 x 128, are
+# TRAIN_NORM[2])
 GRAD_ZOO_CASES = [("attention", TRAIN_ATTN[0]), ("attention", ZOO_ATTN[1]),
                   ("attention", MM_ATTN[3]), ("attention", ZOO_ATTN[4]),
-                  ("attention", ZOO_ATTN[5]), ("rmsnorm", TRAIN_NORM[1]),
-                  ("rmsnorm", TRAIN_NORM[2]), ("rmsnorm", NORM_DESIGN_SHAPE),
-                  ("rmsnorm", ZOO_NORM[8])]
+                  ("attention", ZOO_ATTN[5]), ("attention", ZOO_ATTN[3]),
+                  ("rmsnorm", TRAIN_NORM[1]), ("rmsnorm", TRAIN_NORM[2]),
+                  ("rmsnorm", NORM_DESIGN_SHAPE), ("rmsnorm", ZOO_NORM[8]),
+                  ("rmsnorm", ZOO_NORM[7])]
 
 
 def _grad_inputs(name, case, dtype, gen):
@@ -3998,16 +4002,29 @@ def run_dryrun(seed: int, cli: DryrunCLI, card: str) -> dict:
 # with no image: its params' image is phase 2b's serving one.
 # deepseek-coder-33b at 1 of 62 (0.99 B params; a GQA group of 7, d 7168
 # RMSNorm rows, an untied 32256-row head) takes the crash path with an
-# ~11.9 GB image
+# ~11.9 GB image.  qwen3-moe-235b-a22b at 1 of 94 (3.73 B params, 2.42 B
+# of them its 128 experts; 44.8 GB of f32 params and AdamW state, the
+# dry run's peak 70.63 GiB) runs twice from one seed with no image (12 B
+# a param would be ~44.8 GB; its params' image is phase 2b's), alone on
+# the card (ZOO_TRAIN_ALONE)
 ZOO_TRAIN = (("qwen3-moe-30b-a3b", 1, 4, 512, True, 0.002),
              ("h2o-danube-1.8b", 2, 1, 4608, True, 0.25),
              ("qwen2-vl-7b", 1, 2, 1280, False, 0.006),
              ("phi3-medium-14b", 2, 4, 512, False, 0.5),
-             ("deepseek-coder-33b", 1, 4, 512, True, 0.011))
+             ("deepseek-coder-33b", 1, 4, 512, True, 0.011),
+             ("qwen3-moe-235b-a22b", 1, 4, 512, False, 0.0015))
+# the trainer's peak the dry run predicts (tools/zoo_train_peaks.py:
+# `build_traced` and `analyse` of repro_torch.launch.dryrun at the path's
+# config and B x S on a (1, 1) meta mesh), GiB; tests/test_torch_chip_
+# smoke.py holds it to the tool
+DRYRUN_PEAK_GIB = {"qwen3-moe-235b-a22b": 70.63}
+# the paths whose peak leaves no room for another path on the card: a
+# whole run trains them last, once every other phase has ended
+ZOO_TRAIN_ALONE = ("qwen3-moe-235b-a22b",)
 ZOO_TRAIN_PATH = "train-zoo/"        # --path train-zoo/ARCH: one alone
 ZOO_TRAIN_STEPS = 6                  # (a) uninterrupted, and (b)
 ZOO_IMAGE_AT, ZOO_FAIL_AT = 3, 5     # (b): a sync image, then a crash
-VLM_TRAIN_STEPS = 3                  # qwen2-vl: two runs from one seed
+VLM_TRAIN_STEPS = 3                  # no crash path: two runs from one seed
 # the grad tolerance: the first step's grads in f32, kernel path against
 # the plain path, per leaf max |diff| / max |grad|, worst leaf, at most
 # this; a witness whose attention forward is 2% off must read above it.
@@ -4022,6 +4039,12 @@ VLM_TRAIN_STEPS = 3                  # qwen2-vl: two runs from one seed
 # moves the bf16 grads of the block leaves by 60-85% (zoo_grad_check)
 EXAMPLES = ("quickstart", "serve_with_snapshots", "fault_tolerant_training",
             "elastic_restore")
+# a third f32 reading, gating nothing: the plain attention forward times
+# (1 + NOISE_REL·ε), ε standard normal; NOISE_REL is the f32 kernels'
+# own error against their oracles in phase 1 (1.4e-5-2.3e-5)
+NOISE_REL, NOISE_SEED = 2e-5, 1234
+# an exact fingerprint's chunk of elements (int64 temporaries of 128 MB)
+FP_CHUNK = 1 << 24
 
 
 @contextlib.contextmanager
@@ -4049,10 +4072,26 @@ def _attention_forward(fn):
 
 
 def _attention_off_by_2pc(q, k, v, causal, window):
-    """A broken attention forward for the check to catch: 2% too large."""
+    """A broken attention forward for the check to catch: 2% too large
+    (the kernel's forward on the card, its plain version on CPU tensors,
+    as ``ops.attention`` picks)."""
     from repro_torch.kernels import flash_attention as fa
-    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    o = (fa.flash_attention if q.is_cuda else fa.attention_plain)(
+        q, k, v, causal=causal, window=window)
     return (o.float() * 1.02).to(o.dtype)
+
+
+def _attention_noisy(q, k, v, causal, window):
+    """The plain attention forward times (1 + NOISE_REL·ε), ε standard
+    normal from a generator seeded anew at each call, so that every layer
+    and a remat's recompute see the same ε: relative noise the size of
+    the f32 kernels' own error."""
+    import torch
+    from repro_torch.kernels import ref
+    o = ref.attention_ref(q, k, v, causal=causal, window=window)
+    gen = torch.Generator(device=o.device).manual_seed(NOISE_SEED)
+    eps = torch.randn(o.shape, generator=gen, device=o.device)
+    return (o.float() * (1 + NOISE_REL * eps)).to(o.dtype)
 
 
 def _grad_distance(grads: dict, ref: dict) -> tuple:
@@ -4071,9 +4110,12 @@ def zoo_grad_check(cfg, params, batch) -> dict:
     attention forward is 2% off, each against the plain path on the same
     params and batch, in bf16 compute (the tensor-core flash kernel, as
     trained) and in f32 (the CUDA-core one): {dtype: {name:
-    _grad_distance's pair}}.  bf16 is ill-conditioned here: a 0.1%
-    change of the attention forward moves the block leaves' grads by
-    60-85% (a CPU run, h2o-danube at d 512), so the check reads f32."""
+    _grad_distance's pair}}; in f32 also the plain forward with relative
+    noise of NOISE_REL ("noise", which gates nothing: how far the kernels'
+    own error alone moves the grads).  bf16 is ill-conditioned here: a
+    0.1% change of the attention forward moves the block leaves' grads by
+    60-85% (a CPU run, h2o-danube at d 512), so the check reads f32.  At
+    most the reference tree and one other are live at once."""
     import torch
     from repro_torch.core.device_plugin import flatten_with_paths
     from repro_torch.models.lm import LM
@@ -4088,12 +4130,55 @@ def zoo_grad_check(cfg, params, batch) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         kernels = LM(cfg, compute_dtype=dtype, use_kernels=True, device=dev)
         ref = grads(LM(cfg, compute_dtype=dtype, device=dev))
+        forwards = [("kernels", None), ("2% off", _attention_off_by_2pc)]
+        if dtype == torch.float32:
+            forwards.append(("noise", _attention_noisy))
         out[str(dtype)[6:]] = {
             name: _grad_distance(grads(kernels, fwd), ref)
-            for name, fwd in (("kernels", None),
-                              ("2% off", _attention_off_by_2pc))}
+            for name, fwd in forwards}
         del ref
     return out
+
+
+def fingerprint(tree) -> dict:
+    """An exact fingerprint of a tree's raw bits, computed where its
+    leaves lie: {path: (dtype, shape, s0, s1, s2)}, each leaf's elements
+    read as integers x of their own width and summed in int64, wrapping:
+    plain (s0), weighted by the odd number 2i + 1 at flat index i (s1),
+    and mixed (s2: x xor a multiplicative hash of i, times an odd
+    constant, xor-shifted, as ``_mix`` does).  A flip of bit b of one
+    element moves s0 by ±2^b and s1 by ±2^b times an odd number, neither
+    of them 0 mod 2^64, so one flipped bit always shows; s2 is not linear
+    in x, so differences in several elements that cancel in s0 and s1
+    do not cancel in it.  Equal trees give equal fingerprints."""
+    import torch
+    from repro_torch.core.device_plugin import flatten_with_paths
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, t in flatten_with_paths(tree).items():
+        bits = t.detach().contiguous().reshape(-1).view(
+            ints[t.element_size()])
+        s = torch.zeros(3, dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), FP_CHUNK):
+            x = bits[i:i + FP_CHUNK].long()
+            idx = torch.arange(i, i + x.numel(), dtype=torch.int64,
+                               device=t.device)
+            s[0] += x.sum()
+            s[1] += (x * (2 * idx + 1)).sum()
+            s[2] += _mix(x, idx).sum()
+        out[path] = (str(t.dtype), tuple(t.shape), *map(int, s.tolist()))
+    return out
+
+
+# odd 64-bit constants of splitmix64, as signed int64
+_MIX_K1, _MIX_K2 = -7046029254386353131, -4658895280553007687
+
+
+def _mix(x, idx):
+    """(x xor idx·K1)·K2, xor-shifted right by 31: int64, wrapping, in
+    place on the hash's own buffer (one temporary of x's size)."""
+    h = idx.mul_(_MIX_K1).bitwise_xor_(x).mul_(_MIX_K2)
+    return h.bitwise_xor_(h >> 31)
 
 
 def _recording_aux(trainer, into: list):
@@ -4109,23 +4194,27 @@ def _recording_aux(trainer, into: list):
 
 
 def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
-    """Phase 10, one arch of ZOO_TRAIN, in a child process: the first
-    step's grads of the kernel path and of a witness against the plain
-    path (``zoo_grad_check``); (a) ZOO_TRAIN_STEPS steps uninterrupted;
-    (b) a run with a sync image at ZOO_IMAGE_AT that crashes at
+    """Phase 10, one arch of ZOO_TRAIN, in a child process, one trainer
+    on the card at a time: the first step's grads of the kernel path and
+    of a witness against the plain path (``zoo_grad_check``) on the
+    params of the trainer's own init at the seed, before any AdamW state
+    exists; (a) ZOO_TRAIN_STEPS steps uninterrupted, its final params and
+    AdamW state fingerprinted on the card (``fingerprint``), then
+    released; (b) a run with a sync image at ZOO_IMAGE_AT that crashes at
     ZOO_FAIL_AT and restores from the image through
     ``run_with_restarts``, bitwise (a)'s losses of the steps after the
-    image and final params and AdamW state
-    (qwen2-vl: two runs of VLM_TRAIN_STEPS from one seed, bitwise equal);
-    a falling loss, a finite aux loss (> 0 with MoE, 0 without) at every
-    step, the kernels' launches per step.  `layers`: at that depth in
-    place of the arch's own (``--path train-zoo/ARCH --layers N``)."""
+    image and (a)'s fingerprints (no crash path: a second run of
+    VLM_TRAIN_STEPS from the seed, bitwise equal); a falling loss, a
+    finite aux loss (> 0 with MoE, 0 without) at every step, the
+    kernels' launches per step.  `layers`: at that depth in place of the
+    arch's own (``--path train-zoo/ARCH --layers N``)."""
     import gc
     import numpy as np
     import torch
     from repro_torch.api import CheckpointOptions
     from repro_torch.configs import get_config
     from repro_torch.core.snapshot_io import snapshot_dir
+    from repro_torch.data import TokenPipeline
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import Trainer, run_with_restarts
 
@@ -4144,6 +4233,11 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
     steps = ZOO_TRAIN_STEPS if crash else VLM_TRAIN_STEPS
     tag = f"{cfg.name} ({layers} of {get_config(arch).num_layers} layers)"
     aux = {"a": [], "b": []}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         def trainer(run, ckpt_every=0):
             tcfg = _train_config(B, S, seed, ckpt_every=ckpt_every,
@@ -4153,24 +4247,35 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
                                           device=dev, model=model),
                                   aux[run])
 
+        # the grad check on the params Trainer.initialize makes at the
+        # seed, and the batches its pipeline gives, before any trainer
         torch.cuda.reset_peak_memory_stats()
-        t_a = trainer("a")
-        t_a.initialize()
-        n_params = sum(t.numel() for t in _leaves(t_a.params))
-        batches = [_device_batch(t_a.pipeline.peek(s), dev)
+        params = model.init(seed)
+        n_params = sum(t.numel() for t in _leaves(params))
+        pipeline = TokenPipeline(cfg, B, S, seed=seed)
+        batches = [_device_batch(pipeline.peek(s), dev)
                    for s in range(steps)]
-        before = [_score(model, t_a.params, b) for b in batches]
+        before = [_score(model, params, b) for b in batches]
         del batches[1:]
         t0 = time.perf_counter()
-        err = zoo_grad_check(cfg, t_a.params, batches[0])
+        err = zoo_grad_check(cfg, params, batches[0])
         grads_s = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
+        check_gb = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        free()
+        torch.cuda.reset_peak_memory_stats()
         counters = _counters()
         _zero_counters()              # this path's launches start here
+        t_a = trainer("a")
         t_a.run(steps)                                              # (a)
         losses = list(t_a.metrics_history["loss"])
         step_ms = [t * 1e3 for t in t_a.straggler.times]
+        t0 = time.perf_counter()
+        print_a = fingerprint({"params": t_a.params, "opt": t_a.opt_state})
+        fp_s = time.perf_counter() - t0
+        t_a.release()
+        del t_a
+        free()
         io = {}
         if crash:                                                   # (b)
             made = []
@@ -4182,8 +4287,7 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
                     io["image_bytes"] = _image_bytes(snapshot_dir(
                         prev.session.run_dir, ZOO_IMAGE_AT))
                     prev.release()
-                    gc.collect()
-                    torch.cuda.empty_cache()
+                    free()
                 t = trainer("b", ZOO_IMAGE_AT if not made else 0)
                 restore = t.restore
 
@@ -4211,12 +4315,14 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
             executed, resumed = 2 * steps, steps
         launches = {name: mod.launches for name, mod in counters.items()}
         variants = _variants()
+        print_b = fingerprint({"params": t_b.params, "opt": t_b.opt_state})
+        # (b)'s final params, bit for bit (a)'s where the check passes
+        after = _score(model, t_b.params, batches[0])
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        after = _score(model, t_a.params, batches[0])
         same_losses = np.array_equal(np.float64(losses[-resumed:]),
                                      np.float64(other[-resumed:]))
-        same_state = _tree_equal(t_a.params, t_b.params) and _tree_equal(
-            t_a.opt_state, t_b.opt_state)
+        same_state = print_a == print_b
+        t_b.release()
     spread = max(before) - min(before)
     falls = before[0] - after > spread
     aux_ok = all(np.isfinite(a) and (a > 0 if cfg.moe_num_experts
@@ -4229,19 +4335,26 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
     med = float(np.median(step_ms[1:]))
     tokens = B * S
     flops = train_flops(cfg, n_params, B, S)
+    predicted = (f" (the dry run's prediction for the trainer: "
+                 f"{DRYRUN_PEAK_GIB[arch]:.2f} GiB)"
+                 if arch in DRYRUN_PEAK_GIB and layers == own else "")
     log(f"[train-zoo] {tag}: {n_params} params (f32 masters, bf16 "
         f"compute, remat, kernels), batch {B} x {S}; losses (a) "
         f"{[round(x, 4) for x in losses]}; aux_loss (a) "
         f"{[round(x, 4) for x in aux['a']]}; peak device memory "
-        f"{peak_gb:.2f} GiB; {card}")
+        f"{peak_gb:.2f} GiB with one trainer on the card at a time, the "
+        f"grad check's {check_gb:.2f} GiB{predicted}; {card}")
     for dtype, e in err.items():
         k, w = e["kernels"], e["2% off"]
+        noise = (f"; plain forward with relative noise {NOISE_REL:g} "
+                 f"{e['noise'][0]:.4g} ({e['noise'][1]}), gating nothing"
+                 if "noise" in e else "")
         log(f"[train-zoo] {tag}: first step's grads in {dtype} against "
             f"the plain {dtype} path, worst leaf by max |diff| / max "
             f"|grad|: kernels {k[0]:.4g} ({k[1]}); witness with the "
-            f"attention forward 2% off {w[0]:.4g} ({w[1]}); limit "
+            f"attention forward 2% off {w[0]:.4g} ({w[1]}){noise}; limit "
             f"{tol if tol is not None else 'the witness'} "
-            f"(float32); {grads_s:.1f} s")
+            f"(float32); {grads_s:.1f} s; {card}")
     log(f"[train-zoo] {tag}: step {med:.2f} ms (median but the first of "
         f"(a), host clock, each step ending in the loss's read-back; all "
         f"{[round(x, 1) for x in step_ms]}), {tokens / med * 1e3:.0f} "
@@ -4261,15 +4374,16 @@ def train_zoo_path(arch: str, seed: int, layers=None) -> dict:
             f"{io['host_gib_before_restore']:.1f} before the restore, "
             f"{io['host_gib_after_restore']:.1f} after; {card}")
     second = "(b) after its restore" if crash else "the second run"
-    log(f"[train-zoo] {tag}: {second}: losses of the last {resumed} "
-        f"steps bitwise (a)'s: {same_losses}; final params and AdamW "
-        f"state bitwise: {same_state}; aux_loss "
+    log(f"[train-zoo] {tag}: {second}, with (a) released before it: "
+        f"losses of the last {resumed} steps bitwise (a)'s: {same_losses}; "
+        f"final params and AdamW state fingerprints ({len(print_a)} "
+        f"leaves, on the card, {fp_s:.2f} s) equal: {same_state}; aux_loss "
         f"finite{' and > 0' if cfg.moe_num_experts else ''} at every "
         f"step: {aux_ok}; step 0's batch scored {before[0]:.5f} before, "
-        f"{after:.5f} after (a): drop {before[0] - after:.5f} against the "
+        f"{after:.5f} after (b): drop {before[0] - after:.5f} against the "
         f"{steps} batches' spread {spread:.5f}: {falls}; launches over "
         f"{executed} executed steps {launches} (want {want}); by variant "
-        f"{variants}")
+        f"{variants}; {card}")
     kernel32, witness32 = (err["float32"][k][0] for k in ("kernels",
                                                           "2% off"))
     bad = [name for name, ok in (
@@ -4312,18 +4426,29 @@ def run_examples() -> dict:
             "variants": _variants()}
 
 
-def phase_train_zoo(seed: int) -> dict:
-    """Phase 10: each arch of ZOO_TRAIN, then the examples, each in a
-    child process of its own (its pinned host buffers leave with it);
-    {path: (launches, variants)}."""
+def train_zoo_archs(seed: int, archs) -> dict:
+    """Each arch of `archs` (of ZOO_TRAIN) in a child process of its own,
+    one after the other (its pinned host buffers leave with it); {path:
+    (launches, variants)}."""
     out = {}
-    t_phase = time.perf_counter()
     for arch, layers, *_ in ZOO_TRAIN:
+        if arch not in archs:
+            continue
         t0 = time.perf_counter()
         res = run_child(f"phase 10 {arch}", train_zoo_path, arch, seed)
         out[f"{arch} train ({layers} layers)"] = (res["launches"],
                                                   res["variants"])
-        log(f"[train-zoo] {arch}: {time.perf_counter() - t0:.1f} s")
+        log(f"[train-zoo] {arch}: {time.perf_counter() - t0:.1f} s; "
+            f"{card_line()}")
+    return out
+
+
+def phase_train_zoo(seed: int, archs=tuple(p[0] for p in ZOO_TRAIN)
+                    ) -> dict:
+    """Phase 10: the archs `archs` of ZOO_TRAIN, then the examples, each
+    in a child process of its own; {path: (launches, variants)}."""
+    t_phase = time.perf_counter()
+    out = train_zoo_archs(seed, archs)
     t0 = time.perf_counter()
     res = run_child("phase 10 examples", run_examples)
     out["examples (smoke configs)"] = (res["launches"], res["variants"])
@@ -5269,8 +5394,10 @@ def main() -> int:
         by_path.update(run_orchestration(args.seed))
         mark("phase 6")
         # phase 10 beside phases 8, 9 and 11: each drives child
-        # processes of its own, one at a time
-        zoo = Beside(phase_train_zoo, args.seed)
+        # processes of its own, one at a time; then the paths that need
+        # the card alone
+        zoo = Beside(phase_train_zoo, args.seed, tuple(
+            p[0] for p in ZOO_TRAIN if p[0] not in ZOO_TRAIN_ALONE))
         by_path.update(phase_launch(args.seed, card))
         mark("phase 8")
         by_path.update(run_dryrun(args.seed, cli, card))
@@ -5279,6 +5406,8 @@ def main() -> int:
         mark("phase 11")
         by_path.update(zoo.result())
         mark("phase 10 (beside phases 8, 9 and 11)")
+        by_path.update(train_zoo_archs(args.seed, ZOO_TRAIN_ALONE))
+        mark(f"phase 10 {', '.join(ZOO_TRAIN_ALONE)} (alone)")
         log(f"[done] chip_smoke wall time {process_age_s():.1f} s since the "
             f"process started (what the run's 1200 s limit and its 1000 s "
             f"target apply to), {time.perf_counter() - t_start:.1f} s from "

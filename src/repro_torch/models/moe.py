@@ -144,10 +144,17 @@ def _local_moe(x: torch.Tensor, params, cfg, dropless: bool, ep=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, d) -> (y (T, d) in x's dtype, aux scalar f32): the body on
     this rank's experts (all of them without `ep`, an ``ExpertShard``),
+    on each of the reference's token shards of x where they divide it
+    (``ep.token_shards``, their aux losses averaged, as its ``pmean``),
     its partial outputs summed over the model ranks and its aux averaged
     over the data ranks."""
     first_e = 0 if ep is None else ep.index * params["w_gate"].shape[0]
-    y, aux = partial_moe(x, params, cfg, dropless, first_e)
+    n = 1 if ep is None or x.shape[0] % ep.token_shards else ep.token_shards
+    parts = [partial_moe(c, params, cfg, dropless, first_e)
+             for c in x.chunk(n)]
+    y, aux = (parts[0] if n == 1 else
+              (torch.cat([p[0] for p in parts]),
+               torch.stack([p[1] for p in parts]).mean()))
     if ep is not None and ep.group is not None:
         y = AllReduce.apply(y, ep.group)
     if ep is not None and ep.data is not None:

@@ -62,7 +62,7 @@ from repro_torch.runtime.fault import SimulatedFailure
 from repro_torch.sharding import get_policy, state_shardings
 from repro_torch.sharding.policy import (GATHERED, block_of, gather_leaves,
                                          local_block, map_tree,
-                                         param_gather)
+                                         param_gather, row_axes)
 
 
 class DecodeServer:
@@ -104,16 +104,9 @@ class DecodeServer:
         # its rows whole)
         self._cache_axes = self._cache_sh = None
         if self.ranks is not None:
-            # the policy's data-parallel axes split the batch: this
-            # rank's coordinate over them, and their ranks
-            dp = get_policy(policy or "baseline").dp
-            self._row = self.ranks.coord(dp)[0]
-            self._data = self.ranks.axis_group(dp)
-            self._gather = param_gather(self._param_shardings,
-                                        self.model.param_axes(), dp)
-            off = tuple(a for a in mesh.axis_names
-                        if a not in dp and mesh.shape[a] > 1)
-            self._cache_axes = off or None
+            # the policy's data-parallel axes split a generation's batch
+            # (``_split``)
+            self._dp = get_policy(policy or "baseline").dp
         # what the last prefill or decode step gathered
         self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.session = CheckpointSession(run_dir, options,
@@ -128,6 +121,23 @@ class DecodeServer:
             "decode_cursor",
             lambda: {"pos": self.pos, "tokens": self.tokens},
             self._restore_cursor)
+
+    def _split(self, batch: int) -> None:
+        """Lay a generation of `batch` rows over the ranks: the
+        data-parallel axes that divide it split its rows (``row_axes``;
+        none: every rank serves it whole), this rank's coordinate over
+        them and their ranks, the model's gather (its MoE's token
+        shards), and the mesh axes of the cache's blocks off those rows
+        (None: a block is its rows whole)."""
+        mesh = self.ranks
+        rows = row_axes(mesh, self._dp, batch)
+        self._row = mesh.coord(rows)[0]
+        self._data = mesh.axis_group(rows)
+        self._gather = param_gather(self._param_shardings,
+                                    self.model.param_axes(), self._dp, rows)
+        self._cache_axes = tuple(a for a in mesh.axis_names
+                                 if a not in rows and mesh.shape[a] > 1
+                                 ) or None
 
     def _shardings(self, with_cache: bool = True) -> Dict[str, Any]:
         """{"serve_state": {"params", "cache"}} named shardings; the
@@ -226,6 +236,8 @@ class DecodeServer:
         if S >= self.max_seq:
             raise ValueError(f"prompt length {S} leaves no room in "
                              f"max_seq={self.max_seq}")
+        if self.ranks is not None:
+            self._split(B)
         inputs = {"tokens": torch.as_tensor(self._rows(prompt),
                                             dtype=torch.long,
                                             device=self.device)}
@@ -348,6 +360,7 @@ class DecodeServer:
             # behind the server and is joined before the first decode step
             restored = self.session.restore(step=step, wait="critical",
                                             **self._layout())
+            self._split_restored()
             template = self._boot_template(template)
             if not covers(self.session.options.critical_states,
                           "serve_state", "params", template["params"]):
@@ -364,6 +377,7 @@ class DecodeServer:
         if template["params"] is None or template["cache"] is None:
             raw = self.session.restore(step=step,
                                        **self._layout())["serve_state"]
+            self._split_restored()
             template = self._boot_template(template)
             self.params = engine.retree(template["params"], raw["params"])
             self.cache = self._cache_rows(
@@ -373,9 +387,16 @@ class DecodeServer:
         restored = self.session.restore_into(
             template, state="serve_state", step=step, mesh=layout["mesh"],
             shardings=(layout["shardings"] or {}).get("serve_state"))
+        self._split_restored()
         self.params = restored["params"]
         self.cache = self._cache_rows(restored["cache"])
         return self.pos
+
+    def _split_restored(self) -> None:
+        """``_split`` for the generation whose decode cursor a restore
+        just replayed."""
+        if self.ranks is not None and self.tokens is not None:
+            self._split(int(self.tokens.shape[0]))
 
     def release(self) -> None:
         """Drop every reference this server and its engine hold to its

@@ -96,7 +96,7 @@ from repro_torch.runtime.fault import (JITCheckpointPolicy,
                                        SimulatedFailure, StragglerMonitor)
 from repro_torch.sharding import get_policy, state_shardings
 from repro_torch.sharding.policy import (GATHERED, local_block, map_tree,
-                                         param_gather)
+                                         param_gather, row_axes)
 
 PyTree = Any
 
@@ -174,16 +174,15 @@ class Trainer:
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
         if self.ranks is not None:
-            # the policy's data-parallel axes split the batch: this
-            # rank's data coordinate, their size and their ranks (its
-            # share of the tokens), and how many ranks compute each data
-            # row (the model axis)
+            # the policy's data-parallel axes split the batch, those
+            # that divide it (the reference's layout; none: every rank
+            # takes it whole): this rank's data coordinate, their size
+            # and their ranks (its share of the tokens), and how many
+            # ranks compute each data row
             dp = get_policy(policy or "baseline").dp
-            self._row, size = self.ranks.coord(dp)
-            if tcfg.batch_size % size:
-                raise ValueError(f"global batch {tcfg.batch_size} does not "
-                                 f"divide over a data size of {size}")
-            self._data = self.ranks.axis_group(dp)
+            rows = row_axes(self.ranks, dp, tcfg.batch_size)
+            self._row, size = self.ranks.coord(rows)
+            self._data = self.ranks.axis_group(rows)
             self._per_row = self.ranks.world // size
             # the leaves whose block this rank holds replica 0 of: the
             # clip's norm counts each block once over the ranks
@@ -196,7 +195,7 @@ class Trainer:
             # the model's gather (None at one rank: each block is whole),
             # expert leaves over the data axes alone
             self._gather = param_gather(
-                self.shardings["params"], self.model.param_axes(), dp)
+                self.shardings["params"], self.model.param_axes(), dp, rows)
         # what the last step gathered (0 without ranks, or at one)
         self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.params = None

@@ -54,7 +54,7 @@ import functools
 import math
 import threading
 import weakref
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -560,11 +560,16 @@ class ExpertShard:
     """Where a rank's MoE block stands on a process mesh: the ranks that
     split the experts (`group`, over the experts dim's mesh axes; None
     when one rank holds them all), this rank's `index` of their expert
-    ranges, and the data-parallel ranks (`data`, None at one) over which
-    the aux loss is averaged."""
+    ranges, the data-parallel ranks (`data`, None at one) over which
+    the aux loss is averaged, and the reference's token shards of this
+    rank's tokens (`token_shards`): where a batch's rows do not split
+    over every data-parallel axis (:func:`row_axes`), the reference still
+    splits the flat tokens over those axes when they divide them
+    (``src/repro/models/moe.py:140-146``), routing each shard on its own."""
     group: Any
     index: int
     data: Any
+    token_shards: int = 1
 
 
 class ParamGather:
@@ -574,7 +579,7 @@ class ParamGather:
     of it, by one :class:`GatherLeaves`; ``experts`` is the MoE block's
     :class:`ExpertShard` (None without experts)."""
 
-    def __init__(self, shardings, logical, dp):
+    def __init__(self, shardings, logical, dp, rows=None):
         self.shardings = shardings
         # each leaf's gather axes (None: every axis)
         self.axes = map_tree(_leaf_gather_axes, shardings, logical)
@@ -597,9 +602,13 @@ class ParamGather:
                     f"(data-parallel axes {dp_axes}): expert parallelism "
                     f"needs each rank of an expert group to hold the "
                     f"same rows")
+            split = math.prod(mesh.shape[a] for a in dp_axes)
+            whole = math.prod(mesh.shape[a] for a in dp_axes
+                              if rows is None or a in rows)
             self.experts = ExpertShard(
                 mesh.axis_group(ep) if size > 1 else None, index,
-                mesh.axis_group(dp_axes) if dp_axes else None)
+                mesh.axis_group(dp_axes) if dp_axes else None,
+                split // whole)
             break
 
     def __call__(self, tree, *path):
@@ -645,18 +654,19 @@ def _leaf_gather_axes(sharding: NamedSharding, logical
     return tuple(a for a in sharding.mesh.axis_names if a not in ep)
 
 
-def param_gather(shardings, logical, dp):
+def param_gather(shardings, logical, dp, rows=None):
     """The models' ``gather`` over a process mesh, `shardings` the
     params' named shardings, `logical` their logical axes (the model's
     ``param_axes()``: expert leaves are gathered over every axis but
     their experts dim's, and the gather carries the MoE block's
     :class:`ExpertShard`), `dp` the policy's data-parallel axes (the
-    ranks that split the batch: the aux loss is averaged over them): a
+    aux loss is averaged over them), `rows` those the batch's rows split
+    over (:func:`row_axes`; None: every axis of `dp`): a
     :class:`ParamGather`.  None on a mesh of one slot, where every block
     is its whole leaf."""
     if _first(shardings).mesh.size == 1:
         return None
-    return ParamGather(shardings, logical, dp)
+    return ParamGather(shardings, logical, dp, rows)
 
 
 def _mesh_coords(mesh) -> List[Tuple[int, ...]]:
@@ -787,6 +797,19 @@ def fit_spec(spec: PartitionSpec, shape: Tuple[int, ...],
         else:
             new.append(tuple(keep))
     return PartitionSpec(*new)
+
+
+def row_axes(mesh, dp: Sequence[str], rows: int) -> Tuple[str, ...]:
+    """The data-parallel axes of `dp` that a global batch of `rows` rows
+    splits over on `mesh`: those :func:`fit_spec` keeps on its batch dim,
+    as the reference lays a batch out.  Every axis of `dp` on the mesh
+    where they divide it; () where none does, and every rank then takes
+    the batch whole."""
+    axes = tuple(a for a in dp if a in mesh.axis_names)
+    if not axes:
+        return ()
+    return _axes_of(tuple(fit_spec(PartitionSpec(axes), (rows,),
+                                   dict(mesh.shape)))[0])
 
 
 def fit_sharding(sh: NamedSharding, shape: Tuple[int, ...],

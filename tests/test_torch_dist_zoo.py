@@ -6,16 +6,29 @@ same for the other arches of the zoo: qwen3-moe-30b-a3b (MoE with
 q/k-norm), h2o-danube-1.8b (a sliding window), jamba-v0.1-52b (the
 attention-Mamba-MoE hybrid), whisper-tiny (encoder-decoder) and
 qwen2-vl-7b (vision embeddings, M-RoPE).  Each runs 6 steps of the train
-launcher's rank (global batch 4 x 16, baseline policy over
+launcher's rank (global batch 4 x 16; qwen2-vl 4 x 24, its 16 vision rows,
+which the loss masks, and 8 text tokens; baseline policy over
 ``make_host_mesh(data=2, model=1)``) from JAX's step-0 image, and is
-held to JAX's 2-device run: losses within rtol 1e-4; the step-6 params
-within 1e-4 of each leaf's max, or, where the reference itself moves a
-leaf more than that when its reduction order changes (its 6 steps on one
-device against its 6 on two), within that spread.  (whisper-tiny's
-``embed/tok``: the reference's own spread 4.3e-4, the port 4.1e-4 from
-its 2-device run: elements whose grads sit at the rounding floor, each
-taking Adam's +-lr by a sign of rounding, as ROADMAP C records for
-qwen1.5's biases.)
+held to JAX's 2-device run: losses within rtol 1e-4, and JAX's losses
+non-zero (a batch whose loss mask drops every token trains nothing and
+would hold nothing); the step-6 params within 1e-4 of each leaf's max,
+or, where the reference itself moves a leaf more than that when its
+reduction order changes (its 6 steps on one device against its 6 on
+two), within that spread; and the 2-rank run within 1e-4 (or twice the
+reference's own spread) of the port's own one-process run (in the
+test's process).  Elements whose grads sit at the rounding floor each
+take Adam's +-lr by a sign of rounding, as ROADMAP C records for
+qwen1.5's biases: whisper-tiny's ``embed/tok`` (the reference's own
+spread 4.3e-4, the port 4.1e-4 from its 2-device run), and qwen2-vl's
+``embed/tok`` (5 elements of 3 rows), where the packages already part
+at one device by more than the reference's own spread: that one leaf
+(``ONE_DEVICE_SPREAD``) is held within the packages' one-device spread
+(the port's one-process run against the reference's one-device run)
+where that is larger, and the test prints its readings (``-s``; a CPU
+run: the port's 2 ranks 5.22e-4 of the leaf's max from JAX's 2 devices,
+the reference's own spread 1.42e-5, the packages' at one device
+5.24e-4).  Every other leaf of the five arches passes at max(1e-4, the
+reference's own spread).
 
 jamba runs with SSD chunks of 4 (``ssm_chunk=4``, both packages): at
 its smoke config's chunks of 8 the reference's intra-chunk decay
@@ -58,6 +71,12 @@ JAMBA = "jamba-v0.1-52b"
 #: config overrides of the smoke configs, in both packages: jamba's SSD
 #: chunk at which the reference's grads stay finite
 OVERRIDES = {JAMBA: {"ssm_chunk": 4}}
+#: the training batch's sequence: 16, but qwen2-vl's 16 vision rows and 8
+#: text tokens (at 16 its loss mask drops every token)
+SEQ = {"qwen2-vl-7b": 24}
+#: the leaves held to the packages' own spread at one device where that is
+#: larger than the reference's (module docstring): qwen2-vl's embedding
+ONE_DEVICE_SPREAD = {"qwen2-vl-7b": ("embed/tok",)}
 #: port runs at once (2 ranks each) beside the JAX processes: the other
 #: test files' workers share the host's cores
 PARALLEL = 2
@@ -133,7 +152,7 @@ _TARGET = textwrap.dedent('''
 
 # argv: OUT_DIR, "two" | "one" | "both" (2 devices, 1, or 2 then 1),
 # overrides (JSON), arches
-_JAX_TRAIN = textwrap.dedent("""
+_JAX_TRAIN = f"SEQ = {SEQ!r}\n" + textwrap.dedent("""
     import os, shutil, json, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     import jax, jax.numpy as jnp, numpy as np
@@ -149,8 +168,8 @@ _JAX_TRAIN = textwrap.dedent("""
     for arch in sys.argv[4:]:
         cfg = get_smoke_config(arch, **overrides.get(arch, {}))
         run = os.path.join(out, arch, "jax_run")
-        tcfg = TrainConfig(batch_size=4, seq_len=16, lr=3e-4,
-                           total_steps=6, ckpt_every=0,
+        tcfg = TrainConfig(batch_size=4, seq_len=SEQ.get(arch, 16),
+                           lr=3e-4, total_steps=6, ckpt_every=0,
                            ckpt=CheckpointOptions(mode="sync", keep=0),
                            seed=0, compute_dtype=jnp.float32)
         for data in datas:
@@ -203,7 +222,8 @@ def _launch_port(root, arch):
     shutil.copytree(root / arch / "start", port)
     argv = [str(root / arch / "aux.json"),
             json.dumps(OVERRIDES.get(arch, {})), "--arch", arch, "--smoke",
-            "--device", "cpu", "--batch-size", "4", "--seq-len", "16",
+            "--device", "cpu", "--batch-size", "4", "--seq-len",
+            str(SEQ.get(arch, 16)),
             "--steps", str(STEPS), "--ckpt-every", str(STEPS),
             "--ckpt-mode", "sync", "--keep", "0", "--restore",
             "--dist-timeout", str(BARRIER_S), "--run-dir", str(port)]
@@ -257,6 +277,34 @@ def _close(ours, theirs, spread=None):
         assert np.abs(o - t).max() <= tol * scale, (k, tol)
 
 
+def _port_one(root, arch):
+    """The port's step-6 params of one process (no mesh) from JAX's
+    step-0 image, as the train launcher's rank configures its trainer."""
+    import torch
+
+    from repro_torch.api import CheckpointOptions
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.device_plugin import flatten_with_paths
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    run = root / arch / "port_one"
+    shutil.copytree(root / arch / "start", run)
+    tcfg = TrainConfig(batch_size=4, seq_len=SEQ.get(arch, 16), lr=3e-4,
+                       total_steps=STEPS, ckpt_every=0,
+                       ckpt=CheckpointOptions(mode="sync", keep=0), seed=0,
+                       compute_dtype=torch.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t = Trainer(get_smoke_config(arch, **OVERRIDES.get(arch, {})), tcfg,
+                    str(run), device="cpu")
+        assert t.restore() == 0
+        t.run(STEPS)
+    finally:
+        torch.set_num_threads(threads)
+    return {f"params/{k}": v.numpy()
+            for k, v in flatten_with_paths(t.params).items()}
+
+
 def _leaves(run, step):
     reader = SnapshotStore(run).reader(step)
     try:
@@ -277,6 +325,7 @@ def test_two_ranks_train_the_zoo_to_the_jax_losses_and_params(runs, arch):
     root = runs["root"] / arch
     with open(root / "jax.json") as f:
         want = json.load(f)
+    assert len(want["losses"]) == STEPS and all(want["losses"])
     leaves, host = _leaves(str(root / "port"), STEPS)
     np.testing.assert_allclose(host["trainer"]["loss_hist"],
                                want["losses"], rtol=1e-4)
@@ -284,11 +333,28 @@ def test_two_ranks_train_the_zoo_to_the_jax_losses_and_params(runs, arch):
     one = np.load(root / "params_one.npz")
     assert sorted(f"params/{k}" for k in params) == sorted(
         k for k in leaves if k.startswith("params/"))
+    port_one = _port_one(runs["root"], arch)
+
+    def dist(a, t):
+        return float(np.abs(a - t).max()) / max(float(np.abs(t).max()),
+                                                1e-30)
     # the reference's own spread when its reduction order changes
-    _close(leaves, params, {
-        k: float(np.abs(one[k] - t).max()) / max(float(np.abs(t).max()),
-                                                 1e-30)
-        for k, t in params.items()})
+    spread = {k: dist(one[k], t) for k, t in params.items()}
+    bound = dict(spread)
+    for k in ONE_DEVICE_SPREAD.get(arch, ()):
+        # the packages already part at one device (module docstring)
+        bound[k] = max(spread[k], dist(port_one[f"params/{k}"], one[k]))
+        print(f"{arch} {k}: {dist(leaves[f'params/{k}'], params[k]):.4e} "
+              f"of its max; the reference's own spread {spread[k]:.4e}, "
+              f"the packages' at one device {bound[k]:.4e}")
+    _close(leaves, params, bound)
+    # the port's own 2-rank run against its one-process run: MoE routing
+    # per rank and reduction order move it as they move the reference
+    # (qwen3-moe's embed/tok and jamba's dt_bias at 1.00-1.02x the
+    # reference's own spread), so twice that spread, as
+    # tests/test_torch_dist_ep_zoo.py holds its (2, 2) run to its (1, 1)
+    _close(leaves, {k[len("params/"):]: v for k, v in port_one.items()},
+           {k: 2 * s for k, s in spread.items()})
 
 
 def test_jax_jamba_grads_at_the_default_chunk_are_not_finite(runs):

@@ -73,7 +73,8 @@ def _assert_params_equal(a, b):
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "qwen3-moe-30b-a3b",
                                   "h2o-danube-1.8b", "qwen2-vl-7b",
                                   "jamba-v0.1-52b", "phi3-medium-14b",
-                                  "deepseek-coder-33b"])
+                                  "deepseek-coder-33b",
+                                  "qwen3-moe-235b-a22b"])
 def test_bitwise_deterministic_restart(tmp_path, arch):
     t_ref = make_trainer(str(tmp_path / "ref"), arch)
     t_ref.run(12)
@@ -319,9 +320,11 @@ def test_trainer_losses_match_jax(tmp_path, mesh1):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "h2o-danube-1.8b",
-                                  "phi3-medium-14b", "deepseek-coder-33b"])
+                                  "phi3-medium-14b", "deepseek-coder-33b",
+                                  "qwen3-moe-235b-a22b"])
 def test_zoo_trainer_losses_match_jax(arch, tmp_path):
-    """MoE (the aux loss in the total, capacity drops), the sliding
+    """MoE (the aux loss in the total, capacity drops; qwen3-moe-235b's
+    GQA group of 2 at its smoke config, 16 at full width), the sliding
     window and the dense arches with an untied head: 6 steps of both
     packages' trainers from the same params and AdamW state, as
     ``test_trainer_losses_match_jax``.  The JAX MoE block needs the
