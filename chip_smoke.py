@@ -35,7 +35,16 @@ flash attention at h2o-danube's B 1 x 4608 under the window, RMSNorm at
 its 4608 rows and on qwen3-moe's q/k-norm rows (hd 128).  On a small
 input (each serving path's smoke config, f32, with whisper's frames and
 qwen2-vl's vision embeddings and image positions) the card's kernel path
-must match the CPU plain path to 1e-3.
+must match the CPU plain path to 1e-3.  Last, the dense split over
+``model`` (``models/layers.py``): one layer each of phi3-medium-14b and
+deepseek-coder-33b (attention and MLP) and qwen3-moe-235b-a22b
+(attention with its q/k-norm) at full width, bf16, B 4 x 512, over
+|model| 2, 4 and 8: each rank's blocks cut from the whole params by the
+port's block arithmetic (``sharding.policy.rank_view``), its partial
+output through the kernels, and the f32 sum of the partials held
+against the whole layer within 2e-2 of max |out|; flash attention
+(beside SDPA) and RMSNorm checked and timed at each per-rank shape the
+other cases miss (``[kernels] tp`` lines).
 
 Phase 2 serves each path at full published width with random weights
 from ``--seed`` (bf16 compute over f32 masters, kernels on): qwen1.5-0.5b
@@ -452,6 +461,16 @@ MM_NORM = [(24000, 384), (64, 384), (16, 384), (2560, 3584), (2, 3584)]
 # deepseek-coder's (2048 x 7168) ZOO_NORM's
 TRAIN_ATTN = [(1, 4608, 4608, 32, 8, 80, True, 4096)]
 TRAIN_NORM = [(4608, 2560), (65536, 128), (8192, 128)]
+# phase 1's tensor-parallel check (models/layers.py): one layer each at
+# full width, bf16, B 4 x 512 -- phi3-medium-14b's attention (40 / 10
+# heads x 128) and MLP (d_ff 17920), deepseek-coder-33b's (56 / 8, d_ff
+# 19200) and qwen3-moe-235b-a22b's attention (64 / 4, q/k-norm) -- cut
+# over every |model| of TP_MODEL that splits its heads, each rank's
+# partial held in sum against the whole layer; (arch, with its MLP)
+TP_ARCHS = (("phi3-medium-14b", True), ("deepseek-coder-33b", True),
+            ("qwen3-moe-235b-a22b", False))
+TP_MODEL = (2, 4, 8)
+TP_BATCH = (4, 512)
 
 
 def log(*a):
@@ -768,6 +787,113 @@ def path_shape_cases(rows: dict, gen) -> list:
     return failed
 
 
+def tp_layer_check(cfg, with_mlp: bool, seed: int, gen) -> tuple:
+    """One layer of `cfg` (bf16 over f32 masters, the kernels on) split over each |model| of TP_MODEL that cuts its heads:
+    every rank's view cut from the whole params by the port's block
+    arithmetic (``sharding.policy.rank_view``), its attention (and MLP)
+    run through the kernels up to the row-parallel output, and the f32
+    sum of the ranks' partials -- the all-reduce's arithmetic -- held
+    against the whole layer within 2e-2 of its max |out|.  Returns (the
+    log rows, the flash and RMSNorm shapes a rank ran, the failures)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding.policy import rank_view
+    arch = cfg.name
+    B, S = TP_BATCH
+    model = LM(cfg, compute_dtype=torch.bfloat16, remat=False,
+               use_kernels=True, device="cuda")
+    specs = {"attn": L.attention_specs(cfg)}
+    if with_mlp:
+        specs["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
+    params = L.init_params(specs, seed, torch.float32, "cuda")
+    logical = L.axes_tree(specs)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
+    blocks = {"attn": lambda p, tp: model._attn_partial(p, 0, x, pos,
+                                                        tp=tp)[0]}
+    if with_mlp:
+        blocks["mlp"] = lambda p, tp: L.mlp(p["mlp"], x)
+    whole = {k: f(params, None) for k, f in blocks.items()}
+    rows, shapes, failed = [], set(), []
+    for m in TP_MODEL:
+        mesh = make_host_mesh(data=1, model=m, device="cuda")
+        views = [rank_view(params, logical, mesh, r, L.tp_units(cfg))
+                 for r in range(m)]
+        if views[0][0] is None or views[0][0].heads is None:
+            log(f"[kernels] tp {arch} |model| {m}: heads not split, "
+                f"computed whole")
+            continue
+        for name, fn in blocks.items():
+            total = torch.zeros(whole[name].shape, dtype=torch.float32,
+                                device="cuda")
+            for tp, local in views:
+                total += fn(local, tp).float()
+            ref = whole[name].float()
+            err = (total.to(torch.bfloat16).float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ok = bool(torch.isfinite(total).all()) and \
+                err <= TOL["torch.bfloat16"] * scale
+            tp = views[0][0]
+            split = tp.heads if name == "attn" else tp.d_ff
+            row = dict(arch=arch, block=name, model=m, ok=ok, err=err,
+                       max_abs=scale, blocks=split.size)
+            log(f"[kernels] tp {arch} {name} |model| {m}: sum of {m} "
+                f"partials vs whole, max err {err:.4g} of max |out| "
+                f"{scale:.4g} (bound {TOL['torch.bfloat16'] * scale:.4g}) "
+                f"ok={ok}")
+            rows.append(row)
+            if not ok:
+                failed.append(("tp", arch, name, m))
+        for tp, local in views:
+            # the heads a rank's flash launch and q/k-norms take: its
+            # projections of one token, paired as its attention pairs them
+            q, k, v = L._qkv(local["attn"], cfg, x[:1, :1], pos[:1, :1])
+            kq = L.kv_for_heads(k, v, cfg, tp)[0]
+            shapes.add(("flash_attention", (B, S, S, q.shape[2],
+                                            kq.shape[2], cfg.head_dim,
+                                            True, 0)))
+            if cfg.qk_norm:
+                shapes.add(("rmsnorm", (B * S * q.shape[2], cfg.head_dim)))
+                shapes.add(("rmsnorm", (B * S * k.shape[2], cfg.head_dim)))
+    return rows, shapes, failed
+
+
+def tp_cases(rows: dict, seed: int, gen) -> list:
+    """Phase 1's tensor-parallel check over TP_ARCHS, then flash attention
+    (beside SDPA with ``enable_gqa``) and RMSNorm checked and timed at
+    each shape a rank ran that the other cases do not cover; into
+    rows["tp"]; the failures."""
+    import torch
+    from repro_torch.configs import get_config
+    failed, shapes, out = [], set(), []
+    for arch, with_mlp in TP_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=1)
+        got, sh, bad = tp_layer_check(cfg, with_mlp, seed, gen)
+        out += got
+        shapes |= sh
+        failed += bad
+        free_memory(f"tp {arch}")
+    covered = {("flash_attention", tuple(c)) for c in ZOO_ATTN} | {
+        ("rmsnorm", tuple(c)) for c in TRAIN_NORM + ZOO_NORM}
+    rows["tp"] = {"layers": out, "flash_attention": [], "rmsnorm": []}
+    for name, case in sorted(shapes - covered):
+        fn = attention_case if name == "flash_attention" else rmsnorm_case
+        r = fn(case, torch.bfloat16, gen)
+        lib = "sdpa" if name == "flash_attention" else "lib"
+        log(f"[kernels] {name} ({r['variant']}) tp {case} bf16: "
+            f"ok={r['ok']} err={r['max_abs_err']:.3g} ms={r['ms']:.5f} "
+            f"plain={r['plain_ms']:.4f} {lib}={r['library_ms']:.5f} "
+            f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
+        if not r["ok"]:
+            failed.append((name, case, "bf16"))
+        rows["tp"][name].append(dict(case=list(case), variant=r["variant"],
+                                     **{k: r[k] for k in TIMES}))
+    return failed
+
+
 def tensor_core_instructions(library) -> int:
     """HGMMA (wgmma) instructions in a built library's SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -838,6 +964,9 @@ def phase_kernels(seed: int) -> dict:
                 rows[f"ssd_scan/{r['variant']}"] = r
     failed += ssd_chunk_invariance(gen)
     failed += path_shape_cases(rows, gen)
+    t1 = time.perf_counter()
+    failed += tp_cases(rows, seed, gen)
+    log(f"[kernels] tp cases {time.perf_counter() - t1:.1f} s")
     r = ssd_case(SSD_LONG, torch.bfloat16, gen, timing_only=True)
     log(f"[kernels] ssd_scan ({r['variant']}) long {SSD_LONG} bf16, timing "
         f"only: ms={r['ms']:.5f} plain={r['plain_ms']:.4f} "
@@ -5024,8 +5153,8 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     on the serving paths); flash attention's and the SSD scan's variants
     (tc at the bf16 slice, fma at the f32 slice) and long-prompt timings;
     RMSNorm at d = 5120 and its two designs; each kernel at the zoo
-    paths' shapes, at those of the encoder-decoder and VLM paths and at
-    the zoo's training shapes."""
+    paths' shapes, at those of the encoder-decoder and VLM paths, at
+    the zoo's training shapes and at the dense split's per-rank shapes."""
     out = []
     for name, route, source, replaces in KERNEL_ROWS:
         row = dict(name=name, route=route, source=source, replaces=replaces,
@@ -5062,6 +5191,8 @@ def kernel_rows(rows: dict, by_path: dict) -> list:
     for row in out:
         for group in ("zoo", "mm", "train"):
             row[group] = rows[group][row["name"]]
+        # the per-rank shapes of the dense split (phase 1 only)
+        row["tp"] = rows["tp"].get(row["name"], [])
     return out
 
 

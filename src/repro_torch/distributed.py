@@ -207,6 +207,40 @@ class AllReduce(torch.autograd.Function):
         return ctx.group.all_reduce(g.clone()), None
 
 
+class ColumnInput(torch.autograd.Function):
+    """``apply(t, group, n)``: `n` views of `t`, one for each
+    column-parallel product that reads it on each of `group`'s ranks (a
+    rank's heads, ``d_ff`` columns or vocab rows: q, k and v; gate and
+    up; the head).  The backward reduces each product's grad over the
+    ranks on its own, all `n` in one all-reduce, as the reference's
+    partitioner does (one tuple all-reduce of the q, k and v input
+    grads), and averages them: each rank's grad of `t` is its own
+    columns' share, and with the loss weighted by a rank's share over the
+    ranks of its row (``runtime/trainer.py``) every rank's grad of the
+    activations before it is that share of the whole, as the residual
+    stream's is.  The pair to :class:`AllReduce` after the row-parallel
+    product: summed over the ranks, the grads count each token once, and
+    every rank's are the same bytes.
+
+    The reduced grads are added first, then last back to second ((q + v)
+    + k for three).  Every order is the same sum in exact arithmetic;
+    this one keeps the (2, 2) parity tests of the smoke zoo within the
+    reference's own layout spread (ROADMAP C.t2)."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        ctx.group, ctx.n = group, n
+        return tuple(t.view_as(t) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        red = ctx.group.all_reduce(torch.stack(gs)).div_(ctx.group.world)
+        acc = red[0]
+        for i in range(ctx.n - 1, 0, -1):
+            acc = acc + red[i]
+        return acc, None, None
+
+
 def init(rank: int, world: int, device_type: str, init_file: str,
          timeout_s: float = DEFAULT_TIMEOUT_S) -> Group:
     """Join the group as `rank` of `world`: NCCL on ``cuda:{rank}``, gloo

@@ -26,7 +26,11 @@ included, stays plain torch, as in the reference.  Like ``LM``,
 ``decode_step`` writes the new K/V into the cache in place, and inside a
 ``layers.gathering`` block each call gathers the top-level leaves once
 and each encoder or decoder layer where it reads it (in training inside
-its remat unit).
+its remat unit).  Where the gather's ``layers.tensor_shard`` cuts them,
+a rank computes its own heads of the encoder's, the decoder's and the
+cross-attention, its ``d_ff`` columns and vocab rows, as ``LM`` does:
+each block's output is summed over those ranks, and the self and cross
+caches hold the rank's key heads.
 
 ``build_model`` picks this class or ``LM`` from the config, as the
 reference's does.
@@ -114,8 +118,9 @@ class EncDecLM:
     def _norm(self, params, x):
         return L.rmsnorm(params, x, self.cfg.norm_eps, self.use_kernels)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["tok"][tokens].to(self.compute_dtype)
+    def _embed(self, params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+        return L.embed(params["embed"]["tok"], tokens, L.cut(tp, "vocab"),
+                       self.compute_dtype)
 
     def _remat(self, fn, *args):
         """fn(*args), recomputed in the backward with ``remat`` (one
@@ -135,87 +140,105 @@ class EncDecLM:
         return {k: g(v, k) for k, v in params.items()
                 if k not in ("enc_blocks", "dec_blocks")}
 
-    def _enc_block(self, lp, x, pos, g=L.no_gather):
+    def _mixed(self, o, wo, tp):
+        """The attention output `o` (B, S, heads, hd) through `wo`, summed
+        over the ranks of a heads split."""
+        o = o.reshape(*o.shape[:2], -1) @ wo.to(o.dtype)
+        return L.row_sum(o, L.cut(tp, "heads"))
+
+    def _enc_block(self, lp, x, pos, g=L.no_gather, tp=None):
         lp = g(lp, "enc_blocks")
         cfg = self.cfg
-        B, F = x.shape[:2]
-        h = self._norm(lp["pre_attn_norm"], x)
+        h = L.column_input(self._norm(lp["pre_attn_norm"], x),
+                           L.cut(tp, "heads"), 3)
         q, k, v = L._qkv(lp["attn"], cfg, h, pos)
-        o = L.attention(q, k, v, causal=False,
+        o = L.attention(q, *L.kv_for_heads(k, v, cfg, tp), causal=False,
                         use_kernels=self.use_kernels)
-        o = o.reshape(B, F, cfg.num_heads * cfg.head_dim)
-        x = x + o @ lp["attn"]["wo"].to(x.dtype)
-        return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x))
+        x = x + self._mixed(o, lp["attn"]["wo"], tp)
+        return x + self._mlp(lp, x, tp)
+
+    def _mlp(self, lp, x, tp):
+        """The block's MLP output, summed over a ``d_ff`` split."""
+        split = L.cut(tp, "d_ff")
+        h = L.column_input(self._norm(lp["pre_mlp_norm"], x), split, 2)
+        return L.row_sum(L.mlp(lp["mlp"], h), split)
 
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, F, d) -> the encoder's output (B, F, d), normed."""
-        g = L.current_gather() or L.no_gather
-        return self._encode(params, self._top(params, g), frames, g)
+        gather = L.current_gather()
+        g = gather or L.no_gather
+        return self._encode(params, self._top(params, g), frames, g,
+                            L.tensor_shard(gather))
 
-    def _encode(self, params, top, frames, g):
+    def _encode(self, params, top, frames, g, tp=None):
         x = frames.to(self.compute_dtype)
         pos = self._arange(x.shape[0], x.shape[1], x.device)
         for lp in _unstack(params["enc_blocks"], self.cfg.encoder_layers):
-            x = self._remat(self._enc_block, lp, x, pos, g)
+            x = self._remat(self._enc_block, lp, x, pos, g, tp)
         return self._norm(top["enc_final_norm"], x)
 
     # ---------------- decoder ----------------
-    def _dec_block(self, lp, x, enc_kv, pos):
+    def _dec_block(self, lp, x, enc_kv, pos, tp=None):
         """x (B,S,d); enc_kv = (k, v) (B,F,KV,hd) -> (x, (self k, self v))."""
         cfg = self.cfg
         B, S, _ = x.shape
-        h = self._norm(lp["pre_self_norm"], x)
+        split = L.cut(tp, "heads")
+        h = L.column_input(self._norm(lp["pre_self_norm"], x), split, 3)
         q, k, v = L._qkv(lp["self_attn"], cfg, h, pos)
-        o = L.attention(q, k, v, causal=True,
+        o = L.attention(q, *L.kv_for_heads(k, v, cfg, tp), causal=True,
                         use_kernels=self.use_kernels)
-        x = x + o.reshape(B, S, -1) @ lp["self_attn"]["wo"].to(x.dtype)
+        x = x + self._mixed(o, lp["self_attn"]["wo"], tp)
 
-        h = self._norm(lp["pre_cross_norm"], x)
+        h = L.column_input(self._norm(lp["pre_cross_norm"], x), split)
         q = (h @ lp["cross_attn"]["wq"].to(x.dtype)
-             ).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        o = L.attention(q, *enc_kv, causal=False,
+             ).reshape(B, S, -1, cfg.head_dim)
+        o = L.attention(q, *L.kv_for_heads(*enc_kv, cfg, tp), causal=False,
                         use_kernels=self.use_kernels)
-        x = x + o.reshape(B, S, -1) @ lp["cross_attn"]["wo"].to(x.dtype)
+        x = x + self._mixed(o, lp["cross_attn"]["wo"], tp)
+        return x + self._mlp(lp, x, tp), (k, v)
 
-        h = self._norm(lp["pre_mlp_norm"], x)
-        return x + L.mlp(lp["mlp"], h), (k, v)
-
-    def _cross_kv(self, lp, enc_out):
-        """The cross-attention's K/V (B, F, KV, hd) of one decoder layer."""
-        cfg = self.cfg
+    def _cross_kv(self, lp, enc_out, tp=None):
+        """The cross-attention's K/V (B, F, KV, hd) of one decoder layer
+        (a rank's key heads over a ``kv_heads`` split)."""
+        xk, xv = L.column_input(enc_out, L.cut(tp, "heads"), 2)
         B, F, _ = enc_out.shape
         dt = enc_out.dtype
-        shape = (B, F, cfg.num_kv_heads, cfg.head_dim)
-        ek = (enc_out @ lp["cross_attn"]["wk"].to(dt)).reshape(shape)
-        ev = (enc_out @ lp["cross_attn"]["wv"].to(dt)).reshape(shape)
+        shape = (B, F, -1, self.cfg.head_dim)
+        ek = (xk @ lp["cross_attn"]["wk"].to(dt)).reshape(shape)
+        ev = (xv @ lp["cross_attn"]["wv"].to(dt)).reshape(shape)
         return ek, ev
 
-    def _dec_layer(self, lp, x, enc_out, pos, g=L.no_gather):
+    def _dec_layer(self, lp, x, enc_out, pos, g=L.no_gather, tp=None):
         lp = g(lp, "dec_blocks")
-        return self._dec_block(lp, x, self._cross_kv(lp, enc_out), pos)[0]
+        return self._dec_block(lp, x, self._cross_kv(lp, enc_out, tp), pos,
+                               tp)[0]
 
-    def _decoder_input(self, params, top, batch, g):
+    def _decoder_input(self, params, top, batch, g, tp=None):
         """(the encoder's output, the token embeddings, their positions)."""
-        enc_out = self._encode(params, top, batch["frames"], g)
+        enc_out = self._encode(params, top, batch["frames"], g, tp)
         tokens = batch["tokens"]
         pos = self._arange(*tokens.shape, tokens.device)
-        return enc_out, self._embed(top, tokens), pos
+        return enc_out, self._embed(top, tokens, tp), pos
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Logits (B, S, padded_vocab) in the compute dtype.  Without
-        remat the backward saves every gathered layer: correct, but no
-        memory saved."""
-        g = L.current_gather() or L.no_gather
+        """Logits (B, S, padded_vocab) in the compute dtype (a rank's
+        vocab block where its gather cuts the vocab).  Without remat the
+        backward saves every gathered layer: correct, but no memory
+        saved."""
+        gather = L.current_gather()
+        g, tp = gather or L.no_gather, L.tensor_shard(gather)
         top = self._top(params, g)
-        enc_out, x, pos = self._decoder_input(params, top, batch, g)
+        enc_out, x, pos = self._decoder_input(params, top, batch, g, tp)
         for lp in _unstack(params["dec_blocks"], self.cfg.num_layers):
-            x = self._remat(self._dec_layer, lp, x, enc_out, pos, g)
+            x = self._remat(self._dec_layer, lp, x, enc_out, pos, g, tp)
         x = self._norm(top["final_norm"], x)
-        return L.head(top, x, self.cfg)
+        return L.head(top, x, self.cfg, L.cut(tp, "vocab"))
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The next-token loss (``layers.next_token_loss``); no aux loss."""
-        loss, ntok = L.next_token_loss(self.forward(params, batch), batch)
+        loss, ntok = L.next_token_loss(
+            self.forward(params, batch), batch,
+            L.cut(L.tensor_shard(L.current_gather()), "vocab"))
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
@@ -247,27 +270,28 @@ class EncDecLM:
         """Encode the frames and run the decoder over the prompt: the
         last position's logits (B, V) and the cache (self K/V of the
         prompt's length, cross K/V of every frame)."""
-        g = L.current_gather() or L.no_gather
+        gather = L.current_gather()
+        g, tp = gather or L.no_gather, L.tensor_shard(gather)
         top = self._top(params, g)
-        enc_out, x, pos = self._decoder_input(params, top, batch, g)
+        enc_out, x, pos = self._decoder_input(params, top, batch, g, tp)
         caches: Dict[str, list] = {k: [] for k in (
             "self_k", "self_v", "cross_k", "cross_v")}
         for lp in _unstack(params["dec_blocks"], self.cfg.num_layers):
             # the gathered layer lives for this call only
             x, kv = self._prefill_layer(g(lp, "dec_blocks"), x, enc_out,
-                                        pos)
+                                        pos, tp)
             for name, t in zip(("self_k", "self_v", "cross_k", "cross_v"),
                                kv):
                 caches[name].append(t)
         x = self._norm(top["final_norm"], x[:, -1:, :].contiguous())
-        logits = L.head(top, x, self.cfg)[:, 0, :]
+        logits = L.head(top, x, self.cfg, L.cut(tp, "vocab"))[:, 0, :]
         return logits, {k: torch.stack(ts) for k, ts in caches.items()}
 
-    def _prefill_layer(self, lp, x, enc_out, pos):
+    def _prefill_layer(self, lp, x, enc_out, pos, tp=None):
         """One decoder layer over the prompt: (x, (self k, self v, cross
         k, cross v))."""
-        ck, cv = self._cross_kv(lp, enc_out)
-        x, (sk, sv) = self._dec_block(lp, x, (ck, cv), pos)
+        ck, cv = self._cross_kv(lp, enc_out, tp)
+        x, (sk, sv) = self._dec_block(lp, x, (ck, cv), pos, tp)
         return x, (sk, sv, ck, cv)
 
     @torch.no_grad()
@@ -280,38 +304,43 @@ class EncDecLM:
         if not 0 <= pos < S_c:
             raise ValueError(f"decode position {pos} outside the cache "
                              f"(length {S_c})")
-        g = L.current_gather() or L.no_gather
+        gather = L.current_gather()
+        g, tp = gather or L.no_gather, L.tensor_shard(gather)
         top = self._top(params, g)
-        x = self._embed(top, tokens)                         # (B, d)
+        x = self._embed(top, tokens, tp)                     # (B, d)
         posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                           device=x.device)
         valid = torch.arange(S_c, device=x.device) <= pos
         layers = _unstack(params["dec_blocks"], cfg.num_layers)
         for lp, lc in zip(layers, _unstack(cache, cfg.num_layers)):
             x = self._decode_layer(g(lp, "dec_blocks"), lc, x, posv, valid,
-                                   pos)
+                                   pos, tp)
         x = self._norm(top["final_norm"], x)
-        return L.head(top, x, self.cfg), cache
+        return L.head(top, x, self.cfg, L.cut(tp, "vocab")), cache
 
-    def _decode_layer(self, lp, lc, x, posv, valid, pos: int):
+    def _decode_layer(self, lp, lc, x, posv, valid, pos: int, tp=None):
         """One decoder layer against its cache `lc`, written in place."""
         cfg = self.cfg
-        H, hd = cfg.num_heads, cfg.head_dim
         B = x.shape[0]
         h = self._norm(lp["pre_self_norm"], x)
         q, k_new, v_new = L._qkv(lp["self_attn"], cfg, h[:, None, :], posv)
         lc["self_k"][:, pos] = k_new[:, 0]
         lc["self_v"][:, pos] = v_new[:, 0]
-        o = L.decode_attention(q, lc["self_k"], lc["self_v"], valid)
-        x = x + o @ lp["self_attn"]["wo"].to(x.dtype)
+        o = L.decode_attention(
+            q, *L.kv_for_heads(lc["self_k"], lc["self_v"], cfg, tp), valid)
+        x = x + L.row_sum(o @ lp["self_attn"]["wo"].to(x.dtype),
+                          L.cut(tp, "heads"))
 
         h = self._norm(lp["pre_cross_norm"], x)
-        q = (h @ lp["cross_attn"]["wq"].to(x.dtype)).reshape(B, 1, H, hd)
-        o = L.self_attention(q, lc["cross_k"], lc["cross_v"], causal=False)
-        x = x + o.reshape(B, H * hd) @ lp["cross_attn"]["wo"].to(x.dtype)
+        q = (h @ lp["cross_attn"]["wq"].to(x.dtype)
+             ).reshape(B, 1, -1, cfg.head_dim)
+        o = L.self_attention(
+            q, *L.kv_for_heads(lc["cross_k"], lc["cross_v"], cfg, tp),
+            causal=False)
+        x = x + L.row_sum(o.reshape(B, -1) @ lp["cross_attn"]["wo"].to(
+            x.dtype), L.cut(tp, "heads"))
 
-        h = self._norm(lp["pre_mlp_norm"], x)
-        return x + L.mlp(lp["mlp"], h)
+        return x + self._mlp(lp, x, tp)
 
 
 def build_model(cfg: ModelConfig, **kw):

@@ -10,6 +10,29 @@ Port of the JAX package's ``models/layers.py`` for serving and training:
     prefill never materialises an (S x S) score tensor.
 
 Sharding constraints of the reference have no counterpart on one device.
+Across ranks the reference's constraints pin q, k and v to ``heads`` /
+``kv_heads``, the MLP's hidden to ``d_ff`` and the logits to ``vocab``
+over the policy's ``tp`` axes; the port computes the same split by hand
+where a :class:`sharding.policy.TensorShard` says a kind is cut
+(:func:`tensor_shard`, from the call's gather): the layers here take a
+rank's blocks of the weights as they are given (the head counts come from
+the weights' shapes), :func:`kv_for_heads` picks the key heads a rank's
+query heads pair with, and :func:`row_sum` adds a row-parallel output
+over the ranks (``distributed.AllReduce``, whose backward sums the
+grads as the transpose of ``psum``), while :func:`column_input` marks
+the activation that column-parallel products read
+(``distributed.ColumnInput``: its backward reduces each product's grads
+over the ranks and averages them, so that, with the trainer's loss
+weighted by a rank's share over the ranks of its row, every rank's
+activation grads are the same share of the whole, and the gathers'
+reduce-scatter counts each token once).  The vocab split has its own
+embedding lookup (:func:`embed`), head, cross-entropy (:func:`_xent_nll`:
+the max, the sum of exp and the target logit, each reduced over the
+ranks) and greedy pick (:func:`greedy`).  A split whose group is None (a
+rank that one process emulates, ``sharding.policy.rank_view``) runs no
+collective: :func:`row_sum` and :func:`column_input` refuse it, and its
+callers take the rank's partial output before the sum
+(``LM._attn_partial``, :func:`mlp`).
 """
 from __future__ import annotations
 
@@ -84,6 +107,59 @@ def expert_shard(gather):
     (``sharding.policy.ExpertShard``), or None: one rank holds every
     expert."""
     return getattr(gather, "experts", None)
+
+
+def tensor_shard(gather):
+    """The dense layers' place across ranks that `gather` carries
+    (``sharding.policy.TensorShard``), or None: computed whole."""
+    return getattr(gather, "tensor", None)
+
+
+def tp_units(cfg) -> Dict[str, int]:
+    """The heads of `cfg`'s attention: a tensor-parallel split cuts the
+    H·hd columns of a projection by whole heads only
+    (``sharding.policy.tp_axes``)."""
+    return {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+
+
+def cut(tp, kind: str):
+    """The ``sharding.policy.Split`` of `kind` in the TensorShard `tp`,
+    or None: computed whole."""
+    return getattr(tp, kind) if tp is not None else None
+
+
+def _group(split):
+    """`split`'s group.  A split without one is a rank that one process
+    emulates (``sharding.policy.rank_view``): it has no collectives, and
+    its caller sums the ranks' partial outputs itself."""
+    if split.group is None:
+        raise ValueError("a split without a group (a rank that one "
+                         "process emulates) reduces over no ranks: sum "
+                         "the ranks' partial outputs instead")
+    return split.group
+
+
+def column_input(x: torch.Tensor, split, n: int = 1):
+    """`x` as `n` column-parallel products over `split` read it (``n``
+    views, or `x` itself at ``n == 1``): each product's grads reduced
+    over the ranks on their own in the backward
+    (``distributed.ColumnInput``).  `x` itself without a split."""
+    if split is None:
+        return x if n == 1 else (x,) * n
+    from repro_torch.distributed import ColumnInput
+    out = ColumnInput.apply(x, _group(split), n)
+    return out[0] if n == 1 else out
+
+
+def row_sum(partial: torch.Tensor, split) -> torch.Tensor:
+    """A row-parallel product's output: the rank's partial summed in f32
+    over the ranks of `split` and cast back (one all-reduce); `partial`
+    itself without a split."""
+    if split is None:
+        return partial
+    from repro_torch.distributed import AllReduce
+    return AllReduce.apply(partial.float(), _group(split)).to(
+        partial.dtype)
 
 
 def no_gather(tree, *path):
@@ -297,18 +373,23 @@ def attention_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
-def _qkv(params, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
+def _qkv(params, cfg, x, positions: Optional[torch.Tensor],
          rope: bool = True, use_kernels: bool = False):
-    """Project to q (B,S,H,hd), k/v (B,S,KV,hd), q/k-normed per head
-    (Qwen3, through the RMSNorm kernel with ``use_kernels``) when the
-    config asks, with RoPE (M-RoPE for a ``cfg.mrope`` config, positions
-    (3, B, S)) applied."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt = x.dtype
-    q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    """Project `x` (B,S,d), or the three views (q's, k's, v's) that
+    :func:`column_input` gives, to q (B,S,H,hd), k/v (B,S,KV,hd),
+    q/k-normed per head (Qwen3, through the RMSNorm kernel with
+    ``use_kernels``) when the config asks, with RoPE (M-RoPE for a
+    ``cfg.mrope`` config, positions (3, B, S)) applied.  H and KV are the
+    heads of the weights given: a rank's blocks of a split attention give
+    its own."""
+    xq, xk, xv = x if isinstance(x, tuple) else (x, x, x)
+    B, S, _ = xq.shape
+    hd = cfg.head_dim
+    H, KV = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    dt = xq.dtype
+    q = xq @ params["wq"].to(dt)
+    k = xk @ params["wk"].to(dt)
+    v = xv @ params["wv"].to(dt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -345,6 +426,41 @@ def maybe_expand_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return k, v
     rep = H // KV
     return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+
+
+def q_heads(cfg, tp) -> Tuple[int, int]:
+    """(first, count) of the query heads a rank computes: all of them
+    unless `tp` cuts ``heads``."""
+    split = cut(tp, "heads")
+    if split is None:
+        return 0, cfg.num_heads
+    n = cfg.num_heads // split.size
+    return split.index * n, n
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg, tp
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V (B,S,KV,hd) as the rank's query heads meet them: the key head
+    of query head h is ``h // (H / KV)``.  Whole heads, or heads and key
+    heads cut alike, pair as they are; where the query heads are cut and
+    the key heads are not, a rank takes the key heads of its query heads
+    -- a slice where each of them serves as many of its query heads
+    (GQA over the slice), else one key head per query head (a group the
+    cut splits, e.g. 40 / 10 heads over 4 ranks: the reference's
+    ``maybe_expand_gqa`` for the rank's heads)."""
+    if cut(tp, "heads") is None or cut(tp, "kv_heads") is not None:
+        return k, v
+    first, n = q_heads(cfg, tp)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = first // rep, (first + n - 1) // rep + 1
+    served = {min(first + n, (j + 1) * rep) - max(first, j * rep)
+              for j in range(lo, hi)}
+    if len(served) == 1:
+        if (lo, hi) == (0, k.shape[2]):
+            return k, v
+        return (k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous())
+    idx = torch.arange(first, first + n, device=k.device) // rep
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -423,43 +539,97 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(B, H * hd)
 
 
-def head(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor, split,
+          dtype) -> torch.Tensor:
+    """The token embeddings in `dtype` (gather, then cast: the same values
+    as casting the whole table).  Over a vocab `split` a rank holds the
+    table's rows of its block: it looks up the tokens that fall there,
+    zeros the others and the ranks' lookups are summed (each token's row
+    comes from one rank, so the f32 sum is exact)."""
+    if split is None:
+        return table[tokens].to(dtype)
+    n = table.shape[0]
+    local = tokens - split.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].float()
+    part = torch.where(inside[..., None], rows, 0.0)
+    return row_sum(part, split).to(dtype)
+
+
+def head(params, x: torch.Tensor, cfg, split=None) -> torch.Tensor:
     """Logits over the padded vocab: x times the tied embedding, or the
-    untied ``lm_head``, the padding columns masked."""
+    untied ``lm_head``, the padding columns masked; over a vocab `split`
+    a rank's block of the columns."""
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
-    return mask_padded_vocab(x @ w, cfg)
+    offset = split.index * w.shape[-1] if split is not None else 0
+    return mask_padded_vocab(column_input(x, split) @ w, cfg, offset)
 
 
-def mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
-    """-1e30 out the vocab-padding columns (see ModelConfig.padded_vocab)."""
-    if cfg.padded_vocab == cfg.vocab_size:
+def mask_padded_vocab(logits: torch.Tensor, cfg,
+                      offset: int = 0) -> torch.Tensor:
+    """-1e30 out the vocab-padding columns (see ModelConfig.padded_vocab);
+    `logits` the columns from `offset` on (a rank's block of the vocab)."""
+    start = max(cfg.vocab_size - offset, 0)
+    if start >= logits.shape[-1]:
         return logits
     out = logits.clone()
     # fill_, not a scalar assignment: that one takes another op on the
     # meta device than on a card, and the dry run's trace follows the card
-    out[..., cfg.vocab_size:].fill_(-1e30)
+    out[..., start:].fill_(-1e30)
     return out
+
+
+def greedy(logits: torch.Tensor, split=None) -> torch.Tensor:
+    """Greedy tokens (B,) int32 from logits (B, V): the lowest index of
+    the largest logit, as ``jnp.argmax``.  Over a vocab `split` each rank
+    offers its block's best (value, global index) and the ranks' offers
+    are compared whole: the largest value, the lowest index among ties."""
+    idx = torch.argmax(logits, dim=-1)
+    if split is None:
+        return idx.to(torch.int32)
+    val = logits.gather(-1, idx[:, None])[:, 0].float()
+    group = _group(split)
+    vals = torch.stack(group.all_gather(val))
+    idxs = torch.stack(group.all_gather(
+        idx + split.index * logits.shape[-1]))
+    best = vals.max(dim=0).values
+    tied = torch.where(vals == best, idxs, torch.iinfo(idxs.dtype).max)
+    return tied.min(dim=0).values.to(torch.int32)
 
 
 # ======================================================================
 # loss
 # ======================================================================
-def _xent_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _xent_nll(logits: torch.Tensor, targets: torch.Tensor,
+              split=None) -> torch.Tensor:
     """Per-token NLL.  The label logit is picked with the reference's
     compare-select-reduce (iota == target, where, sum), not a gather: its
     backward stays an elementwise op, deterministic on CUDA without a
-    scatter-add."""
+    scatter-add.  Over a vocab `split` (`logits` a rank's block of the
+    columns) the f32 max is reduced over the ranks first, then the sum of
+    exp and the target logit together, in one all-reduce: the reference's
+    ``logsumexp`` - target, its backward by autograd as the reference's is
+    by autodiff (``g / sum · exp(logit - max)``, less g at the target)."""
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)                            # (B,S)
     iota = torch.arange(lg.shape[-1], device=lg.device)
-    sel = torch.where(iota == targets[..., None], lg, 0.0)
-    return lse - sel.sum(dim=-1)
+    if split is None:
+        lse = torch.logsumexp(lg, dim=-1)                        # (B,S)
+        sel = torch.where(iota == targets[..., None], lg, 0.0)
+        return lse - sel.sum(dim=-1)
+    from repro_torch.distributed import AllReduce
+    group = _group(split)
+    hit = iota + split.index * lg.shape[-1] == targets[..., None]
+    mx = group.all_reduce(lg.detach().amax(dim=-1, keepdim=True), "max")
+    se, sel = AllReduce.apply(torch.stack([
+        torch.exp(lg - mx).sum(dim=-1),
+        torch.where(hit, lg, 0.0).sum(dim=-1)]), group)
+    return torch.log(se) + mx[..., 0] - sel
 
 
-def next_token_loss(logits: torch.Tensor, batch
+def next_token_loss(logits: torch.Tensor, batch, split=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-length next-token loss and its token count: targets are the
     tokens rolled by one, the last position masked (S stays whole, as in
@@ -471,22 +641,23 @@ def next_token_loss(logits: torch.Tensor, batch
                        device=tokens.device) if mask is None
             else mask.float().clone())
     mask[:, -1].fill_(0.0)             # fill_: see mask_padded_vocab
-    return softmax_xent_sharded(logits, targets, mask)
+    return softmax_xent_sharded(logits, targets, mask, split)
 
 
 def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None
+                         mask: Optional[torch.Tensor] = None, split=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean cross-entropy and the token count; sequence-chunked
     when ``XENT_SEQ_CHUNK`` divides S, so at most (B, chunk, V) f32
-    intermediates are live at once."""
+    intermediates are live at once.  `split`: the logits are a rank's
+    block of the vocab (:func:`_xent_nll`)."""
     S = logits.shape[1]
     C = XENT_SEQ_CHUNK
     if C and S > C and S % C == 0:
-        nll = torch.cat([_xent_nll(logits[:, i:i + C], targets[:, i:i + C])
-                         for i in range(0, S, C)], dim=1)
+        nll = torch.cat([_xent_nll(logits[:, i:i + C], targets[:, i:i + C],
+                                   split) for i in range(0, S, C)], dim=1)
     else:
-        nll = _xent_nll(logits, targets)
+        nll = _xent_nll(logits, targets, split)
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
@@ -506,8 +677,14 @@ def mlp_specs(d: int, ff: int) -> Dict[str, ParamSpec]:
     }
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    dt = x.dtype
-    g = x @ params["w_gate"].to(dt)
-    u = x @ params["w_up"].to(dt)
+def mlp(params, x) -> torch.Tensor:
+    """The SwiGLU MLP of the weights given, on `x` or on the two views
+    (the gate's, the up's) that :func:`column_input` gives: over a
+    ``d_ff`` split, a rank's columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down`` give its partial output (:func:`row_sum` adds the
+    ranks')."""
+    xg, xu = x if isinstance(x, tuple) else (x, x)
+    dt = xg.dtype
+    g = xg @ params["w_gate"].to(dt)
+    u = xu @ params["w_up"].to(dt)
     return (F.silu(g) * u) @ params["w_down"].to(dt)

@@ -34,7 +34,17 @@ loop.  With ``CAST_PARAMS_ONCE`` the cast comes after the gather.  The
 gather also places each MoE block across the ranks
 (``layers.expert_shard``): a rank computes its own experts, gathered
 over the data axes alone, and sums the partial outputs over the model
-ranks (``models/moe.py``).
+ranks (``models/moe.py``); and the dense layers
+(``layers.tensor_shard``): where the policy's ``tp`` axes cut them, a
+rank computes its own query heads (and key heads, or those its query
+heads pair with), ``d_ff`` columns and vocab rows, and each attention
+and MLP output is summed over those ranks in f32 (``layers.row_sum``),
+its embedding lookup too; its logits are its vocab block, and the loss
+reduces over the ranks (``layers._xent_nll``).  A serving rank's cache
+then holds its key heads alone.  The Mamba mixer is computed whole.
+The collectives run in the layer order on every rank of a block, the
+attention's before the MoE's, and a remat's recompute issues them again
+in that order.
 Encoder-decoder configs (whisper) are ``models.encdec.EncDecLM``;
 ``models.encdec.build_model`` picks the class from the config.
 
@@ -156,14 +166,14 @@ class LM:
     def _norm(self, params, x):
         return L.rmsnorm(params, x, self.cfg.norm_eps, self.use_kernels)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        # gather, then cast: the same values as casting the whole table
-        return params["embed"]["tok"][tokens].to(self.compute_dtype)
+    def _embed(self, params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+        return L.embed(params["embed"]["tok"], tokens, L.cut(tp, "vocab"),
+                       self.compute_dtype)
 
-    def _embed_batch(self, params, batch) -> torch.Tensor:
+    def _embed_batch(self, params, batch, tp=None) -> torch.Tensor:
         """The token embeddings, the first P positions replaced by the
         batch's ``vision_embeds`` (B, P, d) when it has them."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], tp)
         ve = batch.get("vision_embeds")
         if ve is None:
             return x
@@ -173,18 +183,20 @@ class LM:
                              f"sequence of {S} tokens")
         return torch.cat([ve.to(self.compute_dtype), x[:, P:]], dim=1)
 
-    def _ffn(self, lp, x, dropless: bool = False, ep=None):
+    def _ffn(self, lp, x, dropless: bool = False, ep=None, tp=None):
         """x + the layer's FFN, and the MoE aux (None without MoE); `ep`
         places the MoE block across ranks (``sharding.policy.
-        ExpertShard``, from the call's gather)."""
+        ExpertShard``, from the call's gather), `tp` the MLP
+        (``TensorShard``)."""
         if "moe" in lp:
             f, aux = MOE.moe_block(lp["moe"], self.cfg,
                                    self._norm(lp["pre_mlp_norm"], x),
                                    dropless=dropless, ep=ep)
             return x + f, aux
         if "mlp" in lp:
-            return x + L.mlp(lp["mlp"], self._norm(lp["pre_mlp_norm"], x)), \
-                None
+            split = L.cut(tp, "d_ff")
+            h = L.column_input(self._norm(lp["pre_mlp_norm"], x), split, 2)
+            return x + L.row_sum(L.mlp(lp["mlp"], h), split), None
         return x, None                      # pure-SSM archs: no FFN
 
     def _layers(self, params) -> Dict[str, List[PyTree]]:
@@ -204,22 +216,23 @@ class LM:
         return base.expand(3, B, S) if self.cfg.mrope else base
 
     # ---------------- forward / loss (training) ----------------
-    def _block(self, lp, j: int, x, positions, ep=None):
+    def _block(self, lp, j: int, x, positions, ep=None, tp=None):
         """One layer: (x, its MoE aux or None)."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
-            o = self._attn(lp, j, h, positions, expand_gqa=True)[0]
+            o = self._attn(lp, j, h, positions, expand_gqa=True, tp=tp)[0]
         else:
             o = M.mamba_block(lp["mamba"], self.cfg, h, self.use_kernels)
-        return self._ffn(lp, x + o, ep=ep)
+        return self._ffn(lp, x + o, ep=ep, tp=tp)
 
-    def _superblock(self, lps, x, aux, positions, g=L.no_gather, ep=None):
+    def _superblock(self, lps, x, aux, positions, g=L.no_gather, ep=None,
+                    tp=None):
         """One pass over the pattern (layers ``lps``, one per position,
         each gathered by `g` first): (x, aux plus each MoE layer's aux,
         in layer order)."""
         lps = [g(lp, "blocks", f"pos{j}") for j, lp in enumerate(lps)]
         for j, lp in enumerate(lps):
-            x, a = self._block(lp, j, x, positions, ep)
+            x, a = self._block(lp, j, x, positions, ep, tp)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -237,7 +250,7 @@ class LM:
         gathers its layers again there.  Without remat the backward
         saves every gathered layer: correct, but no memory saved."""
         gather = L.current_gather()
-        ep = L.expert_shard(gather)
+        ep, tp = L.expert_shard(gather), L.tensor_shard(gather)
         if gather is None:
             params, g = (L.maybe_cast_params(params, self.compute_dtype),
                          L.no_gather)
@@ -247,7 +260,7 @@ class LM:
                 return L.maybe_cast_params(gather(tree, *path),
                                            self.compute_dtype)
         top = self._top(params, g)
-        x = self._embed_batch(top, batch)
+        x = self._embed_batch(top, batch, tp)
         positions = self._positions(batch)
         layers = self._layers(params)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -255,14 +268,16 @@ class LM:
             lps = [layers[f"pos{j}"][i] for j in range(self._P)]
             if self.remat:
                 x, aux = checkpoint(self._superblock, lps, x, aux,
-                                    positions, g, ep, use_reentrant=False)
+                                    positions, g, ep, tp,
+                                    use_reentrant=False)
             else:
-                x, aux = self._superblock(lps, x, aux, positions, g, ep)
+                x, aux = self._superblock(lps, x, aux, positions, g, ep, tp)
         x = self._norm(top["final_norm"], x)
-        return L.head(top, x, self.cfg), aux
+        return L.head(top, x, self.cfg, L.cut(tp, "vocab")), aux
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Logits (B, S, padded_vocab) in the compute dtype."""
+        """Logits (B, S, padded_vocab) in the compute dtype (a rank's
+        vocab block where its gather cuts the vocab)."""
         return self._forward(params, batch)[0]
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -270,7 +285,9 @@ class LM:
         ``0.01 * aux``, aux the MoE layers' load-balance losses summed (0
         without MoE)."""
         logits, aux = self._forward(params, batch)
-        loss, ntok = L.next_token_loss(logits, batch)
+        loss, ntok = L.next_token_loss(
+            logits, batch, L.cut(L.tensor_shard(L.current_gather()),
+                                 "vocab"))
         total = loss + 0.01 * aux
         return total, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
@@ -324,8 +341,9 @@ class LM:
         ``p % window``)."""
         gather = L.current_gather()
         g, ep = gather or L.no_gather, L.expert_shard(gather)
+        tp = L.tensor_shard(gather)
         top = self._top(params, g)
-        x = self._embed_batch(top, batch)
+        x = self._embed_batch(top, batch, tp)
         positions = self._positions(batch)
         layers = self._layers(params)
         caches: Dict[str, Dict[str, list]] = {
@@ -335,20 +353,20 @@ class LM:
                 # the gathered layer lives for this call only
                 x, nc = self._prefill_layer(
                     g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
-                    positions, ep)
+                    positions, ep, tp)
                 for k, t in nc.items():
                     caches[f"pos{j}"].setdefault(k, []).append(t)
         x = self._norm(top["final_norm"], x[:, -1:, :].contiguous())
-        logits = L.head(top, x, self.cfg)[:, 0, :]
+        logits = L.head(top, x, self.cfg, L.cut(tp, "vocab"))[:, 0, :]
         cache = {p: {k: torch.stack(ts) for k, ts in leaves.items()}
                  for p, leaves in caches.items()}
         return logits, cache
 
-    def _prefill_layer(self, lp, j: int, x, positions, ep=None):
+    def _prefill_layer(self, lp, j: int, x, positions, ep=None, tp=None):
         """One prefill layer: (x, its cache leaves)."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
-            o, nc = self._attn(lp, j, h, positions)
+            o, nc = self._attn(lp, j, h, positions, tp=tp)
             window = self._window(j)
             S = nc["k"].shape[1]
             if window and window < S:
@@ -359,32 +377,48 @@ class LM:
             o, hfin, nc = M.mamba_prefill(lp["mamba"], self.cfg, h,
                                           self.use_kernels)
             nc = {"h": hfin, **nc}
-        return self._ffn(lp, x + o, ep=ep)[0], nc
+        return self._ffn(lp, x + o, ep=ep, tp=tp)[0], nc
 
     def _window(self, j: int) -> int:
         """The attention window of pattern position j (0: none)."""
         return self.cfg.sliding_window if self.cfg.layer_kind(j) == "swa" \
             else 0
 
-    def _attn(self, lp, j: int, h, positions, expand_gqa: bool = False):
+    def _attn(self, lp, j: int, h, positions, expand_gqa: bool = False,
+              tp=None):
         """Causal self-attention over a sequence, windowed for an SWA
         layer: (out, {k, v}).  `expand_gqa`: the training forward, where
-        the reference applies ``GQA_EXPAND``."""
-        cfg = self.cfg
-        B, S = h.shape[:2]
-        window = self._window(j)
-        q, k, v = L._qkv(lp["attn"], cfg, h, positions,
+        the reference applies ``GQA_EXPAND``.  Over a heads split (`tp`)
+        the rank's heads, its output summed over the ranks."""
+        split = L.cut(tp, "heads")
+        o, kv = self._attn_partial(lp, j, L.column_input(h, split, 3),
+                                   positions, expand_gqa, tp)
+        return L.row_sum(o, split), kv
+
+    def _attn_partial(self, lp, j: int, h, positions,
+                      expand_gqa: bool = False, tp=None):
+        """:meth:`_attn` before the sum over the ranks: the rank's heads
+        (all of them without a split) through ``wo``, and its {k, v}.
+        `h` is (B, S, d), or the q, k and v views of it that
+        ``layers.column_input`` gives.  One process emulating the ranks of
+        a split (``sharding.policy.rank_view``) sums these outputs."""
+        x = h[0] if isinstance(h, tuple) else h
+        q, k, v = L._qkv(lp["attn"], self.cfg, h, positions,
                          use_kernels=self.use_kernels)
-        ka, va = L.maybe_expand_gqa(q, k, v) if expand_gqa else (k, v)
-        o = L.attention(q, ka, va, causal=True, window=window,
+        ka, va = L.kv_for_heads(k, v, self.cfg, tp)
+        if expand_gqa:
+            ka, va = L.maybe_expand_gqa(q, ka, va)
+        o = L.attention(q, ka, va, causal=True, window=self._window(j),
                         use_kernels=self.use_kernels)
-        o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-        return o @ lp["attn"]["wo"].to(h.dtype), {"k": k, "v": v}
+        o = o.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"].to(x.dtype)
+        return o, {"k": k, "v": v}
 
     # ---------------- decode ----------------
-    def _decode_attn(self, lp, j: int, x, k_cache, v_cache, pos: int):
+    def _decode_attn(self, lp, j: int, x, k_cache, v_cache, pos: int,
+                     tp=None):
         """x (B, d); k/v_cache (B, S_c, KV, hd), updated in place at pos,
-        or at slot ``pos % S_c`` of an SWA layer's ring."""
+        or at slot ``pos % S_c`` of an SWA layer's ring (a rank's key
+        heads over a ``kv_heads`` split)."""
         cfg = self.cfg
         B = x.shape[0]
         S_c = k_cache.shape[1]
@@ -400,8 +434,10 @@ class LM:
 
         idx = torch.arange(S_c, device=x.device)
         valid = idx < min(pos + 1, S_c) if ring else idx <= pos
-        o = L.decode_attention(q, k_cache, v_cache, valid)
-        return o @ lp["attn"]["wo"].to(x.dtype)
+        o = L.decode_attention(q, *L.kv_for_heads(k_cache, v_cache, cfg, tp),
+                               valid)
+        return L.row_sum(o @ lp["attn"]["wo"].to(x.dtype),
+                         L.cut(tp, "heads"))
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int
@@ -417,24 +453,25 @@ class LM:
                                      f"cache (length {S_c})")
         gather = L.current_gather()
         g, ep = gather or L.no_gather, L.expert_shard(gather)
+        tp = L.tensor_shard(gather)
         top = self._top(params, g)
-        x = self._embed(top, tokens)                         # (B, d)
+        x = self._embed(top, tokens, tp)                     # (B, d)
         layers = self._layers(params)
         caches = {p: _unstack(c, self._n_sb) for p, c in cache.items()}
         for i in range(self._n_sb):
             for j in range(self._P):
                 x = self._decode_layer(
                     g(layers[f"pos{j}"][i], "blocks", f"pos{j}"), j, x,
-                    caches[f"pos{j}"][i], pos, ep)
+                    caches[f"pos{j}"][i], pos, ep, tp)
         x = self._norm(top["final_norm"], x)
-        return L.head(top, x, self.cfg), cache
+        return L.head(top, x, self.cfg, L.cut(tp, "vocab")), cache
 
-    def _decode_layer(self, lp, j: int, x, lc, pos: int, ep=None):
+    def _decode_layer(self, lp, j: int, x, lc, pos: int, ep=None, tp=None):
         """One decode layer against its cache `lc`, written in place."""
         h = self._norm(lp["pre_mixer_norm"], x)
         if self.cfg.layer_kind(j) in ATTN_KINDS:
-            o = self._decode_attn(lp, j, h, lc["k"], lc["v"], pos)
+            o = self._decode_attn(lp, j, h, lc["k"], lc["v"], pos, tp)
         else:
             o = M.mamba_decode(lp["mamba"], self.cfg, h, lc,
                                self.use_kernels)
-        return self._ffn(lp, x + o, dropless=True, ep=ep)[0]  # no drops
+        return self._ffn(lp, x + o, dropless=True, ep=ep, tp=tp)[0]

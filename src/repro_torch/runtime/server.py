@@ -24,22 +24,29 @@ With a process mesh (one rank per card, over ``(data, model)``; the
 launchers' ``data`` = the world size) the batch and the cache go over
 the policy's data-parallel axes (``dp``): each rank prefills and
 decodes the rows of the batch at its coordinate over them (the ranks of
-one coordinate, over ``model``, the same rows).  A rank computes its
-rows' attention whole, so it keeps its rows' cache whole, with no
-collective a token; an image holds the block the policy lays on the
-rank, cut from it when captured: its rows (batch-sharded, the cache's
-``cache_seq`` losing the contested axis by the policy's rule) and, over
-``model``, its share of ``kv_heads`` (or of the SSM heads), which a
-restore gathers back over the off-data axes.  A rank keeps
-only its blocks of the params: each prefill and decode step runs the
-model under ``layers.gathering(param_gather(...))``, which gathers the
-top-level leaves once a call and each layer in the model's loop (an
-expert leaf over the data axes alone: a rank computes its own experts,
-``models/moe.py``), so a rank holds one layer's weights at a time and
-no whole tree between steps (``gathered``: what the last call
-gathered).  The tokens are gathered over the ``dp`` axes every step, so
-every rank holds the whole generation and rank 0's pack carries it in
-the decode cursor.  The global batch must divide over the data size.
+one coordinate, over ``model``, the same rows).  Where the policy's
+``tp`` axes cut the heads, a rank computes its own heads
+(``models/layers.py``) and keeps its ``kv_heads`` block of its rows'
+cache, the reference's ``cache_shardings`` rule; a cache leaf the
+computation keeps whole (the SSM state, key heads the axes do not
+divide) it keeps whole over the off-data axes.  An image holds the block
+the policy lays on the rank, cut from it when captured: its rows
+(batch-sharded, the cache's ``cache_seq`` losing the contested axis by
+the policy's rule) and, over ``model``, its share of ``kv_heads`` (or of
+the SSM heads), which a restore gathers back over the axes the rank
+keeps whole.  A rank keeps only its blocks of the params: each prefill
+and decode step runs the model under
+``layers.gathering(param_gather(...))``, which gathers the top-level
+leaves once a call and each layer in the model's loop (an expert leaf
+over the data axes alone: a rank computes its own experts,
+``models/moe.py``; a leaf the ``tp`` axes cut over the others alone),
+so a rank holds one layer's weights at a time and no whole tree between
+steps (``gathered``: what the last call gathered).  Over a vocab split
+a rank's logits are its vocab block, and the greedy pick compares the
+ranks' best (``layers.greedy``: the lowest index on a tie, as
+``jnp.argmax``).  The tokens are gathered over the ``dp`` axes every
+step, so every rank holds the whole generation and rank 0's pack
+carries it in the decode cursor.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.core.lazy import covers
 from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.encdec import build_model
 from repro_torch.models.layers import gathering
 from repro_torch.runtime.fault import SimulatedFailure
@@ -100,8 +108,8 @@ class DecodeServer:
         self.ranks = mesh if getattr(mesh, "is_process_mesh", False) \
             else None
         self._gather = None
-        # the cache's mesh axes off the data axes (None: its block is
-        # its rows whole)
+        # per cache leaf, the mesh axes a rank keeps it whole over (None
+        # or (): its block is what the rank keeps)
         self._cache_axes = self._cache_sh = None
         if self.ranks is not None:
             # the policy's data-parallel axes split a generation's batch
@@ -127,17 +135,32 @@ class DecodeServer:
         data-parallel axes that divide it split its rows (``row_axes``;
         none: every rank serves it whole), this rank's coordinate over
         them and their ranks, the model's gather (its MoE's token
-        shards), and the mesh axes of the cache's blocks off those rows
-        (None: a block is its rows whole)."""
+        shards, its dense layers' tensor split), and per cache leaf the
+        mesh axes off those rows that the rank keeps it whole over: all
+        of them, but those of the key heads where the rank computes its
+        own."""
         mesh = self.ranks
         rows = row_axes(mesh, self._dp, batch)
         self._row = mesh.coord(rows)[0]
         self._data = mesh.axis_group(rows)
         self._gather = param_gather(self._param_shardings,
-                                    self.model.param_axes(), self._dp, rows)
-        self._cache_axes = tuple(a for a in mesh.axis_names
-                                 if a not in rows and mesh.shape[a] > 1
-                                 ) or None
+                                    self.model.param_axes(), self._dp, rows,
+                                    L.tp_units(self.cfg))
+        off = tuple(a for a in mesh.axis_names
+                    if a not in rows and mesh.shape[a] > 1)
+        kv = L.cut(L.tensor_shard(self._gather), "kv_heads")
+
+        def kept(sh, logical):
+            if kv is None or "kv_heads" not in logical:
+                return off
+            held = tuple(a for a in sh._dim_axes(len(logical))[
+                logical.index("kv_heads")] if mesh.shape[a] > 1)
+            if held != kv.axes:
+                raise ValueError(f"the cache's key heads lie over {held}, "
+                                 f"the attention's over {kv.axes}")
+            return tuple(a for a in off if a not in held)
+        self._cache_axes = map_tree(kept, self._cache_shardings(batch),
+                                    self.model.cache_axes())
 
     def _shardings(self, with_cache: bool = True) -> Dict[str, Any]:
         """{"serve_state": {"params", "cache"}} named shardings; the
@@ -190,16 +213,16 @@ class DecodeServer:
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy next tokens of the whole batch from this rank's logits
-        (gathered over the ranks)."""
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        (its vocab block over a vocab split), gathered over the ranks."""
+        nxt = L.greedy(logits, L.cut(L.tensor_shard(self._gather), "vocab"))
         if self.ranks is not None:
             nxt = torch.cat(self._data.all_gather(nxt))
         return nxt.cpu().numpy()
 
     # ------------------------------------------------------------- cache
-    def _cache_shardings(self):
+    def _cache_shardings(self, B: Optional[int] = None):
         """The cache's shardings for this generation's batch (kept)."""
-        B = int(self.tokens.shape[0])
+        B = int(self.tokens.shape[0]) if B is None else B
         if self._cache_sh is None or self._cache_sh[0] != B:
             self._cache_sh = (B, state_shardings(
                 self.model, self.mesh, self.policy, batch=B,
@@ -207,23 +230,24 @@ class DecodeServer:
         return self._cache_sh[1]
 
     def _cache_rows(self, blocks):
-        """The cache of this rank's rows, whole over the off-data axes,
-        from its blocks `blocks` (a restored image's): gathered over
-        them (`blocks` itself when a block is its rows whole)."""
+        """The cache this rank computes with, from its blocks `blocks` (a
+        restored image's): each leaf gathered over the axes the rank
+        keeps it whole over (a leaf itself where there are none)."""
         if self._cache_axes is None or blocks is None:
             return blocks
-        return map_tree(lambda t, sh: gather_leaves(
-            [t], [sh], [self._cache_axes], count=False)[0],
-            blocks, self._cache_shardings())
+        return map_tree(lambda t, sh, ax: gather_leaves(
+            [t], [sh], [ax], count=False)[0] if ax else t,
+            blocks, self._cache_shardings(), self._cache_axes)
 
     def _cache_blocks(self, rows):
-        """This rank's blocks of its rows' cache `rows`, as the policy
-        lays them (e.g. ``kv_heads`` over ``model``): views of `rows`,
-        for an image (`rows` itself when a block is its rows whole)."""
+        """This rank's blocks of the cache `rows` it computes with, as the
+        policy lays them (e.g. ``kv_heads`` over ``model``): views of
+        `rows`, for an image (a leaf itself where the rank keeps no axis
+        whole)."""
         if self._cache_axes is None or rows is None:
             return rows
-        return map_tree(lambda t, sh: block_of(t, sh, self._cache_axes),
-                        rows, self._cache_shardings())
+        return map_tree(lambda t, sh, ax: block_of(t, sh, ax) if ax else t,
+                        rows, self._cache_shardings(), self._cache_axes)
 
     # ------------------------------------------------------------- serving
     def start(self, batch: Dict[str, Any]) -> None:

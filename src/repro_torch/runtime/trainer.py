@@ -50,15 +50,23 @@ its remat unit (``sharding.policy.GatherLeaves``: one all-gather forward
 and one reduce-scatter backward for a layer's leaves), so the
 backward's recompute gathers each super-block again and a rank holds
 its blocks plus one super-block's weights, never a whole copy of the
-params.  Dense leaves are gathered whole, and every rank of a data row
-computes the row's dense layers whole; expert leaves are gathered over
-the data axes alone, and a rank computes its own experts, the partial
-outputs summed over the model ranks (``models/moe.py``).  Each token's
+params.  A leaf the policy's ``tp`` axes cut (heads, ``kv_heads``,
+``d_ff``, vocab, where the fitted spec keeps the axes and they divide
+the heads) is gathered over its other axes alone, and a rank computes
+its own heads, ``d_ff`` columns and vocab rows, each block's output
+summed over those ranks (``models/layers.py``); expert leaves are
+gathered over the data axes alone, and a rank computes its own experts,
+the partial outputs summed over the model ranks (``models/moe.py``);
+every other leaf (the norms, the router, the Mamba mixer) is gathered
+whole and computed whole by every rank of a data row.  Each token's
 gradient is counted once: the loss on the rank's rows is weighted by
 its row's share of the global token count over the ranks per row
 (``|model|``), the gathers' backward sums over every rank that
-gathered, and the MoE's sum over the model ranks sums the grads back,
-as the transpose of the reference's ``psum`` does.  The grads that come
+gathered, and each sum over the model ranks (a tensor-parallel block's,
+the cross-entropy's, the MoE's) sums the grads back, as the transpose
+of the reference's ``psum`` does: a rank's input to its heads is a
+variable of its own, and the grads of the leaves every rank holds
+whole meet in the gathers' sum.  The grads that come
 back are the blocks' grads and update the blocks, the clip's norm
 counting each distinct block once (replica 0's) over the ranks.  At one
 rank every block is its whole leaf and the model reads the blocks as
@@ -89,7 +97,7 @@ from repro_torch.data.pipeline import local_rows
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import build_model
-from repro_torch.models.layers import gathering
+from repro_torch.models.layers import gathering, tp_units
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import (JITCheckpointPolicy,
@@ -193,9 +201,11 @@ class Trainer:
                     flatten_with_paths(self.model.init_abstract()).items(),
                     flatten_with_paths(self.shardings["params"]).values())}
             # the model's gather (None at one rank: each block is whole),
-            # expert leaves over the data axes alone
+            # expert leaves over the data axes alone, the leaves the tp
+            # axes cut over their other axes
             self._gather = param_gather(
-                self.shardings["params"], self.model.param_axes(), dp, rows)
+                self.shardings["params"], self.model.param_axes(), dp, rows,
+                tp_units(cfg))
         # what the last step gathered (0 without ranks, or at one)
         self.gathered = {"gathered_peak_bytes": 0, "gathered_bytes": 0}
         self.params = None

@@ -28,11 +28,15 @@ reads them (inside its remat unit, so the backward's recompute gathers
 again) and on the top-level leaves once a call, so a rank holds its
 blocks plus one super-block's weights, never a whole copy of the params
 (with remat off the backward saves every gathered layer: correct, but
-no saving).  Dense leaves are gathered whole; expert leaves over the
-data axes alone, so that a rank holds its own experts whole and the MoE
-block runs expert-parallel (the gather carries its
-:class:`ExpertShard`).  :data:`GATHERED` counts the gathered bytes of a
-step or serving call.  The block arithmetic is
+no saving).  A leaf the policy splits over its tensor-parallel axes
+(``heads``, ``kv_heads``, ``d_ff``, ``vocab`` over ``tp``, where the
+fitted spec keeps them and they divide the heads) is gathered over its
+other axes alone, so that a rank computes its own heads, ``d_ff``
+columns and vocab rows (the gather carries its :class:`TensorShard`);
+expert leaves over the data axes alone, so that a rank holds its own
+experts whole and the MoE block runs expert-parallel (the gather carries
+its :class:`ExpertShard`); every other leaf is gathered whole.
+:data:`GATHERED` counts the gathered bytes of a step or serving call.  The block arithmetic is
 JAX's: a dim sharded over the axes ``(a, b)`` is cut into ``|a|·|b|``
 equal blocks with ``a`` the major axis; a slot's replica id counts, in
 mesh order, the slots before it that hold the same block.  The
@@ -572,20 +576,163 @@ class ExpertShard:
     token_shards: int = 1
 
 
+#: the logical axes a tensor-parallel policy splits a rank's compute
+#: over (``tp``): attention's heads, the MLP's hidden and the vocab
+TP_KINDS = ("heads", "kv_heads", "d_ff", "vocab")
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """One logical axis cut over the tensor-parallel ranks: the mesh axes
+    that cut it (major first, as the spec names them), the ranks' group
+    (None where one process emulates a rank: the layers then run no
+    collective and refuse to sum over the ranks, ``layers.row_sum``),
+    this rank's block and the number of blocks."""
+    axes: Tuple[str, ...]
+    group: Any
+    index: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """Where a rank's dense compute stands on a mesh: the :class:`Split`
+    of each of :data:`TP_KINDS` (None: computed whole).  ``kv_heads``
+    splits only with ``heads``, over the same axes, so that a rank's key
+    heads are those its query heads pair with."""
+    heads: Optional[Split] = None
+    kv_heads: Optional[Split] = None
+    d_ff: Optional[Split] = None
+    vocab: Optional[Split] = None
+
+
+def tp_axes(shardings, logical, units=None) -> Dict[str, Tuple[str, ...]]:
+    """Kind -> the mesh axes (of more than one slot) that cut each of
+    :data:`TP_KINDS` on this mesh: those the fitted spec keeps on the
+    kind's dim, where their product also divides the kind's `units`
+    (``{"heads": H, "kv_heads": KV}``: a dim of H·hd columns splits by
+    whole heads alone).  A kind absent, cut by no axis, or kept on axes
+    that do not divide its units is computed whole."""
+    units = units or {}
+    mesh = _first(shardings).mesh
+    out: Dict[str, Tuple[str, ...]] = {}
+    for sh, ax in zip(_leaves(shardings), _leaves(logical)):
+        for kind in TP_KINDS:
+            if kind in out or not isinstance(ax, tuple) or kind not in ax:
+                continue
+            d = ax.index(kind)
+            spec = tuple(sh.spec)
+            axes = tuple(a for a in (_axes_of(spec[d]) if d < len(spec)
+                                     else ()) if mesh.shape[a] > 1)
+            n = math.prod(mesh.shape[a] for a in axes)
+            if kind in units and units[kind] % n:
+                axes = ()
+            out[kind] = axes
+    if out.get("kv_heads") != out.get("heads"):
+        out["kv_heads"] = ()
+    return {k: v for k, v in out.items() if v}
+
+
+def tensor_shard(shardings, logical, units=None, rank: Optional[int] = None
+                 ) -> Optional[TensorShard]:
+    """The :class:`TensorShard` of `rank` (default: this process's, on a
+    process mesh, with its groups; a given rank's carries no group: a
+    caller emulating the ranks in one process takes their partial
+    outputs before the sum and adds them itself).  None where nothing
+    is cut."""
+    cut = tp_axes(shardings, logical, units)
+    if not cut:
+        return None
+    mesh = _first(shardings).mesh
+    own = rank is None
+    rank = mesh.rank if own else rank
+    pos = dict(zip(mesh.axis_names, (int(c) for c in np.unravel_index(
+        rank, mesh.devices.shape))))
+    splits = {}
+    for kind, axes in cut.items():
+        index, size = 0, 1
+        for a in axes:                          # first axis major
+            index, size = index * mesh.shape[a] + pos[a], \
+                size * mesh.shape[a]
+        splits[kind] = Split(axes, mesh.axis_group(axes) if own else None,
+                             index, size)
+    return TensorShard(**splits)
+
+
+def leaf_gather_axes(sharding: NamedSharding, logical,
+                     tensor: Optional[TensorShard] = None
+                     ) -> Optional[Tuple[str, ...]]:
+    """The axes a leaf is gathered over: every axis (None), or every axis
+    but those that cut the leaf's :data:`TP_KINDS` dim where `tensor`
+    cuts it (a rank keeps its heads, ``d_ff`` or vocab block) or, for an
+    expert leaf, its experts dim's, so that a rank holds its own experts
+    whole (the reference's FSDP gather of its local experts,
+    ``src/repro/models/moe.py:59-63``)."""
+    keep = _expert_axes(sharding, logical)
+    if not keep and tensor is not None and isinstance(logical, tuple):
+        for kind in TP_KINDS:
+            split = getattr(tensor, kind)
+            if kind in logical and split is not None:
+                keep = split.axes
+    if not keep:
+        return None
+    return tuple(a for a in sharding.mesh.axis_names if a not in keep)
+
+
+def rank_gathered(t, sharding: NamedSharding, axes, rank: int):
+    """What `rank`'s gather of the whole `t` over `axes` (None: every
+    axis) holds: its block over the other axes.  One process emulates a
+    rank's view of a whole tensor with it."""
+    over = sharding.mesh.axis_names if axes is None else axes
+    return t[rank_index(drop_axes(sharding, over), tuple(t.shape), rank)]
+
+
+def rank_view(tree, logical, mesh, rank: int, units=None, policy=None):
+    """Rank `rank`'s view of the whole params `tree` (logical axes
+    `logical`) laid over `mesh` (a mesh of slots) by `policy` (default
+    ``"baseline"``): its :class:`TensorShard` (no groups) and the tree as
+    its gather gives it, the leaves the ``tp`` axes cut as its blocks
+    and every other leaf whole.  One process emulates the ranks of a
+    tensor-parallel block with it: the sum of their partial outputs is
+    the all-reduce's arithmetic."""
+    pol = get_policy(policy or "baseline").for_mesh(mesh)
+    sh = map_tree(lambda ax, t: fit_sharding(pol.sharding(mesh, *ax),
+                                             tuple(t.shape)), logical, tree)
+    tp = tensor_shard(sh, logical, units, rank)
+    return tp, map_tree(lambda t, s, ax: rank_gathered(
+        t, s, leaf_gather_axes(s, ax, tp), rank), tree, sh, logical)
+
+
 class ParamGather:
     """The models' ``gather`` over a process mesh (:func:`param_gather`):
     ``gather(tree, *path)`` is the gathered `tree`, a rank's blocks of
     the params' subtree at `path` (keys from the root) or of one layer
     of it, by one :class:`GatherLeaves`; ``experts`` is the MoE block's
-    :class:`ExpertShard` (None without experts)."""
+    :class:`ExpertShard` (None without experts), ``tensor`` the dense
+    layers' :class:`TensorShard` (None: computed whole)."""
 
-    def __init__(self, shardings, logical, dp, rows=None):
+    def __init__(self, shardings, logical, dp, rows=None, units=None):
         self.shardings = shardings
+        mesh = _first(shardings).mesh
+        self.tensor = tensor_shard(shardings, logical, units)
+        dp_rows = tuple(a for a in dp if a in mesh.axis_names
+                        and (rows is None or a in rows))
+        cut = {a for kind in TP_KINDS
+               for s in [getattr(self.tensor, kind, None)] if s
+               for a in s.axes}
+        if cut & set(dp_rows):
+            # the ranks of a block would hold different rows, and the
+            # sum of their partial outputs would mix them
+            raise ValueError(
+                f"the tensor-parallel axes {sorted(cut)} also split the "
+                f"batch's rows (over {dp_rows}): a rank's heads, d_ff and "
+                f"vocab blocks need the same rows on every rank of a block")
         # each leaf's gather axes (None: every axis)
-        self.axes = map_tree(_leaf_gather_axes, shardings, logical)
+        self.axes = map_tree(
+            lambda sh, ax: leaf_gather_axes(sh, ax, self.tensor),
+            shardings, logical)
         self.plans: Dict[Tuple[str, ...], tuple] = {}
         self.experts = None
-        mesh = _first(shardings).mesh
         for sh, ax in zip(_leaves(shardings), _leaves(logical)):
             ep = _expert_axes(sh, ax)
             if ep is None:
@@ -642,31 +789,22 @@ def _expert_axes(sharding: NamedSharding, logical) -> Optional[Tuple[str,
     return _axes_of(spec[d]) if d < len(spec) else ()
 
 
-def _leaf_gather_axes(sharding: NamedSharding, logical
-                      ) -> Optional[Tuple[str, ...]]:
-    """The axes a leaf is gathered over: every axis (None), or for an
-    expert leaf every axis but its experts dim's, so that a rank holds
-    its own experts whole (the reference's FSDP gather of its local
-    experts, ``src/repro/models/moe.py:59-63``)."""
-    ep = _expert_axes(sharding, logical)
-    if not ep:
-        return None
-    return tuple(a for a in sharding.mesh.axis_names if a not in ep)
-
-
-def param_gather(shardings, logical, dp, rows=None):
+def param_gather(shardings, logical, dp, rows=None, units=None):
     """The models' ``gather`` over a process mesh, `shardings` the
     params' named shardings, `logical` their logical axes (the model's
     ``param_axes()``: expert leaves are gathered over every axis but
     their experts dim's, and the gather carries the MoE block's
-    :class:`ExpertShard`), `dp` the policy's data-parallel axes (the
+    :class:`ExpertShard`; the leaves of a kind the tensor-parallel axes
+    cut over every axis but those, and the gather carries the
+    :class:`TensorShard`), `dp` the policy's data-parallel axes (the
     aux loss is averaged over them), `rows` those the batch's rows split
-    over (:func:`row_axes`; None: every axis of `dp`): a
-    :class:`ParamGather`.  None on a mesh of one slot, where every block
-    is its whole leaf."""
+    over (:func:`row_axes`; None: every axis of `dp`), `units` the heads
+    of the attention (``layers.tp_units``; None: attention computed
+    whole): a :class:`ParamGather`.  None on a mesh of one slot, where
+    every block is its whole leaf."""
     if _first(shardings).mesh.size == 1:
         return None
-    return ParamGather(shardings, logical, dp, rows)
+    return ParamGather(shardings, logical, dp, rows, units)
 
 
 def _mesh_coords(mesh) -> List[Tuple[int, ...]]:

@@ -29,10 +29,15 @@ qwen1.5-0.5b (tied embedding over ``vocab`` -> ``model``), f32, B 4 x 16,
     the port's own (2, 1) run (two of the ranks: each gradient is
     counted once) and its leaves within 1e-5 of their max, or within the
     reference's own (2, 2)-vs-(2, 1) spread where that is larger (the
-    clip's norm adds four partial sums where (2, 1) adds two, and the
-    key bias's rounding-floor elements carry that last bit on);
+    (2, 2) run sums the model ranks' shares of each attention, MLP and
+    vocab block, and the clip's norm adds four partial sums where (2, 1)
+    adds two; the key bias's rounding-floor elements carry that last bit
+    on);
   * ``sharding.policy.GATHERED``: a step's peak is the top-level leaves
-    plus one layer, with the layer's experts counted at ``E / |model|``;
+    plus one layer, with the layer's experts counted at ``E / |model|``
+    and the leaves ``model`` cuts by heads, ``kv_heads``, ``d_ff`` and
+    vocab at ``1 / |model|`` (a rank computes its own), the norms and
+    the router whole;
   * the images: the port's (2, 2) image names JAX's entries with JAX's
     shapes, dtypes, specs and blocks, each distinct block written once,
     by the rank that holds its replica 0; JAX's step-3 image restores in
@@ -40,9 +45,10 @@ qwen1.5-0.5b (tied embedding over ``vocab`` -> ``model``), f32, B 4 x 16,
     -> (4, 1) and -> (1, 1) (a mesh of slots in this process), and
     (2, 1) -> (2, 2), bit-equal;
   * serving on (2, 2) (both archs): JAX's (2, 2) server's tokens; a
-    rank keeps its rows' cache whole, and the image holds the policy's
-    blocks (``kv_heads`` over ``model``); a sync image taken
-    mid-generation cold-restores token-exact at (2, 2) and at (4, 1).
+    rank keeps its rows' cache and its ``kv_heads`` block of it (its own
+    heads' keys), and the image holds the policy's blocks (``kv_heads``
+    over ``model``); a sync image taken mid-generation cold-restores
+    token-exact at (2, 2) and at (4, 1).
 
 A one-process unit test holds the EP body itself: the partial outputs
 of two emulated model shards sum to the one-rank block within f32
@@ -207,7 +213,8 @@ _RANKS = _COMMON + textwrap.dedent('''
     from repro_torch.runtime.server import DecodeServer
     from repro_torch.runtime.trainer import TrainConfig, Trainer
     from repro_torch.sharding import state_shardings
-    from repro_torch.sharding.policy import index_to_json, rank_index
+    from repro_torch.sharding.policy import (index_to_json, map_tree,
+                                             rank_index)
 
 
     def _wait(path, deadline_s=150.0):
@@ -220,17 +227,31 @@ _RANKS = _COMMON + textwrap.dedent('''
 
     def _expected(trainer, per_model):
         """Bytes a step gathers by arithmetic: every leaf a rank holds in
-        blocks, whole, but an expert leaf at E / |model| experts; the
+        blocks, whole, but an expert leaf at E / |model| experts and a
+        leaf of heads, kv_heads, d_ff or vocab at 1 / |model| (the smoke
+        configs' 4 / 2 heads, d_ff and vocab divide over 2), and not at
+        all where the model axis alone cuts it (the qkv biases); the
         top-level leaves and one layer (a pattern of one)."""
         abstract = flatten_with_paths(trainer.model.init_abstract())
         shard = flatten_with_paths(trainer.shardings["params"])
+        cut = flatten_with_paths(map_tree(
+            lambda ax: int(any(a in ax for a in (
+                "experts", "heads", "kv_heads", "d_ff", "vocab"))),
+            trainer.model.param_axes()))
+        cfg = trainer.cfg
+        assert all(n % per_model == 0 for n in (
+            cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab))
         top = layer = 0
         for k, a in abstract.items():
             shape = tuple(a.shape)
             if shard[k].shard_shape(shape) == shape:
                 continue                  # every rank holds it whole
             n = a.numel() * a.element_size()
-            if "/moe/w_" in k:
+            if cut[k]:
+                if {x for e in shard[k].spec if e
+                        for x in ((e,) if isinstance(e, str) else e)} \
+                        == {"model"}:
+                    continue              # its own block: not gathered
                 n //= per_model
             if k.startswith("blocks/"):
                 layer += n // trainer.cfg.num_layers
@@ -611,10 +632,11 @@ def test_2x2_serves_the_jax_tokens_and_resumes_cold(runs, arch):
         np.testing.assert_array_equal(np.asarray(got["plain"]), want)
         np.testing.assert_array_equal(np.asarray(got["cold22"]), want)
         np.testing.assert_array_equal(np.asarray(got["cold41"]), want)
-        # a rank's cache: its rows (over data), every KV head
+        # a rank's cache: its rows (over data), its half of the KV heads
+        # (over model: those of its own heads)
         kv = get_smoke_config(arch).num_kv_heads
         for k, shape in got["cache"].items():
-            assert shape[1] == SB // 2 and shape[3] == kv, (k, shape)
+            assert shape[1] == SB // 2 and shape[3] == kv // 2, (k, shape)
     # the image: the policy's blocks, half the KV heads each
     reader = SnapshotStore(str(root / "serve")).reader(0)
     try:

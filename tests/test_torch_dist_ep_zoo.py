@@ -30,7 +30,14 @@ tests/test_torch_dist_zoo.py, ROADMAP C).  For each arch:
     danube with ``max_seq`` within its smoke window of 16: past it the
     JAX server's ring is wrong, ROADMAP C); the image taken
     mid-generation holds JAX's cache blocks, and a server of the port
-    restores it cold at (2, 2) token-exact.
+    restores it cold at (2, 2) token-exact;
+  * the model axis splits the dense compute (``models/layers.py``): a
+    step's gathered peak is the top-level leaves and the largest unit
+    (jamba's super-block, whisper's encoder or decoder layer, one layer
+    else), each leaf that ``model`` cuts by heads, ``kv_heads``, ``d_ff``,
+    vocab or experts at 1 / |model| of its bytes, the norms, the router
+    and the Mamba mixer whole; and a serving rank keeps half the KV heads
+    of its rows' self and cross caches, an SSM state whole.
 
 JAX runs in two subprocesses (jamba alone: its compile is the longest),
 each restoring the port's image into JAX once the port has trained; the
@@ -251,7 +258,46 @@ _RANKS = _COMMON + textwrap.dedent('''
     from repro_torch.runtime.server import DecodeServer
     from repro_torch.runtime.trainer import TrainConfig, Trainer
     from repro_torch.sharding import state_shardings
-    from repro_torch.sharding.policy import index_to_json, rank_index
+    from repro_torch.sharding.policy import (index_to_json, map_tree,
+                                             rank_index)
+
+
+    def _expected(trainer, per_model):
+        """Bytes a step gathers at most, by arithmetic: the top-level
+        leaves and the largest unit (LM: one pass over the pattern;
+        whisper: one encoder or decoder layer), every leaf a rank holds
+        in blocks counted whole, but a leaf the model axis cuts by
+        heads, kv_heads, d_ff, vocab or experts at 1 / |model| (the
+        smoke configs divide over 2), and not at all where the model
+        axis alone cuts it (the qkv biases)."""
+        abstract = flatten_with_paths(trainer.model.init_abstract())
+        shard = flatten_with_paths(trainer.shardings["params"])
+        cut = flatten_with_paths(map_tree(
+            lambda ax: int(any(a in ax for a in (
+                "experts", "heads", "kv_heads", "d_ff", "vocab"))),
+            trainer.model.param_axes()))
+        cfg = trainer.cfg
+        top, units = 0, {}
+        for k, a in abstract.items():
+            shape = tuple(a.shape)
+            if shard[k].shard_shape(shape) == shape:
+                continue                  # every rank holds it whole
+            n = a.numel() * a.element_size()
+            if cut[k]:
+                if {x for e in shard[k].spec if e
+                        for x in ((e,) if isinstance(e, str) else e)} \
+                        == {"model"}:
+                    continue              # its own block: not gathered
+                n //= per_model
+            head = k.split("/")[0]
+            if head == "blocks":
+                units[head] = units.get(head, 0) + n // (
+                    cfg.num_layers // len(cfg.layer_pattern))
+            elif head in ("enc_blocks", "dec_blocks"):
+                units[head] = units.get(head, 0) + n // shape[0]
+            else:
+                top += n
+        return {"top": top, "largest_unit": max(units.values())}
 
 
     def _train(cfg, arch, run, mesh, start):
@@ -273,7 +319,9 @@ _RANKS = _COMMON + textwrap.dedent('''
             return m
         t._train_step = recorded
         t.run(STEPS)
-        out = {"losses": t.metrics_history["loss"], "aux": aux}
+        out = {"losses": t.metrics_history["loss"], "aux": aux,
+               "gathered": t.gathered,
+               "expected": _expected(t, mesh.shape["model"])}
         t.release()
         return out
 
@@ -320,7 +368,9 @@ _RANKS = _COMMON + textwrap.dedent('''
         srv.decode(AT)
         srv.checkpoint(0)
         srv.decode(TOKENS - AT)
-        got = {"plain": srv.tokens.tolist()}
+        got = {"plain": srv.tokens.tolist(),
+               "cache": {k: list(t.shape) for k, t in flatten_with_paths(
+                   srv.cache).items()}}
         srv.release()
         cold = server()
         assert cold.restore() == SERVE[arch][0] + AT
@@ -601,6 +651,33 @@ def test_2x2_serves_the_jax_tokens_and_resumes_cold(runs, arch):
                                             jmeta[k]["dtype"]), k
         assert _spec(m) == _spec({"sharding": {
             "spec": rule[k[len("cache/"):]]}}), (k, _spec(m))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gathered_peak_counts_a_ranks_own_heads_and_d_ff(runs, arch):
+    for r in runs["reports"]:
+        want, got = r[arch]["p22"]["expected"], r[arch]["p22"]["gathered"]
+        assert want["top"] > 0 and want["largest_unit"] > 0
+        assert got["gathered_peak_bytes"] == \
+            want["top"] + want["largest_unit"], (got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_serving_rank_keeps_its_kv_heads_block(runs, arch):
+    cfg = get_smoke_config(arch, **OVERRIDES.get(arch, {}))
+    model = build_model(cfg, device="cpu")
+    # the rank's rows (SB over data), the whole cache's other dims
+    whole = {k: list(t.shape) for k, t in flatten_with_paths(
+        model.cache_abstract(SB // 2, SERVE[arch][1])).items()}
+    for r in runs["reports"]:
+        got = r[arch]["serve"]["cache"]
+        assert sorted(got) == sorted(whole)
+        for k, shape in got.items():
+            want = list(whole[k])
+            if k.split("/")[-1] in ("k", "v", "self_k", "self_v",
+                                    "cross_k", "cross_v"):
+                want[3] = cfg.num_kv_heads // 2        # its own heads'
+            assert shape == want, (k, shape, want)
 
 
 def test_local_rows_take_mrope_positions_by_their_batch_dim():
